@@ -3,16 +3,17 @@
 
     python3 chip_smoke.py
 
-Drives the port's planning path (``repro_torch``; nothing of JAX or of the
-reference package ``repro``) on the card and fails on any fault:
+Drives the port's two main paths (``repro_torch``; nothing of JAX or of
+the reference package ``repro``) on the card and fails on any fault:
 
 1. device: the card's name and power limit, the torch and CUDA versions;
-2. build: ``src/repro_torch/csrc/split_dp.cu`` with ``nvcc`` for sm_90a;
-3. kernels against their plain PyTorch versions on the card (dense and
+2. build: every source under ``src/repro_torch/csrc`` with ``nvcc`` for
+   sm_90a, one ``nvcc`` per source, all started together;
+3. DP kernels against their plain PyTorch versions on the card (dense and
    fused x float32/float64 x sum/max, S = 4,099, tie-rich inputs with
    ~15% +inf and frozen rows, a heterogeneous ``bank_idx`` case): tables
    and parents exactly equal, and in float64 equal to the numpy oracle;
-4. the main path: ``sweep()`` on a 32,768-scenario grid at full model
+4. the planning path: ``sweep()`` on a 32,768-scenario grid at full model
    width (MobileNet-V2, L = 54; ResNet50, L = 52; four protocols, fleets
    of 2-5 ESP32s, 32 loss rates x 32 rate scales), then a grid with
    heterogeneous device mixes and one with energy budgets (dense kernel),
@@ -20,10 +21,38 @@ reference package ``repro``) on the card and fails on any fault:
    result equals the same sweep run on the plain versions; the float32
    fused path agrees with ``backend="torch"`` within a stated tolerance;
    float64 on the card equals ``backend="numpy"`` exactly;
-5. times with CUDA events at S = 65,536, N = 5, L = 54, float32, beside
-   each kernel's bound; the main-path sweep's scenarios/s and wall time,
+5. DP times with CUDA events at S = 65,536, N = 5, L = 54, float32,
+   beside each kernel's bound; the sweep's scenarios/s and wall time,
    and a profiled run's device busy time and idle share;
-6. a JSON line of per-kernel results, the card line, and the last line
+6. the flash-attention kernel against its plain version on the card:
+   float32 and bfloat16, MHA / GQA (group 4) / MQA, ragged 100/100, q a
+   suffix of a longer kv, and both full-width shapes the serving path
+   launches (4 x 2048 x 32 x 128 over 2,048 kv rows, and over the
+   2,080-row cache), within the reference kernel test's tolerances (at
+   full width in bf16, a tighter atol set from the measured error);
+   cross-checked against ``scaled_dot_product_attention`` as a yardstick;
+7. the serving path's prefill step at full width: deepseek-7b (30 layers,
+   d 4096, bf16, ``use_flash_kernel=True``, seeded random weights made
+   on the card), ``make_prefill_step`` on 4 prompts x 2048 tokens: 30
+   flash launches, logits held to the same step on the plain attention
+   path (``use_flash_kernel=False``) within a stated tolerance;
+8. cached serving: ``prefill`` into a cache of 2048 + 32 rows (30
+   launches), then 32 greedy ``serve_step``s (0 launches); the prefill's
+   last-position logits are held to the plain-attention twin's as in 7,
+   and the tokens equal the twin's wherever its top-two logit gap
+   exceeds twice the logits tolerance;
+9. ``Server`` at full width: 4 slots, 8 staggered requests of 8-64 prompt
+   tokens, 16 new tokens each (0 flash launches: the server prefills
+   token by token through the decode step); every request's tokens
+   equal serving it alone on a 4-slot server, exactly;
+10. serving times beside the card line: the flash kernel, its plain
+   version and ``scaled_dot_product_attention`` at the full-width shape
+   beside the kernel's bound; the prefill step's wall time and tokens/s;
+   ms per ``serve_step`` over three windows, the per-step spread with its
+   host enqueue time, and the allocator's retries and cudaMalloc calls
+   over those steps; ``Server`` tokens/s; traced runs of a prefill
+   step and a ``serve_step`` (device busy time, idle share, launches);
+11. a JSON line of per-kernel results, the card line, and the last line
    ``{"ok": true, "device": {...}}``.
 
 Exits non-zero, printing no result, when no card is present.
@@ -35,6 +64,7 @@ import json
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 from dataclasses import replace
 from pathlib import Path
 
@@ -50,6 +80,21 @@ F32_EPS = float(np.finfo(np.float32).eps)
 # compares, one per lane per cycle, so half of it.
 HBM_BYTES_PER_S = 3.35e12
 FP32_OPS_PER_S = 67e12 / 2
+# dense bf16 tensor-core peak (not the 1,979 TFLOP/s sparsity figure)
+BF16_FLOPS_PER_S = 989e12
+
+# the reference kernel test's tolerances (tests/test_kernels.py:133, :151)
+FLASH_TOL = {"float32": (1e-3, 2e-5), "bfloat16": (2e-2, 2e-2)}
+# bf16 at full width, where rows see ~1,000 keys and |out| is ~0.04: rtol
+# covers a one-ulp difference of the bf16 output at any magnitude (an ulp
+# is <= 2^-7 relative); atol is twice the largest error measured at the
+# prefill step's shape (0.00195, one ulp in [0.25, 0.5))
+FLASH_TOL_FULL_BF16 = (2e-2, 4e-3)
+# prefill logits, kernel vs the plain-attention twin: max |diff| <= this
+# times the twin's std. The kernel keeps the probabilities in float32
+# (the reference kernel's arithmetic); the twin's chunked attention
+# rounds them to bf16 before PV, and 30 layers compound the difference.
+LOGITS_TOL = 0.25
 
 
 def card_line() -> str:
@@ -339,10 +384,6 @@ def phase_sweep(grid, card, fused_per_sweep) -> None:
     """The main-path sweep at steady state (kernel built, card warm): its
     own timing split, the whole call's wall time, and a traced run's
     device busy time by operation and the device's idle share."""
-    import torch
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
     from repro_torch.core.sweep import sweep
 
     t0 = time.perf_counter()
@@ -352,23 +393,387 @@ def phase_sweep(grid, card, fused_per_sweep) -> None:
           f"scenarios/s, build_time_s {res.build_time_s:.4f}, solve_time_s "
           f"{res.solve_time_s:.4f}, whole call {wall:.4f} s; fused launches "
           f"per sweep {fused_per_sweep} [{card}]")
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        sweep(grid)
+    traced_run("sweep", lambda: sweep(grid), card)
+
+
+# ---------------------------------------------------------------------------
+# The serving path: deepseek-7b on the flash-attention kernel
+# ---------------------------------------------------------------------------
+
+
+def fold(x):
+    """(B, S, H, D) -> (B*H, S, D), as the flash wrapper folds."""
+    B, S, H, D = x.shape
+    return x.transpose(1, 2).reshape(B * H, S, D)
+
+
+def flash_case(dev, B, Sq, Skv, H, Hkv, D, dtype, seed, q0=None):
+    """Seeded q, k, v in model layout; q sits at positions q0.. (default:
+    the last Sq kv positions)."""
+    import torch
+
+    g = torch.Generator(device=dev).manual_seed(seed)
+    q, k, v = (torch.randn((B, S, h, D), generator=g, device=dev).to(dtype)
+               for S, h in ((Sq, H), (Skv, Hkv), (Skv, Hkv)))
+    q0 = Skv - Sq if q0 is None else q0
+    qpos = torch.arange(q0, q0 + Sq, dtype=torch.int32, device=dev)
+    kpos = torch.arange(Skv, dtype=torch.int32, device=dev)
+    return q, k, v, qpos, kpos
+
+
+def phase_flash(dev) -> float:
+    """The flash kernel (through its wrapper) against its plain version on
+    the card; returns the largest max abs error over the cases."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.flash_attention import ops as FA
+    from repro_torch.kernels.flash_attention.ref import attention_ref
+
+    cases = [  # label, B, Sq, Skv, H, Hkv, D, first q position (None: Skv - Sq)
+        ("MHA", 2, 256, 256, 8, 8, 128, None),
+        ("GQA group 4", 2, 256, 256, 8, 2, 128, None),
+        ("MQA", 2, 192, 192, 8, 1, 64, None),
+        ("ragged 100/100", 2, 100, 100, 4, 2, 32, None),
+        ("q suffix of a longer kv", 2, 96, 2080, 4, 4, 128, None),
+        ("full width (prefill step)", 4, 2048, 2048, 32, 32, 128, None),
+        # prefill into the 2,080-row cache: the unwritten 32-row kv tail
+        # is masked for every q row, and its tile is skipped
+        ("full width (prefill into the cache)", 4, 2048, 2080, 32, 32, 128, 0),
+    ]
+    worst = 0.0
+    for dtype in (torch.float32, torch.bfloat16):
+        name = str(dtype)[6:]
+        for i, (label, B, Sq, Skv, H, Hkv, D, q0) in enumerate(cases):
+            full = label.startswith("full width")
+            rtol, atol = FLASH_TOL_FULL_BF16 if full and name == "bfloat16" \
+                else FLASH_TOL[name]
+            q, k, v, qpos, kpos = flash_case(dev, B, Sq, Skv, H, Hkv, D, dtype, 10 + i, q0)
+            (B, Sq, H, D), (Skv, Hkv) = q.shape, k.shape[1:3]
+            scale = D ** -0.5
+            got = FA.flash_attention(q, k, v, q_positions=qpos, kv_positions=kpos,
+                                     scale=scale)
+            torch.cuda.synchronize()
+            want = attention_ref(fold(q), fold(k), fold(v), qpos, kpos, scale)
+            want = want.reshape(B, H, Sq, D).transpose(1, 2)
+            diff = (got.float() - want.float()).abs()
+            err = float(diff.max())
+            used = float((diff / (atol + rtol * want.float().abs())).max())
+            if used > 1.0 or not bool(torch.isfinite(got).all()):
+                raise AssertionError(f"flash {label} {name}: kernel != plain version "
+                                     f"(max abs err {err}, rtol {rtol}, atol {atol})")
+            worst = max(worst, err)
+            note = ""
+            if int(qpos[0]) == 0:  # causal SDPA (top-left aligned) is the same function
+                rep = H // Hkv
+                sdpa = F.scaled_dot_product_attention(
+                    q.transpose(1, 2), k.repeat_interleave(rep, 2).transpose(1, 2),
+                    v.repeat_interleave(rep, 2).transpose(1, 2), is_causal=True,
+                    scale=scale).transpose(1, 2)
+                note = (f"; vs scaled_dot_product_attention (yardstick) "
+                        f"{float((got.float() - sdpa.float()).abs().max()):.3g}")
+            print(f"  ok {label} B={B} Sq={Sq} Skv={Skv} H={H} Hkv={Hkv} D={D} "
+                  f"{name}: max abs err {err:.3g} (rtol {rtol}, atol {atol}; "
+                  f"{used:.3f} of the limit){note}")
+    return worst
+
+
+def lm_setup(dev):
+    """deepseek-7b at full width on the card, seeded random weights, and
+    its plain-attention twin config."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import transformer as T
+
+    cfg = replace(get_config("deepseek-7b"), use_flash_kernel=True)
+    t0 = time.perf_counter()
+    params = T.init_params(cfg, generator=torch.Generator(device=dev).manual_seed(0),
+                           device=dev)
+    torch.cuda.synchronize()
+    print(f"  deepseek-7b: {cfg.n_layers} layers, d {cfg.d_model}, {cfg.n_heads} "
+          f"heads of {cfg.head_dim}, d_ff {cfg.d_ff}, vocab {cfg.vocab}, {cfg.dtype}; "
+          f"{sum(p.numel() for p in params.parameters()) / 1e9:.3f} G parameters "
+          f"made on the card in {time.perf_counter() - t0:.1f} s")
+    return cfg, replace(cfg, use_flash_kernel=False), params
+
+
+def prompts(dev, cfg, B=4, P=2048):
+    import torch
+
+    g = torch.Generator(device=dev).manual_seed(1)
+    return torch.randint(0, cfg.vocab, (B, P), generator=g, device=dev)
+
+
+def phase_prefill(dev, cfg, twin, params) -> dict:
+    """``make_prefill_step`` on 4 x 2048 tokens: 30 flash launches; the
+    last-position logits against the plain-attention twin's."""
+    import torch
+
+    from repro_torch.kernels.flash_attention import ops as FA
+    from repro_torch.launch.steps import make_prefill_step
+
+    batch = {"tokens": prompts(dev, cfg)}
+    FA.reset_launch_count()
+    got = make_prefill_step(cfg)(params, batch)
+    torch.cuda.synchronize()
+    launches = FA.FLASH_LAUNCHES
+    if launches != cfg.n_layers:
+        raise AssertionError(f"prefill step: {launches} flash launches, "
+                             f"expected {cfg.n_layers}")
+    want = make_prefill_step(twin)(params, batch)
+    real = slice(0, cfg.vocab)
+    if got.shape != (4, cfg.vocab_padded) or not bool(torch.isfinite(got[:, real]).all()):
+        raise AssertionError(f"prefill step: bad logits {tuple(got.shape)}")
+    err = float((got[:, real] - want[:, real]).abs().max())
+    std = float(want[:, real].std())
+    same = (got[:, real].argmax(-1) == want[:, real].argmax(-1)).tolist()
+    print(f"  prefill step 4 x 2048: {launches} flash launches; last-position logits "
+          f"vs the plain-attention twin: max abs err {err:.4g} = {err / std:.4f} x "
+          f"std {std:.4g} (tolerance {LOGITS_TOL} x std); argmax equal {same}")
+    if err > LOGITS_TOL * std:
+        raise AssertionError("prefill step: kernel logits beyond tolerance of the twin")
+    return {"launches": launches, "tol": LOGITS_TOL * std}
+
+
+def phase_cached(dev, cfg, twin, params, tol, n_decode=32) -> dict:
+    """``prefill`` into a 2048 + 32 cache, then greedy ``serve_step``s; the
+    twin decodes the same tokens. The prefill's last-position logits are
+    held to the twin's within LOGITS_TOL x its std, as in phase 7; at
+    every step, wherever the twin's top-two logit gap exceeds 2 x tol,
+    the kernel model's token must equal its argmax."""
+    import torch
+
+    from repro_torch.kernels.flash_attention import ops as FA
+    from repro_torch.models import transformer as T
+
+    tokens = prompts(dev, cfg)
+    B, P = tokens.shape
+    max_seq = P + n_decode
+    real = slice(0, cfg.vocab)
+    counts = {}
+    exact = decisive = 0
+    ours, theirs = T.init_cache(cfg, B, max_seq, device=dev), T.init_cache(cfg, B, max_seq, device=dev)
+    for i in range(n_decode + 1):
+        step = {"tokens": tokens} if i == 0 else {"tokens": tok[:, None], "cur_index": P + i - 1}
+        run = T.prefill if i == 0 else T.serve_step
+        FA.reset_launch_count()
+        logits, ours = run(cfg, params, step, ours)
         torch.cuda.synchronize()
-        traced = time.perf_counter() - t0
-    ops = sorted((e for e in prof.key_averages() if e.device_type == DeviceType.CUDA),
+        counts[run.__name__] = counts.get(run.__name__, 0) + FA.FLASH_LAUNCHES
+        twin_logits, theirs = run(twin, params, step, theirs)
+        if i == 0:
+            err = float((logits[:, -1, real] - twin_logits[:, -1, real]).abs().max())
+            std = float(twin_logits[:, -1, real].std())
+            print(f"  prefill into the cache: last-position logits vs the twin: max abs "
+                  f"err {err:.4g} = {err / std:.4f} x std {std:.4g} (tolerance "
+                  f"{LOGITS_TOL} x std)")
+            if err > LOGITS_TOL * std:
+                raise AssertionError("prefill into the cache: kernel logits beyond "
+                                     "tolerance of the twin")
+        tok = logits[:, -1, real].argmax(-1)
+        top2 = twin_logits[:, -1, real].topk(2, dim=-1).values
+        clear = (top2[:, 0] - top2[:, 1]) > 2 * tol
+        agree = tok == twin_logits[:, -1, real].argmax(-1)
+        if bool((clear & ~agree).any()):
+            raise AssertionError(f"cached serving step {i}: tokens differ from the "
+                                 f"twin where its top-two gap exceeds {2 * tol:.4g}")
+        exact += int(agree.sum())
+        decisive += int(clear.sum())
+        if not bool(torch.isfinite(logits[:, -1, real]).all()) or bool((tok < 0).any()):
+            raise AssertionError(f"cached serving step {i}: bad logits")
+    if counts != {"prefill": cfg.n_layers, "serve_step": 0}:
+        raise AssertionError(f"cached serving: flash launches {counts}, expected "
+                             f"{cfg.n_layers} in prefill and 0 in serve_step")
+    total = B * (n_decode + 1)
+    print(f"  prefill into a {max_seq}-row cache + {n_decode} serve_steps: flash "
+          f"launches {counts}; tokens equal to the twin's in {exact} of {total} "
+          f"(row, step) picks; {decisive} had a top-two gap > {2 * tol:.4g}, and "
+          f"all of those agree")
+    return {"counts": counts, "exact": exact, "total": total, "cache": ours}
+
+
+def serve_requests(params, cfg, reqs, slots=4, max_seq=128, stagger=True):
+    """Serve ``reqs`` [(rid, prompt, max_new)] on a fresh ``Server``;
+    staggered: two at a time, with ticks between the admissions."""
+    from repro_torch.runtime.server import Request, Server
+
+    srv = Server(cfg, params, slots=slots, max_seq=max_seq)
+    out = {rid: [] for rid, _, _ in reqs}
+    pending = list(reqs)
+    while pending or srv.queue or srv.active:
+        for rid, prompt, max_new in pending[:2] if stagger else pending:
+            srv.submit(Request(rid, prompt, max_new_tokens=max_new))
+        pending = pending[2:] if stagger else []
+        for _ in range(3 if pending else 10_000):
+            if not (srv.queue or srv.active):
+                break
+            for rid, tok in srv.step():
+                out[rid].append(tok)
+    return out
+
+
+def phase_server(params, cfg) -> dict:
+    """``Server`` at full width: 8 staggered requests on 4 slots; every
+    request drains with in-vocab tokens equal to serving it alone."""
+    import torch
+
+    from repro_torch.kernels.flash_attention import ops as FA
+
+    rng = np.random.RandomState(7)
+    reqs = [(rid, rng.randint(0, cfg.vocab, size=int(n)).astype(np.int32), 16)
+            for rid, n in enumerate(rng.randint(8, 65, size=8))]
+    FA.reset_launch_count()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    got = serve_requests(params, cfg, reqs)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = FA.FLASH_LAUNCHES
+    n_tokens = sum(len(t) for t in got.values())
+    if launches != 0:
+        raise AssertionError(f"Server: {launches} flash launches, expected 0")
+    if any(len(t) != 16 or not all(0 <= x < cfg.vocab for x in t) for t in got.values()):
+        raise AssertionError("Server: a request did not drain with in-vocab tokens")
+    for rid, prompt, max_new in reqs:
+        alone = serve_requests(params, cfg, [(rid, prompt, max_new)], stagger=False)
+        if alone[rid] != got[rid]:
+            raise AssertionError(f"Server: request {rid} differs from serving it alone")
+    print(f"  Server 4 slots, 8 requests (prompts {sorted(len(p) for _, p, _ in reqs)} "
+          f"tokens), 16 new tokens each: all drained, {launches} flash launches; each "
+          f"request's tokens == serving it alone (exact)")
+    return {"wall_s": wall, "tokens": n_tokens,
+            "prompt_tokens": sum(len(p) for _, p, _ in reqs)}
+
+
+def traced_run(label, fn, card) -> None:
+    """One traced run of ``fn``: wall time, device busy time and idle
+    share, kernel launches, and the device time of the largest ops."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    events = prof.key_averages()
+    ops = sorted((e for e in events if e.device_type == DeviceType.CUDA),
                  key=lambda e: -e.self_device_time_total)
     busy_ms = sum(e.self_device_time_total for e in ops) / 1e3
+    launches = sum(e.count for e in events if e.key == "cudaLaunchKernel")
     if busy_ms == 0.0:
-        print("  traced sweep: device time not measured (the profiler saw no "
-              "device events)")
+        print(f"  traced {label}: device time not measured (no device events)")
         return
-    top = "; ".join(f"{e.key[:60]} {e.self_device_time_total / 1e3:.3f} ms "
-                    f"x{e.count}" for e in ops[:5])
-    print(f"  traced sweep: wall {traced:.4f} s, device busy {busy_ms:.3f} ms, "
-          f"idle share {1 - busy_ms / 1e3 / traced:.4f} [{card}]")
+    top = "; ".join(f"{e.key[:50]} {e.self_device_time_total / 1e3:.2f} ms x{e.count}"
+                    for e in ops[:8])
+    print(f"  traced {label}: wall {wall * 1e3:.2f} ms, device busy {busy_ms:.2f} ms, "
+          f"idle share {1 - busy_ms / 1e3 / wall:.4f}, {launches} kernel launches "
+          f"[{card}]")
     print(f"  device time by op: {top}")
+
+
+def phase_serving_times(dev, cfg, params, cache, server, card) -> dict:
+    """The flash kernel, its plain version and SDPA at the full-width
+    shape beside the kernel's bound; prefill step, serve_step and Server
+    rates; traced runs of a prefill step and a serve_step."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.flash_attention import ops as FA
+    from repro_torch.kernels.flash_attention.ref import attention_ref
+    from repro_torch.launch.steps import make_prefill_step
+    from repro_torch.models import transformer as T
+
+    B, S, H, D = 4, 2048, cfg.n_heads, cfg.head_dim
+    q, k, v, qpos, kpos = flash_case(dev, B, S, S, H, cfg.n_kv_heads, D, torch.bfloat16, 99)
+    qf, kf, vf = fold(q), fold(k), fold(v)
+    scale = D ** -0.5
+    # the work these positions need: the (q, k) pairs the mask keeps, and
+    # q, out and the kv rows up to the last q position, each moved once
+    pairs = B * H * int((kpos[None, :] <= qpos[:, None]).sum())
+    live_kv = int((kpos <= qpos.max()).sum())
+    flops = 4 * D * pairs
+    nbytes = 2 * (2 * B * H * S * D + 2 * B * cfg.n_kv_heads * live_kv * D)
+    flops_ms, bytes_ms = flops / BF16_FLOPS_PER_S * 1e3, nbytes / HBM_BYTES_PER_S * 1e3
+    qs, ks, vs = (t.transpose(1, 2) for t in (q, k, v))
+    plain_a = timed_ms(lambda: attention_ref(qf, kf, vf, qpos, kpos, scale), 3)
+    ms = timed_ms(lambda: FA.flash_attention_kernel(qf, kf, vf, qpos, kpos, scale=scale), 10)
+    plain_ms = min(plain_a, timed_ms(lambda: attention_ref(qf, kf, vf, qpos, kpos, scale), 3))
+    lib_ms = timed_ms(lambda: F.scaled_dot_product_attention(qs, ks, vs, is_causal=True,
+                                                             scale=scale), 10)
+    flash = dict(ms=ms, plain_ms=plain_ms, bound_ms=max(flops_ms, bytes_ms),
+                 bound_by="operations" if flops_ms >= bytes_ms else "bytes",
+                 library_ms=lib_ms)
+    print(f"  flash_attention B={B} S={S} H={H} D={D} bf16 causal: {ms:.4f} ms (plain "
+          f"{plain_ms:.3f} ms; scaled_dot_product_attention {lib_ms:.4f} ms; bound "
+          f"{flash['bound_ms']:.4f} ms by {flash['bound_by']}: {flops / 1e9:.1f} G flops "
+          f"in {flops_ms:.4f} ms, {nbytes / 1e6:.1f} MB in {bytes_ms:.4f} ms; "
+          f"{ms / flash['bound_ms']:.1f}x the bound) [{card}]")
+
+    step = make_prefill_step(cfg)
+    batch = {"tokens": prompts(dev, cfg)}
+    walls = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        step(params, batch)
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+    n_tok = batch["tokens"].numel()
+    print(f"  prefill step 4 x 2048: {min(walls):.4f} s ({n_tok / min(walls):.1f} "
+          f"tokens/s; runs {', '.join(f'{w:.4f}' for w in walls)} s) [{card}]")
+
+    tok = torch.zeros((4, 1), dtype=torch.long, device=dev)
+
+    def decode(i):
+        T.serve_step(cfg, params, {"tokens": tok, "cur_index": 2048 + i % 32}, cache)
+
+    for i in range(2):
+        decode(i)
+    torch.cuda.synchronize()
+    mem0 = torch.cuda.memory_stats()
+    windows = []  # three windows of 10 back-to-back steps: the rate
+    for _ in range(3):
+        t0 = time.perf_counter()
+        for i in range(10):
+            decode(i)
+        torch.cuda.synchronize()
+        windows.append((time.perf_counter() - t0) / 10 * 1e3)
+    enq, walls = [], []  # 10 steps one at a time: host enqueue vs wall
+    for i in range(10):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        decode(i)
+        t1 = time.perf_counter()
+        torch.cuda.synchronize()
+        enq.append((t1 - t0) * 1e3)
+        walls.append((time.perf_counter() - t0) * 1e3)
+    mem1 = torch.cuda.memory_stats()
+    step_ms = float(np.median(windows))
+    print(f"  serve_step, 4 rows over a {cache['k'].shape[2]}-row cache: {step_ms:.3f} "
+          f"ms per step ({4e3 / step_ms:.1f} tokens/s), median of windows of 10 "
+          f"steps: {', '.join(f'{w:.3f}' for w in windows)} ms [{card}]")
+    print(f"  serve_step one at a time: wall min/median/max {min(walls):.3f} / "
+          f"{float(np.median(walls)):.3f} / {max(walls):.3f} ms, host enqueue "
+          f"{min(enq):.3f} / {float(np.median(enq)):.3f} / {max(enq):.3f} ms; over "
+          f"the 40 steps: allocator retries "
+          f"{mem1.get('num_alloc_retries', 0) - mem0.get('num_alloc_retries', 0)}, "
+          f"cudaMalloc calls {mem1.get('num_device_alloc', 0) - mem0.get('num_device_alloc', 0)}, "
+          f"reserved {mem0['reserved_bytes.all.current'] / 2**30:.2f} -> "
+          f"{mem1['reserved_bytes.all.current'] / 2**30:.2f} GiB [{card}]")
+    srv_rate = server["tokens"] / server["wall_s"]
+    print(f"  Server (phase 9 run): {server['tokens']} generated tokens and "
+          f"{server['prompt_tokens']} prompt tokens in {server['wall_s']:.3f} s: "
+          f"{srv_rate:.2f} generated tokens/s [{card}]")
+
+    traced_run("prefill step", lambda: step(params, batch), card)
+    traced_run("serve_step", lambda: T.serve_step(cfg, params, {"tokens": tok,
+                                                                "cur_index": 2048}, cache),
+               card)
+    return flash
 
 
 def main() -> int:
@@ -384,26 +789,53 @@ def main() -> int:
 
     t_start = time.perf_counter()
     dev = torch.device("cuda")
+    # float32 products in full float32 (no TF32; PyTorch's default, stated
+    # here): the float32 plain attention of phase 6 and the Server's
+    # float32 cache need it. The LM head's inputs are bfloat16 values,
+    # which TF32 holds exactly.
+    torch.backends.cuda.matmul.allow_tf32 = False
     card = card_line()
     print(f"== 1 device: {card}; torch {torch.__version__}, CUDA "
           f"{torch.version.cuda}; {torch.cuda.get_device_name(0)} x "
           f"{torch.cuda.device_count()}")
 
-    built = build.load()
-    print(f"== 2 build: {built.path.name} in {built.build_time_s:.2f} s")
-    for line in built.log.splitlines():
-        if "registers" in line or "Compiling entry" in line:
-            print("  " + line.strip())
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(max_workers=len(build.SIGNATURES)) as pool:
+        libs = list(pool.map(build.load, build.SIGNATURES))
+    print(f"== 2 build: {', '.join(f'{b.path.name} in {b.build_time_s:.2f} s' for b in libs)}"
+          f" ({time.perf_counter() - t0:.2f} s wall, one nvcc per source in parallel)")
+    for built in libs:
+        for line in built.log.splitlines():
+            if "registers" in line or "Compiling entry" in line:
+                print("  " + line.strip())
 
-    print("== 3 kernels against their plain versions on the card")
+    print("== 3 DP kernels against their plain versions on the card")
     errs = phase_kernels(dev)
 
-    print("== 4 main path")
+    print("== 4 planning path")
     path = phase_main_path()
 
-    print("== 5 times")
+    print("== 5 planning times")
     times = phase_times(dev, card, path["launches"])
     phase_sweep(path["main"], card, path["per_sweep"][1])
+
+    print("== 6 flash kernel against its plain version on the card")
+    errs["flash_attention"] = phase_flash(dev)
+
+    print("== 7 serving path: prefill step at full width")
+    cfg, twin, params = lm_setup(dev)
+    pre = phase_prefill(dev, cfg, twin, params)
+
+    print("== 8 serving path: cached prefill and decode")
+    cached = phase_cached(dev, cfg, twin, params, pre["tol"])
+
+    print("== 9 serving path: Server at full width")
+    server = phase_server(params, cfg)
+    flash_launches = pre["launches"] + sum(cached["counts"].values())
+
+    print("== 10 serving times")
+    times["flash_attention"] = phase_serving_times(dev, cfg, params, cached["cache"],
+                                                   server, card)
 
     kernels = []
     for name, line in (("dense_dp", 150), ("fused_dp", 170)):
@@ -414,6 +846,13 @@ def main() -> int:
             "launches": path["launches"][name], "max_abs_err": errs[name],
             **times[name], "library_ms": None,
         })
+    kernels.append({
+        "name": "flash_attention", "route": "cuda",
+        "source": "src/repro_torch/csrc/flash_attention.cu",
+        "replaces": "src/repro/kernels/flash_attention/kernel.py:33",
+        "launches": flash_launches, "max_abs_err": errs["flash_attention"],
+        **times["flash_attention"],
+    })
     print(f"  total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(card)

@@ -1,14 +1,19 @@
-"""Carry the reference's planning state across to the port.
+"""Carry the reference's state across to the port.
 
-The reference's "weights" are its cost profiles, links, devices,
-bottleneck variants and scenario grids. These functions rebuild each as
-the port's own dataclass, reading the reference object by attribute as
-plain numbers, strings and tuples: ``repro`` is never imported, so any
-object with the same fields converts."""
+The planner's "weights" are its cost profiles, links, devices,
+bottleneck variants, scenario grids and split plans. These functions
+rebuild each as the port's own dataclass, reading the reference object by
+attribute as plain numbers, strings and tuples: ``repro`` is never
+imported, so any object with the same fields converts. The LM's weights
+arrive as the reference's parameter pytree of numpy arrays and leave as
+the port's state dict (:func:`lm_params_from_reference`)."""
 
 from __future__ import annotations
 
 from dataclasses import fields
+
+import numpy as np
+import torch
 
 from repro_torch.core.latency import (
     BottleneckVariant,
@@ -17,12 +22,16 @@ from repro_torch.core.latency import (
     LinkProfile,
     ModelCostProfile,
 )
+from repro_torch.core.planner import SegmentPlan, SplitPlan
 from repro_torch.core.sweep import ScenarioGrid
+from repro_torch.models.config import ModelConfig
 
 __all__ = [
     "device_from_reference",
     "grid_from_reference",
     "link_from_reference",
+    "lm_params_from_reference",
+    "plan_from_reference",
     "profile_from_reference",
     "variant_from_reference",
 ]
@@ -68,3 +77,55 @@ def grid_from_reference(grid) -> ScenarioGrid:
     plain = {f.name: getattr(grid, f.name) for f in fields(ScenarioGrid)
              if f.name not in nested}
     return ScenarioGrid(**nested, **plain)
+
+
+def plan_from_reference(plan) -> SplitPlan:
+    """A ``SplitPlan`` (with its ``SegmentPlan``s) from the reference's."""
+    plain = {f.name: getattr(plan, f.name) for f in fields(SplitPlan)
+             if f.name != "segments"}
+    return SplitPlan(segments=tuple(_copy_fields(SegmentPlan, s)
+                                    for s in plan.segments), **plain)
+
+
+def _tensor(a) -> torch.Tensor:
+    """A CPU tensor of ``a``'s values and type; numpy has no bfloat16, so
+    a bfloat16 array goes through float32 (exact both ways)."""
+    a = np.asarray(a)
+    if a.dtype.name == "bfloat16":
+        return torch.from_numpy(a.astype(np.float32)).to(torch.bfloat16)
+    return torch.from_numpy(np.array(a))
+
+
+# port name -> path in the reference's block pytree
+_BLOCK_LEAVES = {
+    "norm1.scale": ("norm1", "scale"),
+    "attn.wq": ("attn", "wq"),
+    "attn.wk": ("attn", "wk"),
+    "attn.wv": ("attn", "wv"),
+    "attn.wo": ("attn", "wo"),
+    "norm2.scale": ("norm2", "scale"),
+    "ff.w_in": ("ff", "w_in"),
+    "ff.w_out": ("ff", "w_out"),
+    "ff.w_gate": ("ff", "w_gate"),
+}
+
+
+def lm_params_from_reference(cfg: ModelConfig, params) -> dict[str, torch.Tensor]:
+    """The port's ``Transformer`` state dict from the reference's
+    ``init_params`` pytree of a homogeneous dense config: its per-layer
+    stacks (leading axis ``n_layers``) become ``blocks.<i>.*``. Load it
+    with ``Transformer(cfg, device=...).load_state_dict(...)``."""
+    blocks = params["blocks"]
+    sd = {"embed.table": _tensor(params["embed"]["table"]),
+          "final_norm.scale": _tensor(params["final_norm"]["scale"]),
+          "lm_head.w": _tensor(params["lm_head"]["w"])}
+    for name, (group, leaf) in _BLOCK_LEAVES.items():
+        if leaf not in blocks[group]:
+            continue  # w_gate of a non-gated MLP
+        stack = np.asarray(blocks[group][leaf])
+        if stack.shape[0] != cfg.n_layers:
+            raise ValueError(f"{group}.{leaf}: {stack.shape[0]} layers, "
+                             f"config has {cfg.n_layers}")
+        for i in range(cfg.n_layers):
+            sd[f"blocks.{i}.{name}"] = _tensor(stack[i])
+    return sd

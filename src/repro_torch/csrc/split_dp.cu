@@ -222,7 +222,7 @@ int split_dp_fused(const void* bank, const void* bank_idx, const void* tx,
                 : launch_fused<float, false>(bank, bank_idx, tx, ns, dp0, dps, args, S, N, L, st);
 }
 
-const char* split_dp_error_string(int code) {
+const char* cuda_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }
 

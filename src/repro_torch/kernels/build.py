@@ -37,7 +37,13 @@ SIGNATURES: dict[str, dict[str, tuple[list, object]]] = {
         # bank, bank_idx, tx, ns, dp0, dps, args, S, N, L, is_f64, is_max, stream
         "split_dp_fused": ([_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
                            _I),
-        "split_dp_error_string": ([_I], ctypes.c_char_p),
+        "cuda_error_string": ([_I], ctypes.c_char_p),
+    },
+    "flash_attention.cu": {
+        # q, k, v, qpos, kpos, out, BH, BHkv, Sq, Skv, D, scale, is_bf16, stream
+        "flash_attention_fwd": ([_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+                                 ctypes.c_float, _I, _P], _I),
+        "cuda_error_string": ([_I], ctypes.c_char_p),
     },
 }
 
@@ -120,7 +126,8 @@ def load(source: str = "split_dp.cu") -> BuiltLibrary:
 
 
 def check_launch(built: BuiltLibrary, code: int, kernel: str) -> None:
-    """Raise when a launcher reported a CUDA error (0 = launched)."""
+    """Raise when a launcher reported a CUDA error (0 = launched). Every
+    library exports ``cuda_error_string`` for its codes."""
     if code != 0:
-        msg = built.lib.split_dp_error_string(code).decode()
+        msg = built.lib.cuda_error_string(code).decode()
         raise RuntimeError(f"{kernel} launch failed: CUDA error {code} ({msg})")

@@ -1,0 +1,113 @@
+"""Public op: causal flash attention in model layout (B, S, H, D).
+
+:func:`flash_attention` folds batch and heads as the reference's
+``kernels/flash_attention/ops.py`` does and calls
+:func:`flash_attention_kernel`, which launches the hand-written CUDA
+kernel ``csrc/flash_attention.cu``. For tensors on the CPU it runs the
+plain version (:func:`.ref.attention_ref`) instead; for any other device
+it launches the kernel or raises. :data:`FLASH_LAUNCHES` counts launches.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from repro_torch.kernels import build
+from repro_torch.kernels.flash_attention.ref import attention_ref
+
+__all__ = ["FLASH_LAUNCHES", "MAX_HEAD_DIM", "flash_attention",
+           "flash_attention_kernel", "reset_launch_count"]
+
+# Kernel launches since the last reset_launch_count(); bumped only where
+# the kernel is launched, never by the plain version.
+FLASH_LAUNCHES = 0
+
+# Largest head dim the kernel is compiled for (its register tile).
+MAX_HEAD_DIM = 256
+
+_DTYPES = (torch.float32, torch.bfloat16)
+
+
+def reset_launch_count() -> None:
+    global FLASH_LAUNCHES
+    FLASH_LAUNCHES = 0
+
+
+def _check(q, k, v, q_positions, kv_positions) -> None:
+    if q.dim() != 3 or k.dim() != 3 or k.shape != v.shape:
+        raise ValueError(f"flash_attention: q must be (BH, Sq, D) and k, v "
+                         f"one (BHkv, Skv, D) shape, got {tuple(q.shape)}, "
+                         f"{tuple(k.shape)}, {tuple(v.shape)}")
+    BH, Sq, D = q.shape
+    BHkv, Skv, Dk = k.shape
+    if Dk != D or not 1 <= D <= MAX_HEAD_DIM:
+        raise ValueError(f"flash_attention: head dims {D} (q) and {Dk} (kv) "
+                         f"must agree and lie in [1, {MAX_HEAD_DIM}]")
+    if BHkv == 0 or BH % BHkv or Skv == 0:
+        raise ValueError(f"flash_attention: {BH} q heads cannot share {BHkv} "
+                         f"kv heads of length {Skv}")
+    if q.dtype not in _DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
+        raise ValueError(f"flash_attention: q, k, v must share float32 or "
+                         f"bfloat16, got {q.dtype}, {k.dtype}, {v.dtype}")
+    for name, pos, n in (("q_positions", q_positions, Sq),
+                         ("kv_positions", kv_positions, Skv)):
+        if pos.dtype != torch.int32 or tuple(pos.shape) != (n,):
+            raise ValueError(f"flash_attention: {name} must be int32 ({n},), "
+                             f"got {pos.dtype} {tuple(pos.shape)}")
+    for name, t in (("k", k), ("v", v), ("q_positions", q_positions),
+                    ("kv_positions", kv_positions)):
+        if t.device != q.device:
+            raise ValueError(f"flash_attention: {name} is on {t.device}, "
+                             f"q on {q.device}")
+
+
+def flash_attention_kernel(q, k, v, q_positions, kv_positions, *,
+                           scale: float) -> torch.Tensor:
+    """Launch the CUDA kernel on folded inputs: q (BH, Sq, D), k/v
+    (BHkv, Skv, D), contiguous CUDA tensors of one type (float32 or
+    bfloat16), int32 positions (Sq,) and (Skv,). Raises if the kernel
+    cannot be built or launched; it never computes the result otherwise."""
+    global FLASH_LAUNCHES
+    _check(q, k, v, q_positions, kv_positions)
+    built = build.load("flash_attention.cu")
+    if q.device.type != "cuda":
+        raise ValueError(f"flash_attention_kernel: needs CUDA tensors, got "
+                         f"{q.device}")
+    for name, t in (("q", q), ("k", k), ("v", v), ("q_positions", q_positions),
+                    ("kv_positions", kv_positions)):
+        if not t.is_contiguous():
+            raise ValueError(f"flash_attention_kernel: {name} must be contiguous")
+    BH, Sq, D = q.shape
+    out = torch.empty_like(q)
+    with torch.cuda.device(q.device):
+        code = built.lib.flash_attention_fwd(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), q_positions.data_ptr(),
+            kv_positions.data_ptr(), out.data_ptr(), BH, k.shape[0], Sq,
+            k.shape[1], D, float(scale), int(q.dtype == torch.bfloat16),
+            torch.cuda.current_stream(q.device).cuda_stream)
+    build.check_launch(built, code, "flash_attention")
+    FLASH_LAUNCHES += 1
+    return out
+
+
+def flash_attention(q, k, v, *, q_positions, kv_positions, scale) -> torch.Tensor:
+    """q: (B, Sq, H, D); k/v: (B, Skv, Hkv, D); GQA by head grouping.
+
+    ``q_positions`` may be (B, Sq) (uniform across the batch: prefill
+    satisfies this, and row 0 is taken) or (Sq,); ``kv_positions`` is
+    (Skv,). Returns (B, Sq, H, D) in q's type."""
+    B, Sq, H, D = q.shape
+    Hkv = k.shape[2]
+    if q_positions.dim() == 2:
+        q_positions = q_positions[0]
+    qf = q.transpose(1, 2).reshape(B * H, Sq, D)
+    kf = k.transpose(1, 2).reshape(B * Hkv, k.shape[1], k.shape[3])
+    vf = v.transpose(1, 2).reshape(B * Hkv, v.shape[1], v.shape[3])
+    qpos = q_positions.to(torch.int32).contiguous()
+    kpos = kv_positions.to(torch.int32).contiguous()
+    if q.device.type == "cpu":
+        _check(qf, kf, vf, qpos, kpos)
+        out = attention_ref(qf, kf, vf, qpos, kpos, scale)
+    else:
+        out = flash_attention_kernel(qf, kf, vf, qpos, kpos, scale=scale)
+    return out.reshape(B, H, Sq, D).transpose(1, 2)

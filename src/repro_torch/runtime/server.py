@@ -1,0 +1,187 @@
+"""Batched serving runtime with split-aware latency accounting.
+
+The port of the reference's ``repro.runtime.server``:
+
+* :class:`Server`: slot-based continuous batching with greedy sampling.
+  Requests occupy cache slots; a prompt is fed token by token through the
+  decode step (one step per token, the other slots at position -1, which
+  writes nothing); each tick decodes one token for every active slot at
+  its own position and retires finished requests. The cache is float32.
+  The server never runs a batched prefill, so with ``use_flash_kernel``
+  it still launches no flash kernel: every step has one query position.
+* :class:`SplitLatencyMeter`: prices every generated token's hops between
+  plan segments on a link profile (the paper's Eq. 7/8 cost model).
+  The reference's replanning hook (an ``AdaptiveSplitManager``) is not
+  ported.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass, field
+
+import numpy as np
+import torch
+
+from repro_torch.core.latency import LinkProfile
+from repro_torch.core.planner import SplitPlan
+from repro_torch.models import transformer as T
+from repro_torch.models.config import ModelConfig
+
+
+class DrainTruncated(RuntimeError):
+    """``run_until_drained`` hit ``max_ticks`` with work still queued or
+    active. ``result`` carries the partial generations produced so far
+    (a :class:`DrainResult`, ``drained=False``)."""
+
+    def __init__(self, result: "DrainResult"):
+        super().__init__(
+            f"run_until_drained truncated after {result.ticks} ticks "
+            f"with requests still pending")
+        self.result = result
+
+
+class DrainResult(dict):
+    """``{rid: [tokens]}`` plus ``drained`` (False: ``max_ticks`` was hit
+    with work remaining, the generations are partial) and ``ticks``."""
+
+    def __init__(self, out: dict[int, list[int]], drained: bool, ticks: int):
+        super().__init__(out)
+        self.drained = drained
+        self.ticks = ticks
+
+
+@dataclass
+class Request:
+    rid: int
+    prompt: np.ndarray  # (P,) int32
+    max_new_tokens: int = 16
+    generated: list[int] = field(default_factory=list)
+
+    @property
+    def done(self) -> bool:
+        return len(self.generated) >= self.max_new_tokens
+
+
+@dataclass
+class SplitLatencyMeter:
+    """Accumulates modeled transmission latency for inter-segment hops.
+
+    Each generated token crosses every cut of ``plan`` once. A hop is
+    priced at ``bytes_per_token`` (one (B, 1, d_model) activation row) or,
+    when that is 0, at the segment's ``tx_bytes`` (the full-sequence
+    prefill activation), on ``link``. The plan is read duck-typed
+    (``plan.segments[i].tx_bytes``)."""
+
+    plan: SplitPlan | None = None
+    link: LinkProfile | None = None
+    bytes_per_token: int = 0
+    hop_seconds: float = 0.0
+    hops: int = 0
+    manager: object | None = None  # the reference's replanning hook: refused
+
+    def __post_init__(self):
+        if self.manager is not None:
+            raise NotImplementedError(
+                "SplitLatencyMeter(manager=...): the replanning hook needs "
+                "the reference's core/adaptive.py, which is not ported")
+
+    def on_token(self) -> None:
+        if self.plan is None or self.link is None:
+            return
+        for seg in self.plan.segments[:-1]:
+            nbytes = self.bytes_per_token or seg.tx_bytes
+            self.hop_seconds += self.link.transmission_latency_s(nbytes)
+            self.hops += 1
+
+
+class Server:
+    """Slot-based batched decode server (greedy sampling) on the device
+    that holds ``params``."""
+
+    def __init__(self, cfg: ModelConfig, params: T.Transformer, *, slots: int = 4,
+                 max_seq: int = 256, meter: SplitLatencyMeter | None = None):
+        self.cfg = cfg
+        self.params = params
+        self.slots = slots
+        self.max_seq = max_seq
+        self.meter = meter or SplitLatencyMeter()
+        self.cache = T.init_cache(cfg, slots, max_seq, dtype=torch.float32,
+                                  device=params.device)
+        self.lengths = np.zeros(slots, dtype=np.int32)  # tokens in each slot
+        self.active: dict[int, Request] = {}  # slot -> request
+        self.queue: list[Request] = []
+
+    def submit(self, req: Request) -> None:
+        self.queue.append(req)
+
+    def _free_slot(self) -> int | None:
+        for s in range(self.slots):
+            if s not in self.active:
+                return s
+        return None
+
+    def _decode(self, tokens: np.ndarray, positions: np.ndarray) -> torch.Tensor:
+        dev = self.params.device
+        inputs = {"tokens": torch.from_numpy(tokens[:, None]).to(dev),
+                  "positions": torch.from_numpy(positions[:, None]).to(dev)}
+        logits, self.cache = T.serve_step(self.cfg, self.params, inputs, self.cache)
+        return logits
+
+    def _prefill(self, slot: int, req: Request) -> None:
+        """Feed the prompt token by token through the decode step. Only the
+        admitted slot's rows are written: every other slot rides at
+        position -1, which the cache writer treats as "write nothing"."""
+        tokens = np.zeros(self.slots, dtype=np.int32)
+        positions = np.full(self.slots, -1, dtype=np.int32)
+        for t, tok in enumerate(req.prompt):
+            tokens[slot] = tok
+            positions[slot] = t
+            self._decode(tokens, positions)
+        self.lengths[slot] = len(req.prompt)
+        self.active[slot] = req
+
+    def step(self) -> list[tuple[int, int]]:
+        """One server tick: admit, decode one token for all active slots
+        at their own positions (idle slots at -1), retire finished
+        requests. Returns [(rid, token)] emitted."""
+        while self.queue and (slot := self._free_slot()) is not None:
+            self._prefill(slot, self.queue.pop(0))
+        if not self.active:
+            return []
+        emitted = []
+        tokens = np.zeros(self.slots, dtype=np.int32)
+        positions = np.full(self.slots, -1, dtype=np.int32)
+        for s, req in self.active.items():
+            tokens[s] = req.generated[-1] if req.generated else int(req.prompt[-1])
+            positions[s] = self.lengths[s]
+        logits = self._decode(tokens, positions)
+        nxt = torch.argmax(logits[:, 0], dim=-1).cpu().numpy()
+        for s in list(self.active):
+            req = self.active[s]
+            req.generated.append(int(nxt[s]))
+            emitted.append((req.rid, int(nxt[s])))
+            self.meter.on_token()
+            self.lengths[s] += 1
+            if req.done or self.lengths[s] >= self.max_seq - 1:
+                del self.active[s]
+        return emitted
+
+    def run_until_drained(self, max_ticks: int = 10_000, *,
+                          on_truncate: str = "return") -> DrainResult:
+        """Tick until every request retires or ``max_ticks`` elapse. On
+        truncation, ``on_truncate="return"`` gives a :class:`DrainResult`
+        with ``drained=False``; ``"raise"`` raises :class:`DrainTruncated`."""
+        if on_truncate not in ("return", "raise"):
+            raise ValueError(f"on_truncate must be 'return' or 'raise', "
+                             f"got {on_truncate!r}")
+        out: dict[int, list[int]] = {}
+        ticks = 0
+        while (self.queue or self.active) and ticks < max_ticks:
+            for rid, tok in self.step():
+                out.setdefault(rid, []).append(tok)
+            ticks += 1
+        result = DrainResult(out, drained=not (self.queue or self.active),
+                             ticks=ticks)
+        if not result.drained and on_truncate == "raise":
+            raise DrainTruncated(result)
+        return result

@@ -1,0 +1,147 @@
+"""The port's serving runtime against the reference's, on the CPU.
+
+deepseek-7b reduced (float32, ``use_flash_kernel=True``) with the
+reference's ``init_params(PRNGKey(0))`` weights carried across. The same
+requests served by the reference ``Server`` and the port's must give the
+same greedy tokens; within the port, a request's tokens under staggered
+admission must equal serving it alone (exact), and the meter's hop
+accounting on a plan converted from the reference planner must equal the
+reference meter's.
+
+The reference ``Server`` is driven through :class:`SyncedRefServer`: its
+``_token_inputs`` hands ``jnp.asarray`` the server's own numpy buffers,
+which JAX may wrap without a copy on the CPU, and ``_prefill`` rewrites
+those buffers for the next token while the asynchronously dispatched
+step may not have read them yet. The reference's tokens then vary from
+run to run (its own staggered-admission test fails in some test orders).
+The subclass passes copies; it changes nothing else."""
+
+import dataclasses
+import types
+
+import jax
+import numpy as np
+import pytest
+
+from repro.configs import get_config as ref_get_config
+from repro.core.planner import plan_pipeline
+from repro.core.profiles import ESP_NOW, ICI
+from repro.models import transformer as RT
+from repro.models.graph import arch_layer_graph
+from repro.runtime import server as RS
+from repro_torch import convert
+from repro_torch.configs import get_config
+from repro_torch.models import transformer as PT
+from repro_torch.runtime import server as PS
+from repro_torch.runtime.server import (
+    DrainTruncated,
+    Request,
+    Server,
+    SplitLatencyMeter,
+)
+
+REF_CFG = dataclasses.replace(ref_get_config("deepseek-7b").reduced(), use_flash_kernel=True)
+CFG = dataclasses.replace(get_config("deepseek-7b").reduced(), use_flash_kernel=True)
+PROMPTS = {0: [3, 9, 4], 1: [11, 5, 7, 2, 60, 1, 8, 8, 30, 12], 2: [21, 9]}
+
+
+class SyncedRefServer(RS.Server):
+    """The reference ``Server`` with each step's host buffers copied."""
+
+    def _token_inputs(self, tokens_per_slot, positions_per_slot):
+        return super()._token_inputs(tokens_per_slot.copy(), positions_per_slot.copy())
+
+
+REF = types.SimpleNamespace(Server=SyncedRefServer, Request=RS.Request)
+
+
+@pytest.fixture(scope="module")
+def ref_params():
+    return RT.init_params(jax.random.PRNGKey(0), REF_CFG)
+
+
+@pytest.fixture(scope="module")
+def params(ref_params):
+    model = PT.Transformer(CFG, device="cpu")
+    model.load_state_dict(convert.lm_params_from_reference(
+        CFG, jax.tree.map(np.asarray, ref_params)))
+    return model
+
+
+def serve(mod, cfg, params, requests, slots=2, **kw):
+    """Serve ``(rid, prompt, max_new_tokens)`` requests on ``mod.Server``
+    (``mod``: :data:`REF` or the port's server module)."""
+    srv = mod.Server(cfg, params, slots=slots, max_seq=64, **kw)
+    for rid, prompt, max_new in requests:
+        srv.submit(mod.Request(rid, np.array(prompt, np.int32), max_new_tokens=max_new))
+    return srv.run_until_drained()
+
+
+def test_tokens_equal_the_reference_server(ref_params, params):
+    requests = [(rid, p, 6) for rid, p in PROMPTS.items()]
+    want = serve(REF, REF_CFG, ref_params, requests)
+    got = serve(PS, CFG, params, requests)
+    assert got.drained and sorted(got) == sorted(PROMPTS)
+    assert dict(got) == dict(want)
+    assert all(0 <= t < CFG.vocab for toks in got.values() for t in toks)
+
+
+def test_staggered_admission_equals_serving_alone(params):
+    """Three slots, admissions at different offsets: each request's
+    tokens equal serving it alone on a server with the same slot count."""
+    max_new = 8
+    solo = {rid: serve(PS, CFG, params, [(rid, p, max_new)], slots=3)[rid]
+            for rid, p in PROMPTS.items()}
+    srv = Server(CFG, params, slots=3, max_seq=64)
+    emitted = {rid: [] for rid in PROMPTS}
+    for rid, ticks in ((0, 2), (1, 3), (2, None)):
+        srv.submit(Request(rid, np.array(PROMPTS[rid], np.int32), max_new_tokens=max_new))
+        while (srv.queue or srv.active) and (ticks is None or ticks > 0):
+            for r, tok in srv.step():
+                emitted[r].append(tok)
+            ticks = None if ticks is None else ticks - 1
+    assert emitted == solo
+
+
+def test_run_until_drained_reports_truncation(params):
+    srv = Server(CFG, params, slots=1, max_seq=64)
+    srv.submit(Request(0, np.array([1], np.int32), max_new_tokens=50))
+    out = srv.run_until_drained(max_ticks=3)
+    assert not out.drained and out.ticks == 3 and len(out[0]) == 3
+    assert srv.active
+
+
+def test_run_until_drained_raise_mode(params):
+    srv = Server(CFG, params, slots=1, max_seq=64)
+    srv.submit(Request(0, np.array([1], np.int32), max_new_tokens=50))
+    with pytest.raises(DrainTruncated) as ei:
+        srv.run_until_drained(max_ticks=2, on_truncate="raise")
+    assert not ei.value.result.drained and len(ei.value.result[0]) == 2
+    with pytest.raises(ValueError):
+        srv.run_until_drained(on_truncate="sometimes")
+
+
+@pytest.mark.parametrize("n_devices", [2, 3])
+@pytest.mark.parametrize("bytes_per_token", [0, CFG.d_model * 2])
+def test_meter_hops_equal_the_reference_meter(ref_params, params, n_devices,
+                                              bytes_per_token):
+    plan = plan_pipeline(arch_layer_graph(REF_CFG, batch=2, seq=32), n_devices, link=ICI)
+    want = RS.SplitLatencyMeter(plan=plan, link=ESP_NOW, bytes_per_token=bytes_per_token)
+    got = SplitLatencyMeter(plan=convert.plan_from_reference(plan),
+                            link=convert.link_from_reference(ESP_NOW),
+                            bytes_per_token=bytes_per_token)
+    requests = [(0, [1, 2], 3), (1, [4], 2)]
+    serve(REF, REF_CFG, ref_params, requests, meter=want)
+    serve(PS, CFG, params, requests, meter=got)
+    assert got.hops == want.hops == 5 * (n_devices - 1)
+    assert got.hop_seconds == want.hop_seconds > 0
+
+
+def test_meter_with_a_manager_is_refused():
+    with pytest.raises(NotImplementedError, match="adaptive"):
+        SplitLatencyMeter(manager=object())
+
+
+def test_plan_conversion_keeps_every_field():
+    plan = plan_pipeline(arch_layer_graph(REF_CFG, batch=2, seq=32), 2, link=ICI)
+    assert convert.plan_from_reference(plan).to_dict() == plan.to_dict()

@@ -1,0 +1,241 @@
+"""The port's dense decoder against the reference's, on the CPU.
+
+deepseek-7b reduced (2 layers, d 64, 4 heads of 16, float32), as MHA and
+as GQA (``n_kv_heads=2``), with the flash kernel's branch on (prompts of
+12 tokens > 8, so prefill takes it; on the CPU its plain version runs)
+and off (chunked attention). The weights come from the reference's
+``init_params(PRNGKey(0))`` (jitted) and are carried across by
+``convert.lm_params_from_reference``. Compared: ``make_prefill_step``,
+``prefill`` into a cache, then 8 greedy ``serve_step``s.
+
+Tolerances. float32: ``rtol 1e-4, atol 1e-5`` on the logits (std ~0.15):
+the same arithmetic summed in another order gives ~3e-7. bfloat16: max
+abs error <= 0.1 x the reference logits' std (about four bfloat16 ulps at
+the logits' largest magnitude): the two frameworks round intermediate
+bfloat16 results at different places. Greedy tokens must be equal."""
+
+import dataclasses
+import functools
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.configs import ARCH_IDS
+from repro.configs import get_config as ref_get_config
+from repro.launch.steps import make_prefill_step as ref_prefill_step
+from repro.models import transformer as RT
+from repro_torch import convert
+from repro_torch.configs import get_config
+from repro_torch.kernels.flash_attention import ops as FA
+from repro_torch.launch.steps import make_decode_step, make_prefill_step
+from repro_torch.models import layers as PL
+from repro_torch.models import transformer as PT
+
+P, B, MAX_SEQ, N_DECODE = 12, 2, 32, 8
+F32_TOL = dict(rtol=1e-4, atol=1e-5)
+
+
+def configs(flash: bool, **kw):
+    ref = dataclasses.replace(ref_get_config("deepseek-7b").reduced(**kw),
+                              use_flash_kernel=flash)
+    port = dataclasses.replace(get_config("deepseek-7b").reduced(**kw),
+                               use_flash_kernel=flash)
+    return ref, port
+
+
+# the reference's init, jitted (its eager run takes seconds per config)
+ref_init_params = jax.jit(RT.init_params, static_argnums=1)
+
+
+def port_model(cfg, ref_params):
+    sd = convert.lm_params_from_reference(cfg, jax.tree.map(np.asarray, ref_params))
+    model = PT.Transformer(cfg, device="cpu")
+    model.load_state_dict(sd)
+    return model
+
+
+def prompt(cfg, seed=0):
+    return np.random.RandomState(seed).randint(0, cfg.vocab, size=(B, P)).astype(np.int32)
+
+
+@functools.lru_cache(maxsize=None)
+def reference_run(n_kv_heads: int, flash: bool):
+    """The reference's prefill step, cached prefill and greedy decode."""
+    rcfg, _ = configs(flash, n_kv_heads=n_kv_heads)
+    params = ref_init_params(jax.random.PRNGKey(0), rcfg)
+    toks = jnp.asarray(prompt(rcfg))
+    step_logits = np.asarray(jax.jit(ref_prefill_step(rcfg))(params, {"tokens": toks}))
+    fwd = jax.jit(functools.partial(RT.forward, rcfg))
+    logits, cache = fwd(params, {"tokens": toks}, RT.init_cache(rcfg, B, MAX_SEQ))
+    steps = [np.asarray(logits)]
+    tokens = []
+    for i in range(N_DECODE):
+        tok = jnp.argmax(logits[:, -1], axis=-1)
+        tokens.append(np.asarray(tok))
+        logits, cache = fwd(params, {"tokens": tok[:, None],
+                                     "cur_index": jnp.int32(P + i)}, cache)
+        steps.append(np.asarray(logits))
+    return params, step_logits, steps, tokens
+
+
+@pytest.mark.parametrize("flash", [True, False], ids=["flash", "chunked"])
+@pytest.mark.parametrize("n_kv_heads", [4, 2], ids=["mha", "gqa"])
+def test_prefill_step_matches_reference(n_kv_heads, flash):
+    params, want, _, _ = reference_run(n_kv_heads, flash)
+    _, cfg = configs(flash, n_kv_heads=n_kv_heads)
+    got = make_prefill_step(cfg)(port_model(cfg, params),
+                                 {"tokens": torch.from_numpy(prompt(cfg))})
+    assert got.dtype == torch.float32 and got.shape == (B, cfg.vocab_padded)
+    np.testing.assert_allclose(got.numpy(), want, **F32_TOL)
+
+
+@pytest.mark.parametrize("flash", [True, False], ids=["flash", "chunked"])
+@pytest.mark.parametrize("n_kv_heads", [4, 2], ids=["mha", "gqa"])
+def test_cached_prefill_and_decode_match_reference(n_kv_heads, flash):
+    params, _, want_steps, want_tokens = reference_run(n_kv_heads, flash)
+    _, cfg = configs(flash, n_kv_heads=n_kv_heads)
+    model = port_model(cfg, params)
+    cache = PT.init_cache(cfg, B, MAX_SEQ, device="cpu")
+    logits, cache = PT.prefill(cfg, model, {"tokens": torch.from_numpy(prompt(cfg))},
+                               cache)
+    np.testing.assert_allclose(logits.numpy(), want_steps[0], **F32_TOL)
+    decode = make_decode_step(cfg)
+    for i in range(N_DECODE):
+        tok = logits[:, -1].argmax(dim=-1)
+        np.testing.assert_array_equal(tok.numpy(), want_tokens[i])
+        logits, cache = decode(model, {"tokens": tok[:, None], "cur_index": P + i}, cache)
+        np.testing.assert_allclose(logits.numpy(), want_steps[i + 1], **F32_TOL)
+
+
+def test_bf16_prefill_step_matches_reference():
+    rcfg, cfg = configs(True, dtype="bfloat16")
+    params = ref_init_params(jax.random.PRNGKey(0), rcfg)
+    toks = prompt(cfg, seed=1)
+    want = np.asarray(jax.jit(ref_prefill_step(rcfg))(params, {"tokens": jnp.asarray(toks)}))
+    model = port_model(cfg, params)
+    assert model.embed.table.dtype == torch.bfloat16
+    got = make_prefill_step(cfg)(model, {"tokens": torch.from_numpy(toks)}).numpy()
+    real = slice(0, cfg.vocab)  # padded slots are -1e30 on both sides
+    np.testing.assert_array_equal(got[:, cfg.vocab:], want[:, cfg.vocab:])
+    err = np.abs(got[:, real] - want[:, real]).max()
+    assert err <= 0.1 * want[:, real].std(), err
+
+
+def test_granite_mqa_gelu_prefill_step_matches_reference():
+    """granite-34b reduced: MQA (one kv head) and the GELU MLP."""
+    rcfg = dataclasses.replace(ref_get_config("granite-34b").reduced(), use_flash_kernel=True)
+    cfg = dataclasses.replace(get_config("granite-34b").reduced(), use_flash_kernel=True)
+    assert (cfg.n_kv_heads, cfg.gated_mlp) == (1, False)
+    params = ref_init_params(jax.random.PRNGKey(0), rcfg)
+    toks = prompt(cfg, seed=2)
+    want = np.asarray(jax.jit(ref_prefill_step(rcfg))(params, {"tokens": jnp.asarray(toks)}))
+    got = make_prefill_step(cfg)(port_model(cfg, params), {"tokens": torch.from_numpy(toks)})
+    np.testing.assert_allclose(got.numpy(), want, **F32_TOL)
+
+
+@pytest.mark.parametrize("S,pos", [
+    (1, [[3], [-1], [0], [9]]),   # per-row decode writes; -1 writes nothing
+    (1, [[12], [-1], [-1], [2]]),  # 12 is past the cache: nothing either
+    (4, [[2, 3, 4, 5]] * 4),       # prefill: one slice from pos_ids[0, 0]
+    (4, [[9, 10, 11, 12]] * 4),    # clamped to the end, as the reference does
+])
+def test_cache_write_matches_the_reference_writer(S, pos):
+    from repro.models.layers import _cache_writer
+
+    rng = np.random.RandomState(S)
+    cache = rng.standard_normal((4, 10, 2, 3)).astype(np.float32)
+    new = rng.standard_normal((4, S, 2, 3)).astype(np.float32)
+    pos = np.array(pos, np.int32)
+    want = _cache_writer(jnp.asarray(pos), S, 10)(jnp.asarray(cache), jnp.asarray(new))
+    got = torch.from_numpy(cache.copy())
+    PL.cache_write(got, torch.from_numpy(new), torch.from_numpy(pos), int(pos[0, 0]))
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+
+
+def test_cpu_runs_launch_no_kernel():
+    _, cfg = configs(True)
+    FA.reset_launch_count()
+    model = PT.init_params(cfg, device="cpu")
+    make_prefill_step(cfg)(model, {"tokens": torch.from_numpy(prompt(cfg))})
+    assert FA.FLASH_LAUNCHES == 0
+
+
+@pytest.mark.parametrize("arch", ARCH_IDS)
+def test_config_copies_equal_the_reference(arch):
+    assert dataclasses.asdict(get_config(arch)) == dataclasses.asdict(ref_get_config(arch))
+
+
+def test_full_width_deepseek_shape():
+    cfg = get_config("deepseek-7b")
+    assert (cfg.n_layers, cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim,
+            cfg.d_ff, cfg.vocab, cfg.dtype) == (30, 4096, 32, 32, 128, 11008, 102400,
+                                                "bfloat16")
+    PT.check_supported(cfg)
+
+
+def test_state_dict_conversion_is_complete():
+    rcfg, cfg = configs(True, n_kv_heads=2)
+    sd = convert.lm_params_from_reference(
+        cfg, jax.tree.map(np.asarray, ref_init_params(jax.random.PRNGKey(0), rcfg)))
+    model = PT.Transformer(cfg, device="cpu")
+    assert set(sd) == set(model.state_dict())
+    for name, t in model.state_dict().items():
+        assert sd[name].shape == t.shape and sd[name].dtype == t.dtype, name
+
+
+def test_init_params_follows_the_reference_distribution():
+    cfg = dataclasses.replace(get_config("deepseek-7b").reduced(), d_model=256,
+                              d_ff=512, vocab=512)
+    gen = torch.Generator().manual_seed(3)
+    model = PT.init_params(cfg, generator=gen, device="cpu")
+    attn, ff = model.blocks[0].attn, model.blocks[0].ff
+    d, hdh = cfg.d_model, cfg.n_heads * cfg.head_dim
+    for w, want in ((attn.wq, d ** -0.5), (attn.wo, hdh ** -0.5),
+                    (ff.w_in, d ** -0.5), (ff.w_out, cfg.d_ff ** -0.5),
+                    (model.embed.table, 0.02), (model.lm_head.w, 0.02)):
+        assert abs(float(w.std()) / want - 1) < 0.05
+        assert abs(float(w.mean())) < 0.05 * want
+    assert torch.equal(model.final_norm.scale, torch.ones(d))
+    again = PT.init_params(cfg, generator=torch.Generator().manual_seed(3), device="cpu")
+    assert torch.equal(again.blocks[1].ff.w_gate, model.blocks[1].ff.w_gate)
+
+
+UNPORTED = {
+    "use_mla": lambda c: dataclasses.replace(c, use_mla=True),
+    "is_moe": lambda c: dataclasses.replace(c, n_experts=4, top_k=2),
+    "block_pattern": lambda c: dataclasses.replace(c, block_pattern=("mamba", "attn")),
+    "shared_attn": lambda c: dataclasses.replace(c, shared_attn=True),
+    "mrope_sections": lambda c: dataclasses.replace(c, mrope_sections=(2, 3, 3)),
+    "kv_cache_dtype": lambda c: dataclasses.replace(c, kv_cache_dtype="int8"),
+    "parallel_residual": lambda c: dataclasses.replace(c, parallel_residual=True),
+    "frontend": lambda c: dataclasses.replace(c, frontend="audio_codes"),
+    "tie_embeddings": lambda c: dataclasses.replace(c, tie_embeddings=True),
+}
+
+
+@pytest.mark.parametrize("feature", sorted(UNPORTED))
+def test_unported_features_raise_by_name(feature):
+    cfg = UNPORTED[feature](get_config("deepseek-7b").reduced())
+    with pytest.raises(NotImplementedError, match=feature):
+        PT.Transformer(cfg, device="cpu")
+    with pytest.raises(NotImplementedError, match=feature):
+        PT.init_cache(cfg, 1, 8, device="cpu")
+
+
+@pytest.mark.parametrize("arch", ["minicpm3-4b", "qwen3-moe-235b-a22b", "zamba2-1.2b",
+                                  "qwen2-vl-72b", "stablelm-12b", "musicgen-medium"])
+def test_unported_configs_raise(arch):
+    with pytest.raises(NotImplementedError):
+        PT.check_supported(get_config(arch))
+
+
+def test_default_device_is_the_card(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cfg = get_config("deepseek-7b").reduced()
+    with pytest.raises(RuntimeError, match="no CUDA card"):
+        PT.init_params(cfg)
+    with pytest.raises(RuntimeError, match="no CUDA card"):
+        PT.init_cache(cfg, 1, 8)
