@@ -3,8 +3,8 @@
 
     python3 chip_smoke.py
 
-Drives the port's two main paths (``repro_torch``; nothing of JAX or of
-the reference package ``repro``) on the card and fails on any fault:
+Drives the port's main paths (``repro_torch``; nothing of JAX or of the
+reference package ``repro``) on the card and fails on any fault:
 
 1. device: the card's name and power limit, the torch and CUDA versions;
 2. build: every source under ``src/repro_torch/csrc`` with ``nvcc`` for
@@ -52,7 +52,31 @@ the reference package ``repro``) on the card and fails on any fault:
    host enqueue time, and the allocator's retries and cudaMalloc calls
    over those steps; ``Server`` tokens/s; traced runs of a prefill
    step and a ``serve_step`` (device busy time, idle share, launches);
-11. a JSON line of per-kernel results, the card line, and the last line
+11. the int8 GEMMs: the W8A8 kernel equals its plain version exactly in
+   float32 and bfloat16 output (ragged 100 x 200 x 300, one row, ragged
+   M with N 1000, MobileNet-V2's Logits head 64 x 1280 x 1000, the
+   full-width deepseek-7b up-projection 8192 x 4096 x 11008, and
+   a_zp != 0 with |acc| > 2^24); the W8A16 kernel, float32 and bfloat16
+   x, within the reference test's rtol; then the path: ``quant_linear``
+   and ``w8a16_linear`` on x (4, 2048, 4096) bf16 against seeded random
+   up-projection weights and on the Logits head, with the launch counters
+   read around these four calls only (two launches of each kernel);
+   ``quant_linear`` equal to the W8A8 kernel's plain version on the same
+   quantized activations and, while |acc| <= 2^24, to the integer path;
+   ``w8a16_linear`` against its plain path; and the reference tests'
+   relative error against the float linear;
+12. the SSD scan: ``ssm_scan`` on one zamba2-1.2b Mamba2 layer (B 4,
+   S 2048, 64 heads of 64, ds 64), float32 and bfloat16, with the launch
+   counter read around these two calls only; each against the chunked
+   plain version and the sequential oracle, then ragged S = 1000 with
+   chunks of 128 and 16;
+13. times at full width beside the card line: each int8 GEMM and the SSD
+   kernel, its plain version and the PyTorch yardstick (``torch._int_mm``
+   plus the epilogue; dequantize plus a float32 ``torch.matmul``; none for
+   the scan) beside the kernel's bound (the scan's counts the flops its
+   causal mask keeps, C Bᵀ once per batch row); the ops' wall times and
+   a traced ``quant_linear``;
+14. a JSON line of per-kernel results, the card line, and the last line
    ``{"ok": true, "device": {...}}``.
 
 Exits non-zero, printing no result, when no card is present.
@@ -82,6 +106,10 @@ HBM_BYTES_PER_S = 3.35e12
 FP32_OPS_PER_S = 67e12 / 2
 # dense bf16 tensor-core peak (not the 1,979 TFLOP/s sparsity figure)
 BF16_FLOPS_PER_S = 989e12
+# dense int8 tensor-core peak, and fp32 FMAs off the tensor cores counted
+# as two operations each (the sheet's 67 TFLOP/s)
+INT8_OPS_PER_S = 1979e12
+FP32_FLOPS_PER_S = 67e12
 
 # the reference kernel test's tolerances (tests/test_kernels.py:133, :151)
 FLASH_TOL = {"float32": (1e-3, 2e-5), "bfloat16": (2e-2, 2e-2)}
@@ -95,6 +123,21 @@ FLASH_TOL_FULL_BF16 = (2e-2, 4e-3)
 # (the reference kernel's arithmetic); the twin's chunked attention
 # rounds them to bf16 before PV, and 30 layers compound the difference.
 LOGITS_TOL = 0.25
+# W8A16 kernel vs plain: the same float32 products summed in another
+# order. rtol is the reference kernel test's (tests/test_kernels.py:87,
+# :96), by output type (bfloat16 adds one rounding); atol is rtol times
+# the output's rms, as those tests' outputs are O(1) and these grow with K
+W8A16_RTOL = {"float32": 1e-4, "bfloat16": 2e-2}
+# SSD kernel vs its plain version and the sequential oracle: the
+# reference kernel test's (rtol, atol) in float32 (tests/test_kernels.py
+# :188); in bfloat16 both round a float32 result once, so one bf16 ulp
+# (2^-7 relative) on top, and an atol of 1e-3 for outputs near 0
+SSD_TOL = {"float32": (2e-4, 1e-4), "bfloat16": (2 ** -7 + 2e-4, 1e-3)}
+# (label, M, K, N) of phase 11
+GEMM_CASES = [("ragged", 100, 200, 300), ("one row", 1, 4096, 11008),
+              ("ragged M, N 1000", 33, 1280, 1000),
+              ("MobileNet-V2 Logits head", 64, 1280, 1000),
+              ("full width (deepseek-7b up-projection, 4 x 2048 tokens)", 8192, 4096, 11008)]
 
 
 def card_line() -> str:
@@ -776,6 +819,353 @@ def phase_serving_times(dev, cfg, params, cache, server, card) -> dict:
     return flash
 
 
+# ---------------------------------------------------------------------------
+# The int8 GEMM and SSD scan paths
+# ---------------------------------------------------------------------------
+
+
+def int8(g, shape, dev, lo=-128):
+    import torch
+
+    return torch.randint(lo, 128, shape, generator=g, device=dev, dtype=torch.int8)
+
+
+def within(got, want, rtol, atol) -> tuple[float, float]:
+    """(max abs error, share of the limit atol + rtol |want| used); a
+    non-finite output uses the whole limit and more."""
+    import torch
+
+    diff = (got.float() - want.float()).abs()
+    used = float((diff / (atol + rtol * want.float().abs())).max())
+    if not bool(torch.isfinite(got.float()).all()):
+        used = float("inf")
+    return float(diff.max()), used
+
+
+def rms(t) -> float:
+    return float(t.float().square().mean().sqrt())
+
+
+def phase_gemm_kernels(dev) -> dict[str, float]:
+    """Both int8 GEMM kernels against their plain versions on the card;
+    returns the largest max abs error of each."""
+    import torch
+
+    from repro_torch.kernels.quant_matmul import kernel as QK
+    from repro_torch.kernels.quant_matmul.ref import int_matmul, quant_matmul_ref
+
+    errs = {"w8a8_matmul": 0.0, "w8a16_matmul": 0.0}
+    a_scale = torch.tensor([0.03], device=dev)
+    for i, (label, M, K, N) in enumerate(GEMM_CASES):
+        g = torch.Generator(device=dev).manual_seed(500 + i)
+        a, w = int8(g, (M, K), dev), int8(g, (K, N), dev)
+        ws8 = torch.rand((N,), generator=g, device=dev) * 0.099 + 0.001
+        a_zp = torch.tensor([-5], dtype=torch.int32, device=dev)
+        for out in (torch.float32, torch.bfloat16):
+            got = QK.quant_matmul_kernel(a, w, a_scale, a_zp, ws8, out_dtype=out)
+            torch.cuda.synchronize()
+            if not torch.equal(got, QK.quant_matmul_plain(a, w, a_scale, a_zp, ws8,
+                                                          out_dtype=out)):
+                raise AssertionError(f"w8a8 {label} {out}: kernel != plain version")
+        x = torch.randn((M, K), generator=g, device=dev)
+        ws16 = torch.rand((N,), generator=g, device=dev) * 0.049 + 0.001
+        worst = 0.0
+        for x_dtype in (torch.float32, torch.bfloat16):
+            for out in (torch.float32, torch.bfloat16):
+                got = QK.w8a16_matmul_kernel(x.to(x_dtype), w, ws16, out_dtype=out)
+                torch.cuda.synchronize()
+                want = QK.w8a16_matmul_plain(x.to(x_dtype), w, ws16, out_dtype=out)
+                rtol = W8A16_RTOL[str(out)[6:]]
+                err, used = within(got, want, rtol, rtol * rms(want))
+                if used > 1.0:
+                    raise AssertionError(f"w8a16 {label} x {x_dtype} out {out}: kernel != "
+                                         f"plain version (max abs err {err}, {used:.3f} of "
+                                         f"the limit)")
+                errs["w8a16_matmul"] = max(errs["w8a16_matmul"], err)
+                worst = max(worst, used)
+        print(f"  ok {label} M={M} K={K} N={N}: w8a8 == plain (float32 and bfloat16 out); "
+              f"w8a16 (float32/bfloat16 x, float32/bfloat16 out) within rtol "
+              f"{W8A16_RTOL}, atol rtol x rms: {worst:.3f} of the limit")
+    for zp in (-37, 91):  # |acc| > 2^24: f32(acc) rounds, and one FMA differs
+        g = torch.Generator(device=dev).manual_seed(600 + zp)
+        a, w = int8(g, (64, 4096), dev, 90), int8(g, (4096, 512), dev, 90)
+        ws8 = torch.rand((512,), generator=g, device=dev) * 0.099 + 0.001
+        args = (a, w, a_scale, torch.tensor([zp], dtype=torch.int32, device=dev), ws8)
+        acc_max = int(int_matmul(a, w).abs().max())
+        for out in (torch.float32, torch.bfloat16):
+            got = QK.quant_matmul_kernel(*args, out_dtype=out)
+            if not torch.equal(got, QK.quant_matmul_plain(*args, out_dtype=out)):
+                raise AssertionError(f"w8a8 a_zp={zp} {out}: kernel != plain version")
+        got = QK.quant_matmul_kernel(*args)
+        ref = quant_matmul_ref(*args)
+        differ = int((got != ref).sum())
+        print(f"  ok a_zp={zp}, max |acc| {acc_max} > 2^24: w8a8 == plain (float32 and "
+              f"bfloat16 out); vs the int32-subtracting quant_matmul_ref {differ} of "
+              f"{got.numel()} outputs differ, by at most "
+              f"{float(((got - ref).abs() / ref.abs()).max()):.3g} relative")
+    return errs
+
+
+def phase_gemm_path(dev, tokens=(4, 2048), d=4096, d_ff=11008, head=(64, 1280, 1000)) -> dict:
+    """``quant_linear`` and ``w8a16_linear`` on the full-width
+    up-projection and the Logits head, with the launch counters zeroed
+    around these four calls; each held to its plain path and, as in the
+    reference tests, to the float linear."""
+    import torch
+
+    from repro_torch.core.quantization import quantize
+    from repro_torch.kernels.quant_matmul import kernel as QK
+    from repro_torch.kernels.quant_matmul import ops as QO
+    from repro_torch.kernels.quant_matmul.ref import int_matmul
+
+    g = torch.Generator(device=dev).manual_seed(3)
+    cases = {  # label: (x, float weights)
+        "deepseek-7b up-projection": (
+            torch.randn((*tokens, d), generator=g, device=dev).to(torch.bfloat16),
+            torch.randn((d, d_ff), generator=g, device=dev) * 0.02),
+        # pooled ReLU6 features of 64 images: non-negative, so a_zp = -128
+        "MobileNet-V2 Logits head": (
+            torch.rand(head[:2], generator=g, device=dev) * 6,
+            torch.randn(head[1:], generator=g, device=dev) * 0.05),
+    }
+    wq = {k: quantize(w, axis=1, symmetric=True) for k, (_, w) in cases.items()}
+    torch.cuda.synchronize()
+    QK.reset_launch_counts()
+    outs = {k: (QO.quant_linear(x, wq[k]), QO.w8a16_linear(x, wq[k]))
+            for k, (x, _) in cases.items()}
+    torch.cuda.synchronize()
+    launches = {"w8a8_matmul": QK.W8A8_LAUNCHES, "w8a16_matmul": QK.W8A16_LAUNCHES}
+    print(f"  path: quant_linear and w8a16_linear on {', '.join(cases)}: launches {launches}")
+    for kernel, n in launches.items():
+        if n != len(cases):
+            raise AssertionError(f"{kernel} was launched {n} times on the main path, "
+                                 f"not {len(cases)}")
+    for label, (x, w) in cases.items():
+        y8, y16 = outs[label]
+        K = x.shape[-1]
+        shape = (*x.shape[:-1], w.shape[1])
+        for name, y in (("quant_linear", y8), ("w8a16_linear", y16)):
+            if tuple(y.shape) != shape or y.dtype != x.dtype \
+                    or not bool(torch.isfinite(y.float()).all()):
+                raise AssertionError(f"{label} {name}: bad output {tuple(y.shape)} {y.dtype}")
+        # the kernel's own plain version on the same quantized activations:
+        # exact at any |acc|; the integer path (quant_matmul_ref) too
+        # while |acc| <= 2^24, where f32(acc) is exact
+        xa = quantize(x.reshape(-1, K))
+        acc_max = int(int_matmul(xa.values, wq[label].values).abs().max())
+        kernel_plain8 = QK.quant_matmul_plain(
+            xa.values, wq[label].values, xa.scale.reshape(1), xa.zero_point.reshape(1),
+            wq[label].scale).reshape(shape).to(x.dtype)
+        if not torch.equal(y8, kernel_plain8):
+            raise AssertionError(f"{label}: quant_linear kernel path != the W8A8 kernel's "
+                                 f"plain version")
+        plain8 = QO.quant_linear(x, wq[label], use_kernel=False)
+        integer_equal = torch.equal(y8, plain8)
+        if acc_max <= 2 ** 24 and not integer_equal:
+            raise AssertionError(f"{label}: quant_linear kernel path != integer path")
+        plain16 = QK.w8a16_matmul_plain(x.reshape(-1, K), wq[label].values,
+                                        wq[label].scale).reshape(shape).to(x.dtype)
+        rtol = W8A16_RTOL[str(x.dtype)[6:]]
+        err16, used16 = within(y16, plain16, rtol, rtol * rms(plain16))
+        if used16 > 1.0:
+            raise AssertionError(f"{label}: w8a16_linear kernel path != plain path")
+        ref = x.float().reshape(-1, K) @ w
+        rel8 = float((y8.float().reshape(ref.shape) - ref).norm() / ref.norm())
+        rel16 = float((y16.float().reshape(ref.shape) - ref).norm() / ref.norm())
+        print(f"  ok {label} x {tuple(x.shape)} {str(x.dtype)[6:]}: quant_linear == the "
+              f"kernel's plain version; vs the integer path "
+              f"{'equal' if integer_equal else 'not equal'} (max |acc| {acc_max}, "
+              f"a_zp {int(xa.zero_point)}); "
+              f"w8a16_linear vs plain path max abs err {err16:.3g} ({used16:.3f} of the "
+              f"limit); relative error vs the float linear {rel8:.4f} (< 0.02) and "
+              f"{rel16:.4f} (< 0.01)")
+        if not (rel8 < 0.02 and rel16 < 0.01):
+            raise AssertionError(f"{label}: quantized linear too far from the float linear")
+    return {"launches": launches, "x": cases["deepseek-7b up-projection"][0],
+            "wq": wq["deepseek-7b up-projection"]}
+
+
+def ssd_inputs(dev, B, S, H, ph, ds, dtype, seed):
+    """Model-layout inputs drawn as the reference kernel test draws them."""
+    import torch
+    import torch.nn.functional as F
+
+    g = torch.Generator(device=dev).manual_seed(seed)
+    x = torch.randn((B, S, H, ph), generator=g, device=dev).to(dtype)
+    b = (torch.randn((B, S, ds), generator=g, device=dev) * 0.5).to(dtype)
+    c = (torch.randn((B, S, ds), generator=g, device=dev) * 0.5).to(dtype)
+    dA = -F.softplus(torch.randn((B, S, H), generator=g, device=dev))
+    dt = F.softplus(torch.randn((B, S, H), generator=g, device=dev))
+    return x, b, c, dA, dt
+
+
+def fold_scan(x, b, c, dA, dt):
+    """Model layout -> the kernels' folded layout, b and c kept per batch
+    row (one group of H heads)."""
+    B, S, H, ph = x.shape
+    return (x.transpose(1, 2).reshape(B * H, S, ph).contiguous(), b, c,
+            dA.transpose(1, 2).reshape(B * H, S).contiguous(),
+            dt.transpose(1, 2).reshape(B * H, S).contiguous())
+
+
+def check_scan(label, got, folded, chunk, dtype_name) -> float:
+    """y (folded) against the chunked plain version and the sequential
+    oracle; returns the max abs error against the plain version."""
+    from repro_torch.kernels.ssm_scan.kernel import ssm_scan_plain
+    from repro_torch.kernels.ssm_scan.ref import ssm_scan_ref
+
+    rtol, atol = SSD_TOL[dtype_name]
+    err, used = within(got, ssm_scan_plain(*folded, chunk=chunk), rtol, atol)
+    err_seq, used_seq = within(got, ssm_scan_ref(*folded), rtol, atol)
+    if max(used, used_seq) > 1.0:
+        raise AssertionError(f"ssd {label} {dtype_name}: kernel beyond tolerance (plain "
+                             f"{err}, {used:.3f} of the limit; sequential {err_seq}, "
+                             f"{used_seq:.3f})")
+    print(f"  ok {label} {dtype_name} chunk {chunk}: vs chunked plain max abs err {err:.3g} "
+          f"({used:.3f} of the limit), vs sequential oracle {err_seq:.3g} ({used_seq:.3f}); "
+          f"rtol {rtol:.4g}, atol {atol}")
+    return err
+
+
+def phase_ssd(dev, B=4, S=2048, H=64, ph=64, ds=64, ragged=(2, 1000, 8)) -> dict:
+    """``ssm_scan`` at full width, launch counter zeroed around the two
+    calls; then the outputs and ragged cases against the plain version
+    and the oracle."""
+    import torch
+
+    from repro_torch.kernels.ssm_scan import kernel as SK
+    from repro_torch.kernels.ssm_scan import ops as SO
+
+    # default: one zamba2-1.2b Mamba2 layer (d_inner 4096 = 64 heads of 64)
+    dtypes = (torch.float32, torch.bfloat16)
+    inputs = {dt_: ssd_inputs(dev, B, S, H, ph, ds, dt_, 40) for dt_ in dtypes}
+    torch.cuda.synchronize()
+    SK.reset_launch_count()
+    ys = {dt_: SO.ssm_scan(*inputs[dt_]) for dt_ in dtypes}
+    torch.cuda.synchronize()
+    launches = SK.SSD_LAUNCHES
+    print(f"  path: ssm_scan B={B} S={S} H={H} ph={ph} ds={ds} float32 and bfloat16: "
+          f"{launches} launches")
+    if launches == 0:
+        raise AssertionError("ssd_scan was not launched on the main path")
+    err = 0.0
+    for dt_ in dtypes:
+        y = ys[dt_]
+        if tuple(y.shape) != (B, S, H, ph) or y.dtype != dt_:
+            raise AssertionError(f"ssm_scan: bad output {tuple(y.shape)} {y.dtype}")
+        got = y.transpose(1, 2).reshape(B * H, S, ph)
+        err = max(err, check_scan("full width (zamba2-1.2b layer)", got,
+                                  fold_scan(*inputs[dt_]), 128, str(dt_)[6:]))
+    for chunk in (128, 16):
+        for dt_ in dtypes:
+            folded = fold_scan(*ssd_inputs(dev, *ragged[:2], ragged[2], ph, ds, dt_, 41))
+            got = SK.ssm_scan_kernel(*folded, chunk=chunk)
+            err = max(err, check_scan(f"ragged S={ragged[1]} (B {ragged[0]}, H {ragged[2]})",
+                                      got, folded, chunk, str(dt_)[6:]))
+    return {"launches": launches, "err": err, "inputs": inputs[torch.bfloat16]}
+
+
+def phase_quant_times(dev, card, gemm, ssd) -> dict:
+    """Each kernel, its plain version and the PyTorch yardstick at the
+    full-width shape, beside its bound; the ops' wall times."""
+    import torch
+
+    from repro_torch.kernels.quant_matmul import kernel as QK
+    from repro_torch.kernels.quant_matmul import ops as QO
+    from repro_torch.kernels.ssm_scan import kernel as SK
+    from repro_torch.kernels.ssm_scan import ops as SO
+
+    out = {}
+    x, wq = gemm["x"], gemm["wq"]
+    M, K = x.numel() // x.shape[-1], x.shape[-1]
+    N = wq.values.shape[1]
+    g = torch.Generator(device=dev).manual_seed(7)
+    a, w = int8(g, (M, K), dev), wq.values
+    a_scale = torch.tensor([0.03], device=dev)
+    a_zp = torch.tensor([-5], dtype=torch.int32, device=dev)
+    ws = wq.scale
+    xb = x.reshape(M, K)
+
+    def int_mm_epilogue():
+        acc = torch._int_mm(a, w)
+        colsum = w.sum(0, dtype=torch.int32)
+        return (acc.float() - a_zp.float() * colsum.float()) * a_scale * ws
+
+    try:  # the yardstick is only timed; where it refuses, it is left out
+        int_mm_epilogue()
+    except RuntimeError as err:
+        print(f"  torch._int_mm refused {M} x {K} x {N}: {str(err)[:200]}")
+        int_mm_epilogue = None
+
+    def dequant_matmul():
+        return xb.float() @ (w.float() * ws)
+
+    flops = 2 * M * N * K
+    work = {  # name: (kernel, plain, library, bytes moved, ops, peak)
+        "w8a8_matmul": (lambda: QK.quant_matmul_kernel(a, w, a_scale, a_zp, ws),
+                        lambda: QK.quant_matmul_plain(a, w, a_scale, a_zp, ws),
+                        int_mm_epilogue, M * K + K * N + 4 * N + 8 + 4 * M * N,
+                        flops, INT8_OPS_PER_S),
+        "w8a16_matmul": (lambda: QK.w8a16_matmul_kernel(xb, w, ws),
+                         lambda: QK.w8a16_matmul_plain(xb, w, ws), dequant_matmul,
+                         2 * M * K + K * N + 4 * N + 4 * M * N, flops, BF16_FLOPS_PER_S),
+    }
+    xs, bs, cs, dAs, dts = ssd["inputs"]  # bfloat16, model layout
+    B, S, H, ph = xs.shape
+    ds = bs.shape[2]
+    folded = fold_scan(xs, bs, cs, dAs, dts)
+    ck = 128
+    n_chunks = -(-S // ck)
+    # per chunk of r rows: C Bᵀ on the r (r + 1) / 2 pairs the causal mask
+    # keeps, once per batch row (its H heads share B and C); per head, the
+    # masked (C Bᵀ ∘ L)(dt x), C h and the state update Bᵀ(dt x)
+    rows = [min(ck, S - i * ck) for i in range(n_chunks)]
+    ssd_flops = sum(2 * B * (r * (r + 1) // 2 * ds + H * (r * (r + 1) // 2 * ph
+                                                          + 2 * r * ds * ph))
+                    for r in rows)
+    ssd_bytes = 2 * (2 * B * H * S * ph + 2 * B * S * ds) + 4 * 2 * B * H * S
+    work["ssd_scan"] = (lambda: SK.ssm_scan_kernel(*folded, chunk=ck),
+                        lambda: SK.ssm_scan_plain(*folded, chunk=ck), None, ssd_bytes,
+                        ssd_flops, FP32_FLOPS_PER_S)
+    for name, (kernel, plain, library, nbytes, ops, peak) in work.items():
+        plain_a = timed_ms(plain, 3)
+        ms = timed_ms(kernel, 10)
+        plain_ms = min(plain_a, timed_ms(plain, 3))
+        lib_ms = None
+        if library is not None:
+            lib_ms = timed_ms(library, 10)
+        bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+        ops_ms = ops / peak * 1e3
+        out[name] = dict(ms=ms, plain_ms=plain_ms, bound_ms=max(bytes_ms, ops_ms),
+                         bound_by="bytes" if bytes_ms >= ops_ms else "operations",
+                         library_ms=lib_ms)
+        shape = (f"B={B} S={S} H={H} ph={ph} ds={ds} chunk {ck} bf16" if name == "ssd_scan"
+                 else f"M={M} K={K} N={N}" + (" bf16 x" if name == "w8a16_matmul" else ""))
+        lib = "" if lib_ms is None else f"; PyTorch yardstick {lib_ms:.4f} ms"
+        print(f"  {name} {shape}: {ms:.4f} ms (plain {plain_ms:.3f} ms{lib}; bound "
+              f"{out[name]['bound_ms']:.4f} ms by {out[name]['bound_by']}: {ops / 1e9:.1f} G "
+              f"ops in {ops_ms:.4f} ms, {nbytes / 1e6:.1f} MB in {bytes_ms:.4f} ms; "
+              f"{ms / out[name]['bound_ms']:.1f}x the bound) [{card}]")
+
+    for label, fn in (("quant_linear", lambda: QO.quant_linear(x, wq)),
+                      ("w8a16_linear", lambda: QO.w8a16_linear(x, wq)),
+                      ("ssm_scan", lambda: SO.ssm_scan(xs, bs, cs, dAs, dts))):
+        walls = []
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            walls.append((time.perf_counter() - t0) * 1e3)
+        print(f"  {label} whole call: {min(walls):.3f} ms (runs "
+              f"{', '.join(f'{w_:.3f}' for w_ in walls)} ms) [{card}]")
+    # where quant_linear's time goes beside its GEMM: quantizing the
+    # activations (one traced run; later traces in the same process have
+    # come back without device events on this machine)
+    traced_run("quant_linear", lambda: QO.quant_linear(x, wq), card)
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -836,6 +1226,20 @@ def main() -> int:
     print("== 10 serving times")
     times["flash_attention"] = phase_serving_times(dev, cfg, params, cached["cache"],
                                                    server, card)
+    del params, cached  # 13.8 GB of weights and a 4.1 GB cache
+    torch.cuda.empty_cache()
+
+    print("== 11 int8 GEMMs: kernels against their plain versions, then the path")
+    errs.update(phase_gemm_kernels(dev))
+    gemm = phase_gemm_path(dev)
+
+    print("== 12 SSD scan: the path, then the kernel against its plain version and "
+          "the sequential oracle")
+    ssd = phase_ssd(dev)
+    errs["ssd_scan"] = ssd["err"]
+
+    print("== 13 int8 GEMM and SSD scan times")
+    times.update(phase_quant_times(dev, card, gemm, ssd))
 
     kernels = []
     for name, line in (("dense_dp", 150), ("fused_dp", 170)):
@@ -853,6 +1257,17 @@ def main() -> int:
         "launches": flash_launches, "max_abs_err": errs["flash_attention"],
         **times["flash_attention"],
     })
+    for name, source, replaces, launches in (
+            ("w8a8_matmul", "quant_matmul.cu", "quant_matmul/kernel.py:31",
+             gemm["launches"]["w8a8_matmul"]),
+            ("w8a16_matmul", "quant_matmul.cu", "quant_matmul/kernel.py:123",
+             gemm["launches"]["w8a16_matmul"]),
+            ("ssd_scan", "ssm_scan.cu", "ssm_scan/kernel.py:40", ssd["launches"])):
+        kernels.append({
+            "name": name, "route": "cuda", "source": f"src/repro_torch/csrc/{source}",
+            "replaces": f"src/repro/kernels/{replaces}", "launches": launches,
+            "max_abs_err": errs[name], **times[name],
+        })
     print(f"  total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(card)

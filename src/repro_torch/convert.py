@@ -6,7 +6,9 @@ rebuild each as the port's own dataclass, reading the reference object by
 attribute as plain numbers, strings and tuples: ``repro`` is never
 imported, so any object with the same fields converts. The LM's weights
 arrive as the reference's parameter pytree of numpy arrays and leave as
-the port's state dict (:func:`lm_params_from_reference`)."""
+the port's state dict (:func:`lm_params_from_reference`). Int8 tensors
+and quantized parameter trees leave as the port's ``QTensor``s
+(:func:`qtensor_from_reference`, :func:`quantized_params_from_reference`)."""
 
 from __future__ import annotations
 
@@ -23,6 +25,7 @@ from repro_torch.core.latency import (
     ModelCostProfile,
 )
 from repro_torch.core.planner import SegmentPlan, SplitPlan
+from repro_torch.core.quantization import QTensor
 from repro_torch.core.sweep import ScenarioGrid
 from repro_torch.models.config import ModelConfig
 
@@ -33,6 +36,8 @@ __all__ = [
     "lm_params_from_reference",
     "plan_from_reference",
     "profile_from_reference",
+    "qtensor_from_reference",
+    "quantized_params_from_reference",
     "variant_from_reference",
 ]
 
@@ -129,3 +134,25 @@ def lm_params_from_reference(cfg: ModelConfig, params) -> dict[str, torch.Tensor
         for i in range(cfg.n_layers):
             sd[f"blocks.{i}.{name}"] = _tensor(stack[i])
     return sd
+
+
+def qtensor_from_reference(qt) -> QTensor:
+    """The port's ``QTensor`` from the reference's (values, scale,
+    zero_point and axis, read as numpy arrays: the same bits)."""
+    return QTensor(values=_tensor(qt.values), scale=_tensor(qt.scale),
+                   zero_point=_tensor(qt.zero_point), axis=qt.axis)
+
+
+def quantized_params_from_reference(tree):
+    """A ``quantize_params`` tree of the reference (nested dicts, lists
+    and tuples) with each ``QTensor`` converted and each array leaf a CPU
+    tensor of the same values; any other leaf is kept as it is."""
+    if isinstance(tree, dict):
+        return {k: quantized_params_from_reference(v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(quantized_params_from_reference(v) for v in tree)
+    if all(hasattr(tree, f) for f in ("values", "scale", "zero_point", "axis")):
+        return qtensor_from_reference(tree)
+    if hasattr(tree, "shape") and hasattr(tree, "dtype"):
+        return _tensor(tree)
+    return tree

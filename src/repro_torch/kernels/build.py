@@ -21,6 +21,8 @@ import time
 from dataclasses import dataclass
 from pathlib import Path
 
+import torch
+
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -43,6 +45,18 @@ SIGNATURES: dict[str, dict[str, tuple[list, object]]] = {
         # q, k, v, qpos, kpos, out, BH, BHkv, Sq, Skv, D, scale, is_bf16, stream
         "flash_attention_fwd": ([_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                                  ctypes.c_float, _I, _P], _I),
+        "cuda_error_string": ([_I], ctypes.c_char_p),
+    },
+    "quant_matmul.cu": {
+        # a, w, a_scale, a_zp, w_scale, colsum, out, M, K, N, out_bf16, stream
+        "quant_matmul_w8a8": ([_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P], _I),
+        # x, w, w_scale, out, M, K, N, x_bf16, out_bf16, stream
+        "quant_matmul_w8a16": ([_P, _P, _P, _P, _I, _I, _I, _I, _I, _P], _I),
+        "cuda_error_string": ([_I], ctypes.c_char_p),
+    },
+    "ssm_scan.cu": {
+        # x, b, c, dA, dt, y, BH, BG, S, ph, ds, ck, is_bf16, stream
+        "ssm_scan_fwd": ([_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P], _I),
         "cuda_error_string": ([_I], ctypes.c_char_p),
     },
 }
@@ -131,3 +145,17 @@ def check_launch(built: BuiltLibrary, code: int, kernel: str) -> None:
     if code != 0:
         msg = built.lib.cuda_error_string(code).decode()
         raise RuntimeError(f"{kernel} launch failed: CUDA error {code} ({msg})")
+
+
+def check_cuda(kernel: str, **tensors: torch.Tensor) -> torch.device:
+    """The one CUDA device that all ``tensors`` lie on; raises unless they
+    are contiguous CUDA tensors on one device."""
+    dev = next(iter(tensors.values())).device
+    for name, t in tensors.items():
+        if t.device != dev:
+            raise ValueError(f"{kernel}: {name} is on {t.device}, expected {dev}")
+        if not t.is_contiguous():
+            raise ValueError(f"{kernel}: {name} must be contiguous")
+    if dev.type != "cuda":
+        raise ValueError(f"{kernel}: needs CUDA tensors, got {dev}")
+    return dev

@@ -132,3 +132,145 @@ def test_flash_kernel_skipped_q_tile_writes_zero(card):
         q, k, k, torch.arange(64, dtype=torch.int32, device=card),
         torch.arange(1000, 1128, dtype=torch.int32, device=card), scale=0.2)
     assert torch.equal(out, torch.zeros_like(out))
+
+
+# (M, K, N): ragged, one row, a wide ragged N, the MobileNet-V2 Logits head,
+# and the full-width deepseek-7b MLP up-projection over 4 x 2,048 tokens
+GEMM_SHAPES = [(100, 200, 300), (1, 64, 17), (33, 1280, 1000), (64, 1280, 1000),
+               (8192, 4096, 11008)]
+
+
+def int8(g, shape, card, lo=-128, hi=128):
+    return torch.randint(lo, hi, shape, generator=g, device=card, dtype=torch.int8)
+
+
+@pytest.mark.parametrize("out_dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("shape", GEMM_SHAPES, ids=lambda s: "x".join(map(str, s)))
+def test_w8a8_kernel_equals_plain_exactly(card, shape, out_dtype):
+    from repro_torch.kernels.quant_matmul import kernel as QK
+
+    M, K, N = shape
+    g = torch.Generator(device=card).manual_seed(M + K + N)
+    a, w = int8(g, (M, K), card), int8(g, (K, N), card)
+    ws = torch.rand((N,), generator=g, device=card) * 0.1 + 0.001
+    a_scale = torch.tensor([0.03], device=card)
+    a_zp = torch.tensor([-5], dtype=torch.int32, device=card)
+    before = QK.W8A8_LAUNCHES
+    got = QK.quant_matmul_kernel(a, w, a_scale, a_zp, ws, out_dtype=out_dtype)
+    torch.cuda.synchronize()
+    assert QK.W8A8_LAUNCHES == before + 1 and got.dtype == out_dtype
+    want = QK.quant_matmul_plain(a, w, a_scale, a_zp, ws, out_dtype=out_dtype)
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("zp", [-37, 91])
+def test_w8a8_kernel_fma_epilogue_beyond_2_24(card, zp):
+    """int8 values near 100 make |acc| > 2^24, where f32(acc) rounds: the
+    kernel's one-FMA epilogue must still equal the plain version bit for
+    bit (and so differ from the int32-subtracting reference there)."""
+    from repro_torch.kernels.quant_matmul import kernel as QK
+    from repro_torch.kernels.quant_matmul.ref import quant_matmul_ref
+
+    g = torch.Generator(device=card).manual_seed(zp + 100)
+    a, w = int8(g, (64, 4096), card, 90), int8(g, (4096, 512), card, 90)
+    ws = torch.rand((512,), generator=g, device=card) * 0.1 + 0.001
+    args = (a, w, torch.tensor([0.03], device=card),
+            torch.tensor([zp], dtype=torch.int32, device=card), ws)
+    got = QK.quant_matmul_kernel(*args)
+    assert torch.equal(got, QK.quant_matmul_plain(*args))
+    assert not torch.equal(got, quant_matmul_ref(*args))
+
+
+@pytest.mark.parametrize("out_dtype", [torch.float32, torch.bfloat16], ids=["out-f32", "out-bf16"])
+@pytest.mark.parametrize("x_dtype", [torch.float32, torch.bfloat16], ids=["x-f32", "x-bf16"])
+@pytest.mark.parametrize("shape", GEMM_SHAPES, ids=lambda s: "x".join(map(str, s)))
+def test_w8a16_kernel_equals_plain(card, shape, x_dtype, out_dtype):
+    """Both sum float32 products of the same values, in another order: the
+    reference kernel test's rtol (1e-4 in float32, 2e-2 for a bfloat16
+    output: one rounding), with atol scaled to the output's rms, as the
+    reference test's outputs are O(1) and these grow with K."""
+    from repro_torch.kernels.quant_matmul import kernel as QK
+
+    M, K, N = shape
+    g = torch.Generator(device=card).manual_seed(M * K + N)
+    x = torch.randn((M, K), generator=g, device=card).to(x_dtype)
+    w = int8(g, (K, N), card)
+    ws = torch.rand((N,), generator=g, device=card) * 0.05 + 0.001
+    before = QK.W8A16_LAUNCHES
+    got = QK.w8a16_matmul_kernel(x, w, ws, out_dtype=out_dtype)
+    torch.cuda.synchronize()
+    assert QK.W8A16_LAUNCHES == before + 1 and got.dtype == out_dtype
+    want = QK.w8a16_matmul_plain(x, w, ws, out_dtype=out_dtype).float()
+    tol = 1e-4 if out_dtype == torch.float32 else 2e-2
+    rms = float(want.square().mean().sqrt())
+    torch.testing.assert_close(got.float(), want, rtol=tol, atol=tol * rms)
+
+
+# (BH, BG, S, ph, ds, chunk): the reference kernel test's shapes, a shared
+# B/C group, ragged S, and one zamba2-1.2b Mamba2 layer (4 x 64 heads)
+SSD_SHAPES = [(4, 4, 64, 16, 8, 16), (3, 3, 100, 16, 8, 32), (1, 1, 256, 64, 64, 128),
+              (2, 2, 37, 8, 8, 16), (8, 2, 1000, 64, 64, 128), (8, 2, 1000, 64, 64, 16),
+              (256, 4, 2048, 64, 64, 128)]
+# the reference kernel test's tolerance in float32; in bfloat16 both round
+# the same float32 result, so one bf16 ulp (2^-7 relative) on top
+SSD_TOL = {torch.float32: dict(rtol=2e-4, atol=1e-4),
+           torch.bfloat16: dict(rtol=2 ** -7 + 2e-4, atol=1e-3)}
+
+
+def ssd_inputs(g, BH, BG, S, ph, ds, card, dtype):
+    sp = torch.nn.functional.softplus
+    x = torch.randn((BH, S, ph), generator=g, device=card).to(dtype)
+    b = (torch.randn((BG, S, ds), generator=g, device=card) * 0.5).to(dtype)
+    c = (torch.randn((BG, S, ds), generator=g, device=card) * 0.5).to(dtype)
+    dA = -sp(torch.randn((BH, S), generator=g, device=card))
+    dt = sp(torch.randn((BH, S), generator=g, device=card))
+    return x, b, c, dA, dt
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("shape", SSD_SHAPES, ids=lambda s: "x".join(map(str, s)))
+def test_ssd_kernel_equals_plain(card, shape, dtype):
+    from repro_torch.kernels.ssm_scan import kernel as SK
+
+    BH, BG, S, ph, ds, ck = shape
+    g = torch.Generator(device=card).manual_seed(BH * S + ph)
+    args = ssd_inputs(g, BH, BG, S, ph, ds, card, dtype)
+    before = SK.SSD_LAUNCHES
+    got = SK.ssm_scan_kernel(*args, chunk=ck)
+    torch.cuda.synchronize()
+    assert SK.SSD_LAUNCHES == before + 1 and got.dtype == dtype
+    want = SK.ssm_scan_plain(*args, chunk=ck)
+    torch.testing.assert_close(got.float(), want.float(), **SSD_TOL[dtype])
+
+
+def test_ssd_kernel_matches_sequential_ref(card):
+    from repro_torch.kernels.ssm_scan import kernel as SK
+    from repro_torch.kernels.ssm_scan.ref import ssm_scan_ref
+
+    g = torch.Generator(device=card).manual_seed(5)
+    args = ssd_inputs(g, 8, 2, 300, 64, 64, card, torch.float32)
+    torch.testing.assert_close(SK.ssm_scan_kernel(*args, chunk=128), ssm_scan_ref(*args),
+                               **SSD_TOL[torch.float32])
+
+
+def test_ssd_op_mixed_types_launch_in_float32(card):
+    """bfloat16 x with float32 b, c: the op launches the kernel on float32
+    copies and returns bfloat16, equal to the plain version's rounding."""
+    from repro_torch.kernels.ssm_scan import kernel as SK
+    from repro_torch.kernels.ssm_scan import ops as SO
+
+    g = torch.Generator(device=card).manual_seed(6)
+    B, S, H, ph, ds = 2, 300, 4, 64, 64
+    x = torch.randn((B, S, H, ph), generator=g, device=card).to(torch.bfloat16)
+    b = torch.randn((B, S, ds), generator=g, device=card) * 0.5
+    c = torch.randn((B, S, ds), generator=g, device=card) * 0.5
+    dA = -torch.nn.functional.softplus(torch.randn((B, S, H), generator=g, device=card))
+    dt = torch.nn.functional.softplus(torch.randn((B, S, H), generator=g, device=card))
+    before = SK.SSD_LAUNCHES
+    got = SO.ssm_scan(x, b, c, dA, dt)
+    torch.cuda.synchronize()
+    assert SK.SSD_LAUNCHES == before + 1 and got.dtype == torch.bfloat16
+    fold = lambda t: t.transpose(1, 2).reshape(B * H, S, *t.shape[3:]).contiguous()
+    want = SK.ssm_scan_plain(fold(x).float(), b, c, fold(dA), fold(dt))
+    torch.testing.assert_close(fold(got).float(), want.to(torch.bfloat16).float(),
+                               **SSD_TOL[torch.bfloat16])
