@@ -24,20 +24,26 @@ reference package ``repro``) on the card and fails on any fault:
 5. DP times with CUDA events at S = 65,536, N = 5, L = 54, float32,
    beside each kernel's bound; the sweep's scenarios/s and wall time,
    and a profiled run's device busy time and idle share;
-6. the flash-attention kernel against its plain version on the card:
-   float32 and bfloat16, MHA / GQA (group 4) / MQA, ragged 100/100, q a
-   suffix of a longer kv, and both full-width shapes the serving path
-   launches (4 x 2048 x 32 x 128 over 2,048 kv rows, and over the
-   2,080-row cache), within the reference kernel test's tolerances (at
-   full width in bf16, a tighter atol set from the measured error);
+6. the two flash-attention kernels against their plain version on the
+   card, after the wrapper's routing rule is held to the C entry's for
+   every head dim: float32 on the CUDA-core kernel, bfloat16 on the wgmma
+   kernel (the path's) and on the CUDA-core kernel; MHA / GQA (group 4) /
+   MQA, ragged 100/100, q a suffix of a longer kv, D 64 over a ragged
+   1,000-row kv, D 160 with ragged Sq, D 256, and both full-width shapes
+   the serving path launches (4 x 2048 x 32 x 128 over 2,048 kv rows, and
+   over the 2,080-row cache), within the reference kernel test's
+   tolerances (at full width in bf16, a tighter atol set from the
+   measured error), each case printing the share of its limit used;
    cross-checked against ``scaled_dot_product_attention`` as a yardstick;
 7. the serving path's prefill step at full width: deepseek-7b (30 layers,
    d 4096, bf16, ``use_flash_kernel=True``, seeded random weights made
    on the card), ``make_prefill_step`` on 4 prompts x 2048 tokens: 30
-   flash launches, logits held to the same step on the plain attention
-   path (``use_flash_kernel=False``) within a stated tolerance;
+   flash launches, all of the wgmma kernel, logits held to the same step
+   on the plain attention path (``use_flash_kernel=False``) within a
+   stated tolerance;
 8. cached serving: ``prefill`` into a cache of 2048 + 32 rows (30
-   launches), then 32 greedy ``serve_step``s (0 launches); the prefill's
+   launches of the wgmma kernel), then 32 greedy ``serve_step``s (0
+   launches); the prefill's
    last-position logits are held to the plain-attention twin's as in 7,
    and the tokens equal the twin's wherever its top-two logit gap
    exceeds twice the logits tolerance;
@@ -45,9 +51,10 @@ reference package ``repro``) on the card and fails on any fault:
    tokens, 16 new tokens each (0 flash launches: the server prefills
    token by token through the decode step); every request's tokens
    equal serving it alone on a 4-slot server, exactly;
-10. serving times beside the card line: the flash kernel, its plain
-   version and ``scaled_dot_product_attention`` at the full-width shape
-   beside the kernel's bound; the prefill step's wall time and tokens/s;
+10. serving times beside the card line: the wgmma flash kernel, the
+   CUDA-core kernel on the same bf16 input, the plain version and
+   ``scaled_dot_product_attention`` at the full-width shape beside the
+   kernel's bound; the prefill step's wall time and tokens/s;
    ms per ``serve_step`` over three windows, the per-step spread with its
    host enqueue time, and the allocator's retries and cudaMalloc calls
    over those steps; ``Server`` tokens/s; traced runs of a prefill
@@ -56,9 +63,10 @@ reference package ``repro``) on the card and fails on any fault:
    float32 and bfloat16 output (ragged 100 x 200 x 300, one row, ragged
    M with N 1000, MobileNet-V2's Logits head 64 x 1280 x 1000, the
    full-width deepseek-7b up-projection 8192 x 4096 x 11008, and
-   a_zp != 0 with |acc| > 2^24); the W8A16 kernel, float32 and bfloat16
-   x, within the reference test's rtol; then the path: ``quant_linear``
-   and ``w8a16_linear`` on x (4, 2048, 4096) bf16 against seeded random
+   a_zp != 0 with |acc| > 2^24, K 100 with N 48, and K 37 with N 40); the
+   W8A16 kernel, float32 and bfloat16 x, float32 and bfloat16 out,
+   within the reference test's rtol; then the path: ``quant_linear`` and
+   ``w8a16_linear`` on x (4, 2048, 4096) bf16 against seeded random
    up-projection weights and on the Logits head, with the launch counters
    read around these four calls only (two launches of each kernel);
    ``quant_linear`` equal to the W8A8 kernel's plain version on the same
@@ -72,10 +80,11 @@ reference package ``repro``) on the card and fails on any fault:
    chunks of 128 and 16;
 13. times at full width beside the card line: each int8 GEMM and the SSD
    kernel, its plain version and the PyTorch yardstick (``torch._int_mm``
-   plus the epilogue; dequantize plus a float32 ``torch.matmul``; none for
-   the scan) beside the kernel's bound (the scan's counts the flops its
-   causal mask keeps, C Bᵀ once per batch row); the ops' wall times and
-   a traced ``quant_linear``;
+   plus the epilogue; for W8A16 with bf16 x, dequantize to bf16 plus a
+   bf16 ``torch.matmul`` and the scale, with the float32 one beside it;
+   none for the scan) beside the kernel's bound (the scan's counts the
+   flops its causal mask keeps, C Bᵀ once per batch row); W8A16 with
+   float32 x; the ops' wall times and a traced ``quant_linear``;
 14. a JSON line of per-kernel results, the card line, and the last line
    ``{"ok": true, "device": {...}}``.
 
@@ -137,7 +146,9 @@ SSD_TOL = {"float32": (2e-4, 1e-4), "bfloat16": (2 ** -7 + 2e-4, 1e-3)}
 GEMM_CASES = [("ragged", 100, 200, 300), ("one row", 1, 4096, 11008),
               ("ragged M, N 1000", 33, 1280, 1000),
               ("MobileNet-V2 Logits head", 64, 1280, 1000),
-              ("full width (deepseek-7b up-projection, 4 x 2048 tokens)", 8192, 4096, 11008)]
+              ("full width (deepseek-7b up-projection, 4 x 2048 tokens)", 8192, 4096, 11008),
+              ("K 100, no multiple of 8 (bf16 x without TMA)", 37, 100, 48),
+              ("K 37, N 40 (x and w without TMA)", 19, 37, 40)]
 
 
 def card_line() -> str:
@@ -465,20 +476,36 @@ def flash_case(dev, B, Sq, Skv, H, Hkv, D, dtype, seed, q0=None):
 
 
 def phase_flash(dev) -> float:
-    """The flash kernel (through its wrapper) against its plain version on
-    the card; returns the largest max abs error over the cases."""
+    """Both flash kernels (through the wrapper) against their plain version
+    on the card: every case in float32 (the CUDA-core kernel) and in bf16
+    on the wrapper's pick (the wgmma kernel wherever D is a multiple of
+    16) and on the CUDA-core kernel; returns the largest max abs error.
+    The wrapper's routing rule is first held to the C entry's."""
     import torch
     import torch.nn.functional as F
 
+    from repro_torch.kernels import build
     from repro_torch.kernels.flash_attention import ops as FA
     from repro_torch.kernels.flash_attention.ref import attention_ref
 
+    lib = build.load("flash_attention.cu").lib
+    for dtype in (torch.float32, torch.bfloat16):
+        for D in range(1, FA.MAX_HEAD_DIM + 1):
+            if bool(lib.flash_attention_variant(int(dtype == torch.bfloat16), D)) \
+                    != (FA._variant(dtype, D) == "wgmma"):
+                raise AssertionError(f"flash: _variant({dtype}, {D}) != the C entry's rule")
+    print("  ok the wrapper's variant rule == flash_attention_variant for both types, "
+          f"D 1..{FA.MAX_HEAD_DIM}")
     cases = [  # label, B, Sq, Skv, H, Hkv, D, first q position (None: Skv - Sq)
         ("MHA", 2, 256, 256, 8, 8, 128, None),
         ("GQA group 4", 2, 256, 256, 8, 2, 128, None),
         ("MQA", 2, 192, 192, 8, 1, 64, None),
         ("ragged 100/100", 2, 100, 100, 4, 2, 32, None),
         ("q suffix of a longer kv", 2, 96, 2080, 4, 4, 128, None),
+        ("D 64, ragged Skv 1000 (not a multiple of the 64-row kv tile)", 2, 200, 1000, 8, 2,
+         64, None),
+        ("D 160 (stablelm-12b), ragged Sq 130", 2, 130, 130, 4, 2, 160, None),
+        ("D 256", 1, 256, 256, 4, 4, 256, None),
         ("full width (prefill step)", 4, 2048, 2048, 32, 32, 128, None),
         # prefill into the 2,080-row cache: the unwritten 32-row kv tail
         # is masked for every q row, and its tile is skipped
@@ -494,30 +521,37 @@ def phase_flash(dev) -> float:
             q, k, v, qpos, kpos = flash_case(dev, B, Sq, Skv, H, Hkv, D, dtype, 10 + i, q0)
             (B, Sq, H, D), (Skv, Hkv) = q.shape, k.shape[1:3]
             scale = D ** -0.5
-            got = FA.flash_attention(q, k, v, q_positions=qpos, kv_positions=kpos,
-                                     scale=scale)
-            torch.cuda.synchronize()
             want = attention_ref(fold(q), fold(k), fold(v), qpos, kpos, scale)
             want = want.reshape(B, H, Sq, D).transpose(1, 2)
-            diff = (got.float() - want.float()).abs()
-            err = float(diff.max())
-            used = float((diff / (atol + rtol * want.float().abs())).max())
-            if used > 1.0 or not bool(torch.isfinite(got).all()):
-                raise AssertionError(f"flash {label} {name}: kernel != plain version "
-                                     f"(max abs err {err}, rtol {rtol}, atol {atol})")
-            worst = max(worst, err)
-            note = ""
-            if int(qpos[0]) == 0:  # causal SDPA (top-left aligned) is the same function
-                rep = H // Hkv
-                sdpa = F.scaled_dot_product_attention(
-                    q.transpose(1, 2), k.repeat_interleave(rep, 2).transpose(1, 2),
-                    v.repeat_interleave(rep, 2).transpose(1, 2), is_causal=True,
-                    scale=scale).transpose(1, 2)
-                note = (f"; vs scaled_dot_product_attention (yardstick) "
-                        f"{float((got.float() - sdpa.float()).abs().max()):.3g}")
-            print(f"  ok {label} B={B} Sq={Sq} Skv={Skv} H={H} Hkv={Hkv} D={D} "
-                  f"{name}: max abs err {err:.3g} (rtol {rtol}, atol {atol}; "
-                  f"{used:.3f} of the limit){note}")
+            variants = [FA._variant(dtype, D)] + (["simt"] if name == "bfloat16" else [])
+            notes = []
+            for variant in dict.fromkeys(variants):
+                if variant == FA._variant(dtype, D):  # the path's own call
+                    got = FA.flash_attention(q, k, v, q_positions=qpos, kv_positions=kpos,
+                                             scale=scale)
+                else:
+                    got = FA.flash_attention_kernel(
+                        fold(q).contiguous(), fold(k).contiguous(), fold(v).contiguous(),
+                        qpos, kpos, scale=scale, variant=variant,
+                    ).reshape(B, H, Sq, D).transpose(1, 2)
+                torch.cuda.synchronize()
+                err, used = within(got, want, rtol, atol)
+                if used > 1.0:
+                    raise AssertionError(f"flash {label} {name} {variant}: kernel != plain "
+                                         f"version (max abs err {err}, rtol {rtol}, atol {atol})")
+                worst = max(worst, err)
+                notes.append(f"{variant} max abs err {err:.3g} ({used:.3f} of the limit)")
+                if int(qpos[0]) == 0 and variant == variants[0]:
+                    # causal SDPA (top-left aligned) is the same function
+                    rep = H // Hkv
+                    sdpa = F.scaled_dot_product_attention(
+                        q.transpose(1, 2), k.repeat_interleave(rep, 2).transpose(1, 2),
+                        v.repeat_interleave(rep, 2).transpose(1, 2), is_causal=True,
+                        scale=scale).transpose(1, 2)
+                    notes.append(f"vs scaled_dot_product_attention (yardstick) "
+                                 f"{float((got.float() - sdpa.float()).abs().max()):.3g}")
+            print(f"  ok {label} B={B} Sq={Sq} Skv={Skv} H={H} Hkv={Hkv} D={D} {name} "
+                  f"(rtol {rtol}, atol {atol}): {'; '.join(notes)}")
     return worst
 
 
@@ -560,10 +594,10 @@ def phase_prefill(dev, cfg, twin, params) -> dict:
     FA.reset_launch_count()
     got = make_prefill_step(cfg)(params, batch)
     torch.cuda.synchronize()
-    launches = FA.FLASH_LAUNCHES
-    if launches != cfg.n_layers:
-        raise AssertionError(f"prefill step: {launches} flash launches, "
-                             f"expected {cfg.n_layers}")
+    launches, wgmma = FA.FLASH_LAUNCHES, FA.FLASH_WGMMA_LAUNCHES
+    if launches != cfg.n_layers or wgmma != cfg.n_layers:
+        raise AssertionError(f"prefill step: {launches} flash launches, {wgmma} of the "
+                             f"wgmma kernel; expected {cfg.n_layers} of it")
     want = make_prefill_step(twin)(params, batch)
     real = slice(0, cfg.vocab)
     if got.shape != (4, cfg.vocab_padded) or not bool(torch.isfinite(got[:, real]).all()):
@@ -571,12 +605,12 @@ def phase_prefill(dev, cfg, twin, params) -> dict:
     err = float((got[:, real] - want[:, real]).abs().max())
     std = float(want[:, real].std())
     same = (got[:, real].argmax(-1) == want[:, real].argmax(-1)).tolist()
-    print(f"  prefill step 4 x 2048: {launches} flash launches; last-position logits "
+    print(f"  prefill step 4 x 2048: {launches} flash launches ({wgmma} wgmma); last-position logits "
           f"vs the plain-attention twin: max abs err {err:.4g} = {err / std:.4f} x "
           f"std {std:.4g} (tolerance {LOGITS_TOL} x std); argmax equal {same}")
     if err > LOGITS_TOL * std:
         raise AssertionError("prefill step: kernel logits beyond tolerance of the twin")
-    return {"launches": launches, "tol": LOGITS_TOL * std}
+    return {"launches": launches, "wgmma": wgmma, "tol": LOGITS_TOL * std}
 
 
 def phase_cached(dev, cfg, twin, params, tol, n_decode=32) -> dict:
@@ -594,7 +628,7 @@ def phase_cached(dev, cfg, twin, params, tol, n_decode=32) -> dict:
     B, P = tokens.shape
     max_seq = P + n_decode
     real = slice(0, cfg.vocab)
-    counts = {}
+    counts, wgmma = {}, {}
     exact = decisive = 0
     ours, theirs = T.init_cache(cfg, B, max_seq, device=dev), T.init_cache(cfg, B, max_seq, device=dev)
     for i in range(n_decode + 1):
@@ -604,6 +638,7 @@ def phase_cached(dev, cfg, twin, params, tol, n_decode=32) -> dict:
         logits, ours = run(cfg, params, step, ours)
         torch.cuda.synchronize()
         counts[run.__name__] = counts.get(run.__name__, 0) + FA.FLASH_LAUNCHES
+        wgmma[run.__name__] = wgmma.get(run.__name__, 0) + FA.FLASH_WGMMA_LAUNCHES
         twin_logits, theirs = run(twin, params, step, theirs)
         if i == 0:
             err = float((logits[:, -1, real] - twin_logits[:, -1, real]).abs().max())
@@ -625,15 +660,16 @@ def phase_cached(dev, cfg, twin, params, tol, n_decode=32) -> dict:
         decisive += int(clear.sum())
         if not bool(torch.isfinite(logits[:, -1, real]).all()) or bool((tok < 0).any()):
             raise AssertionError(f"cached serving step {i}: bad logits")
-    if counts != {"prefill": cfg.n_layers, "serve_step": 0}:
-        raise AssertionError(f"cached serving: flash launches {counts}, expected "
-                             f"{cfg.n_layers} in prefill and 0 in serve_step")
+    if counts != {"prefill": cfg.n_layers, "serve_step": 0} or wgmma != counts:
+        raise AssertionError(f"cached serving: flash launches {counts} (wgmma {wgmma}), "
+                             f"expected {cfg.n_layers} of the wgmma kernel in prefill and "
+                             f"0 in serve_step")
     total = B * (n_decode + 1)
     print(f"  prefill into a {max_seq}-row cache + {n_decode} serve_steps: flash "
-          f"launches {counts}; tokens equal to the twin's in {exact} of {total} "
+          f"launches {counts}, of the wgmma kernel {wgmma}; tokens equal to the twin's in {exact} of {total} "
           f"(row, step) picks; {decisive} had a top-two gap > {2 * tol:.4g}, and "
           f"all of those agree")
-    return {"counts": counts, "exact": exact, "total": total, "cache": ours}
+    return {"counts": counts, "wgmma": wgmma, "exact": exact, "total": total, "cache": ours}
 
 
 def serve_requests(params, cfg, reqs, slots=4, max_seq=128, stagger=True):
@@ -742,19 +778,29 @@ def phase_serving_times(dev, cfg, params, cache, server, card) -> dict:
     nbytes = 2 * (2 * B * H * S * D + 2 * B * cfg.n_kv_heads * live_kv * D)
     flops_ms, bytes_ms = flops / BF16_FLOPS_PER_S * 1e3, nbytes / HBM_BYTES_PER_S * 1e3
     qs, ks, vs = (t.transpose(1, 2) for t in (q, k, v))
+    def kernel(variant=None):
+        return FA.flash_attention_kernel(qf, kf, vf, qpos, kpos, scale=scale, variant=variant)
+
+    if FA._variant(q.dtype, D) != "wgmma":
+        raise AssertionError("flash: the serving shape does not take the wgmma kernel")
+    # in turns: plain, CUDA-core kernel, wgmma kernel, wgmma, CUDA-core, plain
     plain_a = timed_ms(lambda: attention_ref(qf, kf, vf, qpos, kpos, scale), 3)
-    ms = timed_ms(lambda: FA.flash_attention_kernel(qf, kf, vf, qpos, kpos, scale=scale), 10)
+    simt_a = timed_ms(lambda: kernel("simt"), 3)
+    ms = min(timed_ms(kernel, 10), timed_ms(kernel, 10))
+    simt_ms = min(simt_a, timed_ms(lambda: kernel("simt"), 3))
     plain_ms = min(plain_a, timed_ms(lambda: attention_ref(qf, kf, vf, qpos, kpos, scale), 3))
     lib_ms = timed_ms(lambda: F.scaled_dot_product_attention(qs, ks, vs, is_causal=True,
                                                              scale=scale), 10)
     flash = dict(ms=ms, plain_ms=plain_ms, bound_ms=max(flops_ms, bytes_ms),
                  bound_by="operations" if flops_ms >= bytes_ms else "bytes",
-                 library_ms=lib_ms)
-    print(f"  flash_attention B={B} S={S} H={H} D={D} bf16 causal: {ms:.4f} ms (plain "
-          f"{plain_ms:.3f} ms; scaled_dot_product_attention {lib_ms:.4f} ms; bound "
+                 library_ms=lib_ms, simt_ms=simt_ms)
+    print(f"  flash_attention B={B} S={S} H={H} D={D} bf16 causal: wgmma kernel {ms:.4f} ms "
+          f"(CUDA-core kernel {simt_ms:.4f} ms; plain {plain_ms:.3f} ms; "
+          f"scaled_dot_product_attention {lib_ms:.4f} ms; bound "
           f"{flash['bound_ms']:.4f} ms by {flash['bound_by']}: {flops / 1e9:.1f} G flops "
           f"in {flops_ms:.4f} ms, {nbytes / 1e6:.1f} MB in {bytes_ms:.4f} ms; "
-          f"{ms / flash['bound_ms']:.1f}x the bound) [{card}]")
+          f"{ms / flash['bound_ms']:.1f}x the bound; the kernel issues 1.5x the flops, "
+          f"P V twice) [{card}]")
 
     step = make_prefill_step(cfg)
     batch = {"tokens": prompts(dev, cfg)}
@@ -1100,6 +1146,9 @@ def phase_quant_times(dev, card, gemm, ssd) -> dict:
     def dequant_matmul():
         return xb.float() @ (w.float() * ws)
 
+    def dequant_matmul_bf16():  # the same tensor cores: bf16 weights, bf16 GEMM, scale
+        return (xb @ w.to(torch.bfloat16)).float() * ws
+
     flops = 2 * M * N * K
     work = {  # name: (kernel, plain, library, bytes moved, ops, peak)
         "w8a8_matmul": (lambda: QK.quant_matmul_kernel(a, w, a_scale, a_zp, ws),
@@ -1107,7 +1156,7 @@ def phase_quant_times(dev, card, gemm, ssd) -> dict:
                         int_mm_epilogue, M * K + K * N + 4 * N + 8 + 4 * M * N,
                         flops, INT8_OPS_PER_S),
         "w8a16_matmul": (lambda: QK.w8a16_matmul_kernel(xb, w, ws),
-                         lambda: QK.w8a16_matmul_plain(xb, w, ws), dequant_matmul,
+                         lambda: QK.w8a16_matmul_plain(xb, w, ws), dequant_matmul_bf16,
                          2 * M * K + K * N + 4 * N + 4 * M * N, flops, BF16_FLOPS_PER_S),
     }
     xs, bs, cs, dAs, dts = ssd["inputs"]  # bfloat16, model layout
@@ -1134,6 +1183,14 @@ def phase_quant_times(dev, card, gemm, ssd) -> dict:
         lib_ms = None
         if library is not None:
             lib_ms = timed_ms(library, 10)
+        if name == "w8a16_matmul":
+            # the float32 yardstick beside the bf16 one, and float32 x: three
+            # bf16 pieces, three times the bf16 products
+            f32_ms, x32 = timed_ms(dequant_matmul, 10), xb.float()
+            x32_ms = timed_ms(lambda: QK.w8a16_matmul_kernel(x32, w, ws), 10)
+            print(f"  w8a16_matmul M={M} K={K} N={N} float32 x: {x32_ms:.4f} ms (bound "
+                  f"{3 * ops / peak * 1e3:.4f} ms: three bf16 pieces); dequantize + float32 "
+                  f"torch.matmul {f32_ms:.4f} ms (the PR 14 yardstick) [{card}]")
         bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
         ops_ms = ops / peak * 1e3
         out[name] = dict(ms=ms, plain_ms=plain_ms, bound_ms=max(bytes_ms, ops_ms),
@@ -1142,6 +1199,8 @@ def phase_quant_times(dev, card, gemm, ssd) -> dict:
         shape = (f"B={B} S={S} H={H} ph={ph} ds={ds} chunk {ck} bf16" if name == "ssd_scan"
                  else f"M={M} K={K} N={N}" + (" bf16 x" if name == "w8a16_matmul" else ""))
         lib = "" if lib_ms is None else f"; PyTorch yardstick {lib_ms:.4f} ms"
+        if name == "w8a16_matmul":
+            lib = f"; dequantize-to-bf16 + bf16 torch.matmul + scale {lib_ms:.4f} ms"
         print(f"  {name} {shape}: {ms:.4f} ms (plain {plain_ms:.3f} ms{lib}; bound "
               f"{out[name]['bound_ms']:.4f} ms by {out[name]['bound_by']}: {ops / 1e9:.1f} G "
               f"ops in {ops_ms:.4f} ms, {nbytes / 1e6:.1f} MB in {bytes_ms:.4f} ms; "
@@ -1196,7 +1255,8 @@ def main() -> int:
           f" ({time.perf_counter() - t0:.2f} s wall, one nvcc per source in parallel)")
     for built in libs:
         for line in built.log.splitlines():
-            if "registers" in line or "Compiling entry" in line:
+            if ("Used" in line and "registers" in line) or "Compiling entry" in line \
+                    or "spill stores" in line or "C7511" in line:
                 print("  " + line.strip())
 
     print("== 3 DP kernels against their plain versions on the card")
@@ -1209,7 +1269,7 @@ def main() -> int:
     times = phase_times(dev, card, path["launches"])
     phase_sweep(path["main"], card, path["per_sweep"][1])
 
-    print("== 6 flash kernel against its plain version on the card")
+    print("== 6 flash kernels (wgmma and CUDA-core) against their plain version on the card")
     errs["flash_attention"] = phase_flash(dev)
 
     print("== 7 serving path: prefill step at full width")
@@ -1222,6 +1282,7 @@ def main() -> int:
     print("== 9 serving path: Server at full width")
     server = phase_server(params, cfg)
     flash_launches = pre["launches"] + sum(cached["counts"].values())
+    wgmma_launches = pre["wgmma"] + sum(cached["wgmma"].values())
 
     print("== 10 serving times")
     times["flash_attention"] = phase_serving_times(dev, cfg, params, cached["cache"],
@@ -1255,6 +1316,8 @@ def main() -> int:
         "source": "src/repro_torch/csrc/flash_attention.cu",
         "replaces": "src/repro/kernels/flash_attention/kernel.py:33",
         "launches": flash_launches, "max_abs_err": errs["flash_attention"],
+        "launches_by_variant": {"wgmma": wgmma_launches,
+                                "simt": flash_launches - wgmma_launches},
         **times["flash_attention"],
     })
     for name, source, replaces, launches in (

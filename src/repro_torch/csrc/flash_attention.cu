@@ -16,30 +16,62 @@
 //   skipped writes 0, and a row whose first processed tile is all masked
 //   takes uniform weights there, as the reference does.
 //
-// Design. The TPU grid (bh, q block, kv block) ran in order on one core
-// and carried m, l, acc in VMEM scratch across kv blocks; here one thread
-// block owns one (bh, 64-row q tile) and loops over 64-row kv tiles
-// itself, with m, l and its share of acc in registers. 256 threads: thread
-// (ty, tx) = (tid / 16, tid % 16) owns q rows ty + 16 i (i < 4), the score
-// columns tx + 16 j (j < 4) and the output columns tx + 16 jj. Q, K, V
-// and the probabilities are staged in shared memory as float32; K and Q
-// rows are padded by one float so a column read by 16 neighbouring
-// threads hits 16 banks. A row's max and sum are reduced over its 16
-// threads with warp shuffles. Ragged Sq is handled by bounds checks
-// (q rows past Sq read the edge position and are never written); ragged
-// Skv by treating rows past Skv as masked with K = V = 0, which is what
-// the reference's padding (position 2^30, zero K/V) gives.
+// Two kernels, picked by the C entry on type and head dim (the wrapper's
+// `_variant` states the same rule):
+//
+// * `flash_wgmma_kernel`: bfloat16 with D a multiple of 16, D <= 256 --
+//   the serving path (deepseek-7b, D 128). Products on the bf16 tensor
+//   cores with `wgmma`, tiles brought in by TMA. One block owns a
+//   (bh, 128-row q tile): two consumer warpgroups of 64 q rows each and a
+//   producer warpgroup, one thread of which issues every TMA load (its
+//   registers go to the consumers through `setmaxnreg`). The producer
+//   loads the q tile once and keeps a ring of 64-row K/V tiles in flight
+//   (2-4 stages, by D), each stage guarded by a "full" and an "empty"
+//   mbarrier. A consumer computes S = Q Kᵀ as m64n64k16 wgmmas out of
+//   shared memory (float32 accumulator), masks and scales S, runs the
+//   online softmax in registers with the reference's arithmetic, and adds
+//   P V with P from registers. P is kept at float32 precision: p_hi =
+//   bf16(p) and p_lo = bf16(p - p_hi) each multiply the same V tile, so P
+//   carries ~16 significant bits (|p - p_hi - p_lo| <= 2^-16 p) and every
+//   product is exact in float32; l sums the float32 p. That is 1.5x the
+//   function's flops on the tensor cores. A consumer skips the compute of
+//   a tile past its own 64 rows' last position, so the skip rule is the
+//   one the 64-row tiles of the first kernel apply. TMA reads the tensors
+//   as 3-D (D, S, heads) maps, so a tile's rows past S are zeros (K = V =
+//   0, position masked), never the next head's rows; repeated kv heads
+//   are never formed. Tiles are stored interleaved (8 x 16-byte core
+//   matrices, one TMA box per 8-column chunk), which any D that is a
+//   multiple of 16 fills; V is read by `wgmma` as an MN-major operand.
+//   The kernel is instantiated per head dim, so every product width and
+//   tile loop is known to the compiler: with D a run-time value, ptxas
+//   serialised the wgmmas (its warning C7511) and the kernel ran at about
+//   half the speed.
+// * `flash_fwd_kernel`: float32, and bfloat16 at any other D. One block
+//   per (bh, 64-row q tile), 256 threads, thread (ty, tx) owning q rows
+//   ty + 16 i and score columns tx + 16 j; Q, K, V and the probabilities
+//   staged in shared memory as float32, the products float32 FMAs on the
+//   CUDA cores; row max and sum reduced over 16 lanes with shuffles.
+//   Ragged Skv rows are masked with K = V = 0, ragged Sq rows never
+//   written. float32's contract (rtol 1e-3, atol 2e-5) leaves no room for
+//   bf16 operands, so it stays on the CUDA cores.
 //
 // Bound on the card. Attention does 4 D flops per (q, k) pair the causal
 // mask keeps and moves q, out and the live kv rows once: at B = 4,
 // S = 2048, H = 32, D = 128 in bf16 it is bound by operations on the
-// tensor cores (989 TFLOP/s dense), 0.139 ms. This kernel does its
-// products with float32 FMAs on the CUDA cores out of shared memory, so
-// it sits far from that bound; WGMMA on bf16 tiles fed by TMA is the
-// later step.
+// tensor cores (989 TFLOP/s dense), 0.139 ms. The wgmma kernel does 6 D
+// flops per pair, on 64 x 64 tiles (the diagonal tiles whole); each
+// warpgroup waits for its own products before its softmax, and the two
+// warpgroups of a block overlap each other. (Issuing S of one tile with
+// P V of the tile before, with or without the two warpgroups taking
+// turns at the tensor cores, ran slower on the H100.)
+
+#include <algorithm>
+#include <climits>
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+
+#include "hopper.cuh"
 
 namespace {
 
@@ -233,20 +265,337 @@ cudaError_t dispatch(const void* q, const void* k, const void* v, const void* qp
   return launch<T, 256>(q, k, v, qpos, kpos, out, BH, BHkv, Sq, Skv, D, scale, stream);
 }
 
+// ------------------------------------------------- wgmma kernel (bf16) --
+
+using hopper::LAYOUT_INTERLEAVE;
+using hopper::make_desc;
+
+constexpr int WQ = 128;             // q rows per block: two warpgroups of 64
+constexpr int WKV = 64;             // kv rows per tile
+constexpr int W_THREADS = 384;      // two consumer warpgroups + a producer warpgroup
+constexpr int MAX_STAGES = 4;
+constexpr int SMEM_LIMIT = 232448;  // shared memory a block may use (227 KB)
+
+// Interleaved tiles: the 8-column chunk c of a tile of R rows starts at
+// c * R * 16 bytes, row r of it at r * 16.
+int wgmma_stages(int D) {
+  const int free = SMEM_LIMIT - 1024 - 128 - WQ * D * 2;
+  return std::min(MAX_STAGES, free / (2 * WKV * D * 2));
+}
+int wgmma_smem(int D, int stages) { return 1024 + WQ * D * 2 + stages * 2 * WKV * D * 2 + 128; }
+
+// The consumer warpgroups' part of flash_wgmma_kernel: warpgroup wg owns
+// q rows q0 + 64 wg ..; each thread rows r0 and r0 + 8 of them (h = 0, 1)
+// and columns 8 j + 2 t4 + e of every 64-column product.
+template <int D>
+__device__ __forceinline__ void consume(uint32_t sQ, uint32_t sKV, uint32_t q_bar,
+                                        const int* __restrict__ qpos,
+                                        const int* __restrict__ kpos,
+                                        __nv_bfloat16* __restrict__ out, int Sq, int Skv,
+                                        float scale, int stages, int q0, int bh,
+                                        int block_last) {
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int tile_bytes = WKV * D * 2;
+  const int n_kv = (Skv + WKV - 1) / WKV;
+  const int wg = warp >> 2, t4 = lane & 3;
+  const int r0 = 16 * (warp & 3) + (lane >> 2);
+  const int q_lo = q0 + 64 * wg;
+  const int nrows = max(0, min(64, Sq - q_lo));
+  const int wg_last = nrows > 0 ? qpos[q_lo + nrows - 1] : INT_MIN;
+  int pos[2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) pos[h] = nrows > 0 ? qpos[q_lo + min(r0 + 8 * h, nrows - 1)] : 0;
+
+  float m[2] = {NEG_INF, NEG_INF}, l[2] = {0.f, 0.f};
+  float o[D / 2];  // 16-column chunk c: o[8 c + 4 j + 2 h + e]
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) o[i] = 0.f;
+
+  hopper::mbar_wait(q_bar, 0);
+  const uint32_t sQw = sQ + wg * 64 * 16;
+  int it = 0;
+  for (int t = 0; t < n_kv; ++t) {
+    const int k0 = t * WKV;
+    const int first = kpos[k0];
+    if (first > block_last) continue;
+    const int s = it % stages;
+    hopper::mbar_wait(q_bar + 8 * (1 + s), (it / stages) & 1);
+    if (first <= wg_last) {
+      const uint32_t sK = sKV + 2 * s * tile_bytes, sV = sK + tile_bytes;
+      // S = Q Kᵀ: Q and K both K-major
+      float sc[32];
+#pragma unroll
+      for (int i = 0; i < 32; ++i) sc[i] = 0.f;
+      hopper::wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk)
+        hopper::wgmma_m64n64_ss(
+            sc, make_desc(sQw + kk * 2 * (WQ * 16), WQ * 16, 128, LAYOUT_INTERLEAVE),
+            make_desc(sK + kk * 2 * (WKV * 16), WKV * 16, 128, LAYOUT_INTERLEAVE), kk > 0);
+      hopper::wgmma_commit();
+      hopper::wgmma_wait<0>();
+      hopper::fence_regs(sc);
+
+      // mask, scale and the online softmax, as the first kernel does it
+      float mx[2] = {NEG_INF, NEG_INF};
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int c = k0 + 8 * j + 2 * t4 + e;
+          const int kp = c < Skv ? kpos[c] : KV_PAD_POS;
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            float& v = sc[4 * j + 2 * h + e];
+            v = kp <= pos[h] ? v * scale : NEG_INF;
+            mx[h] = fmaxf(mx[h], v);
+          }
+        }
+      float m_new[2], sum[2] = {0.f, 0.f}, corr[2];
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 1));
+        mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 2));
+        m_new[h] = fmaxf(m[h], mx[h]);
+      }
+#pragma unroll
+      for (int i = 0; i < 32; ++i) {
+        const int h = (i >> 1) & 1;
+        sc[i] = expf(sc[i] - m_new[h]);
+        sum[h] += sc[i];
+      }
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        sum[h] += __shfl_xor_sync(0xffffffffu, sum[h], 1);
+        sum[h] += __shfl_xor_sync(0xffffffffu, sum[h], 2);
+        corr[h] = expf(m[h] - m_new[h]);
+        l[h] = l[h] * corr[h] + sum[h];
+        m[h] = m_new[h];
+      }
+#pragma unroll
+      for (int i = 0; i < D / 2; ++i) o[i] *= corr[(i >> 1) & 1];
+
+      // P as two bf16 A fragments per k16 step: p_hi = bf16(p), p_lo =
+      // bf16(p - p_hi); fragment register r of step kk holds sc[8 kk + 2 r],
+      // sc[8 kk + 2 r + 1]
+      uint32_t phi[4][4], plo[4][4];
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+        for (int r = 0; r < 4; ++r) {
+          const float a = sc[8 * kk + 2 * r], b = sc[8 * kk + 2 * r + 1];
+          const __nv_bfloat162 hi = __floats2bfloat162_rn(a, b);
+          const float2 hf = __bfloat1622float2(hi);
+          const __nv_bfloat162 lo = __floats2bfloat162_rn(a - hf.x, b - hf.y);
+          phi[kk][r] = *reinterpret_cast<const uint32_t*>(&hi);
+          plo[kk][r] = *reinterpret_cast<const uint32_t*>(&lo);
+        }
+
+      // O += P V: V MN-major (d contiguous); 64-column products, then
+      // 16-column ones for the rest of D
+      hopper::wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) {
+        const uint32_t sVk = sV + kk * 256;  // kv rows 16 kk ..
+#pragma unroll
+        for (int c = 0; c < D / 64; ++c)
+          if (64 * (c + 1) <= D) {
+            const uint64_t db = make_desc(sVk + c * 8 * (WKV * 16), 128, WKV * 16, LAYOUT_INTERLEAVE);
+            float(&oc)[32] = *reinterpret_cast<float(*)[32]>(o + 32 * c);
+            hopper::wgmma_m64n64_rs_tb(oc, phi[kk], db, 1);
+            hopper::wgmma_m64n64_rs_tb(oc, plo[kk], db, 1);
+          }
+#pragma unroll
+        for (int c = 0; c < D / 16; ++c)
+          if (c >= (D / 64) * 4 && 16 * c < D) {
+            const uint64_t db = make_desc(sVk + c * 2 * (WKV * 16), 128, WKV * 16, LAYOUT_INTERLEAVE);
+            float(&oc)[8] = *reinterpret_cast<float(*)[8]>(o + 8 * c);
+            hopper::wgmma_m64n16_rs_tb(oc, phi[kk], db, 1);
+            hopper::wgmma_m64n16_rs_tb(oc, plo[kk], db, 1);
+          }
+      }
+      hopper::wgmma_commit();
+      hopper::wgmma_wait<0>();
+      hopper::fence_regs(o);
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) {
+        hopper::fence_regs(phi[kk]);
+        hopper::fence_regs(plo[kk]);
+      }
+    }
+    hopper::mbar_arrive(q_bar + 8 * (1 + stages + s));
+    ++it;
+  }
+
+  __nv_bfloat16* ob = out + ((size_t)bh * Sq + q_lo) * D;
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int r = r0 + 8 * h;
+    if (r >= nrows) continue;
+    const float denom = fmaxf(l[h], 1e-30f);
+#pragma unroll
+    for (int c = 0; c < D / 16; ++c)
+      if (16 * c < D)
+#pragma unroll
+        for (int j = 0; j < 2; ++j) {
+          const int i = 8 * c + 4 * j + 2 * h;
+          *reinterpret_cast<__nv_bfloat162*>(ob + (size_t)r * D + 16 * c + 8 * j + 2 * t4) =
+              __floats2bfloat162_rn(o[i] / denom, o[i + 1] / denom);
+        }
+  }
+}
+
+template <int D>
+__global__ void __launch_bounds__(W_THREADS, 1)
+flash_wgmma_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,
+                   const __grid_constant__ CUtensorMap tv, const int* __restrict__ qpos,
+                   const int* __restrict__ kpos, __nv_bfloat16* __restrict__ out, int group,
+                   int Sq, int Skv, float scale, int stages) {
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t sQ = (hopper::smem_u32(smem_raw) + 1023) & ~1023u;
+  const int tile_bytes = WKV * D * 2;
+  const uint32_t sKV = sQ + WQ * D * 2;  // stage s: K at sKV + 2 s tile_bytes, V after it
+  const uint32_t q_bar = sKV + 2 * stages * tile_bytes;
+  // full[s] at q_bar + 8 (1 + s): the stage's K and V have landed;
+  // empty[s] at q_bar + 8 (1 + stages + s): all 256 consumers are done with it
+  const int tid = threadIdx.x, warp = tid >> 5;
+  const int bh = blockIdx.y;
+  const int q0 = (gridDim.x - 1 - blockIdx.x) * WQ;  // the longest q rows start first
+  const int n_kv = (Skv + WKV - 1) / WKV;
+  const int block_last = qpos[min(q0 + WQ, Sq) - 1];
+
+  if (tid == 0) {
+    hopper::mbar_init(q_bar, 1);
+    for (int s = 0; s < stages; ++s) {
+      hopper::mbar_init(q_bar + 8 * (1 + s), 1);
+      hopper::mbar_init(q_bar + 8 * (1 + stages + s), 256);
+    }
+    hopper::fence_barrier_init();
+  }
+  __syncthreads();
+
+  if (warp >= 8) {  // producer warpgroup: one thread issues every TMA load
+    // registers go to the consumers (128 x 40 + 256 x 232 <= 65,536)
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n" ::: "memory");
+    if (tid == 256) {
+      const int bhkv = bh / group;
+      hopper::mbar_arrive_expect_tx(q_bar, WQ * D * 2);
+      for (int c = 0; c < D / 8; ++c)
+        hopper::tma_load_3d(sQ + c * (WQ * 16), &tq, 8 * c, q0, bh, q_bar);
+      int it = 0;
+      for (int t = 0; t < n_kv; ++t) {
+        const int k0 = t * WKV;
+        if (kpos[k0] > block_last) continue;
+        const int s = it % stages;
+        const uint32_t full = q_bar + 8 * (1 + s);
+        hopper::mbar_wait(q_bar + 8 * (1 + stages + s), ((it / stages) & 1) ^ 1);
+        hopper::mbar_arrive_expect_tx(full, 2 * tile_bytes);
+        const uint32_t sK = sKV + 2 * s * tile_bytes;
+        for (int c = 0; c < D / 8; ++c) {
+          hopper::tma_load_3d(sK + c * (WKV * 16), &tk, 8 * c, k0, bhkv, full);
+          hopper::tma_load_3d(sK + tile_bytes + c * (WKV * 16), &tv, 8 * c, k0, bhkv, full);
+        }
+        ++it;
+      }
+    }
+  } else {
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n" ::: "memory");
+    consume<D>(sQ, sKV, q_bar, qpos, kpos, out, Sq, Skv, scale, stages, q0, bh, block_last);
+  }
+}
+
+template <int D>
+cudaError_t launch_wgmma(const void* q, const void* k, const void* v, const void* qpos,
+                         const void* kpos, void* out, int BH, int BHkv, int Sq, int Skv,
+                         float scale, cudaStream_t stream) {
+  // TMA reads from 16-byte aligned addresses; rows of D bf16 (D % 16 == 0)
+  // are whole multiples of 16 bytes
+  if (!hopper::aligned16(q) || !hopper::aligned16(k) || !hopper::aligned16(v))
+    return cudaErrorInvalidValue;
+  CUtensorMap tq, tk, tv;
+  const cuuint64_t qdims[3] = {(cuuint64_t)D, (cuuint64_t)Sq, (cuuint64_t)BH};
+  const cuuint64_t kdims[3] = {(cuuint64_t)D, (cuuint64_t)Skv, (cuuint64_t)BHkv};
+  const cuuint64_t qstr[2] = {(cuuint64_t)D * 2, (cuuint64_t)Sq * D * 2};
+  const cuuint64_t kstr[2] = {(cuuint64_t)D * 2, (cuuint64_t)Skv * D * 2};
+  const cuuint32_t qbox[3] = {8, WQ, 1}, kbox[3] = {8, WKV, 1};
+  const CUtensorMapDataType bf = CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
+  const CUtensorMapSwizzle none = CU_TENSOR_MAP_SWIZZLE_NONE;
+  cudaError_t err = hopper::encode_map(&tq, bf, 3, q, qdims, qstr, qbox, none);
+  if (err == cudaSuccess) err = hopper::encode_map(&tk, bf, 3, k, kdims, kstr, kbox, none);
+  if (err == cudaSuccess) err = hopper::encode_map(&tv, bf, 3, v, kdims, kstr, kbox, none);
+  if (err != cudaSuccess) return err;
+  auto kernel = flash_wgmma_kernel<D>;
+  err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_LIMIT);
+  if (err != cudaSuccess) return err;
+  const int stages = wgmma_stages(D);
+  const dim3 grid((Sq + WQ - 1) / WQ, BH);
+  kernel<<<grid, W_THREADS, wgmma_smem(D, stages), stream>>>(
+      tq, tk, tv, static_cast<const int*>(qpos), static_cast<const int*>(kpos),
+      static_cast<__nv_bfloat16*>(out), BH / BHkv, Sq, Skv, scale, stages);
+  return cudaGetLastError();
+}
+
+cudaError_t dispatch_wgmma(const void* q, const void* k, const void* v, const void* qpos,
+                           const void* kpos, void* out, int BH, int BHkv, int Sq, int Skv,
+                           int D, float scale, cudaStream_t stream) {
+  // one instantiation per head dim: every tile loop and product width is
+  // known to the compiler, so no branch sits inside a wgmma sequence
+#define FLASH_WGMMA_CASE(n) \
+  case n:                   \
+    return launch_wgmma<16 * n>(q, k, v, qpos, kpos, out, BH, BHkv, Sq, Skv, scale, stream);
+  switch (D / 16) {
+    FLASH_WGMMA_CASE(1) FLASH_WGMMA_CASE(2) FLASH_WGMMA_CASE(3) FLASH_WGMMA_CASE(4)
+    FLASH_WGMMA_CASE(5) FLASH_WGMMA_CASE(6) FLASH_WGMMA_CASE(7) FLASH_WGMMA_CASE(8)
+    FLASH_WGMMA_CASE(9) FLASH_WGMMA_CASE(10) FLASH_WGMMA_CASE(11) FLASH_WGMMA_CASE(12)
+    FLASH_WGMMA_CASE(13) FLASH_WGMMA_CASE(14) FLASH_WGMMA_CASE(15) FLASH_WGMMA_CASE(16)
+    default:
+      return cudaErrorInvalidValue;
+  }
+#undef FLASH_WGMMA_CASE
+}
+
+bool bad_args(int BH, int BHkv, int Sq, int Skv, int D) {
+  return BH <= 0 || BHkv <= 0 || BH % BHkv != 0 || BH > 65535 || Sq <= 0 || Skv <= 0 ||
+         D <= 0 || D > 256;
+}
+
 }  // namespace
 
 extern "C" {
 
+// 1 when flash_attention_fwd runs the wgmma kernel for this type and head
+// dim (bfloat16, D a multiple of 16 up to 256), 0 when it runs the first.
+int flash_attention_variant(int is_bf16, int D) {
+  return is_bf16 && D >= 16 && D <= 256 && D % 16 == 0 ? 1 : 0;
+}
+
 // q (BH, Sq, D), k/v (BHkv, Skv, D), out (BH, Sq, D), all contiguous and of
 // one type (float32, or bfloat16 when is_bf16); qpos (Sq,), kpos (Skv,)
-// int32. Launches on `stream` and returns the CUDA error code (0 = launched).
+// int32. Launches the kernel flash_attention_variant names on `stream` and
+// returns the CUDA error code (0 = launched); cudaErrorInvalidValue for
+// shapes the kernels do not take and, on the wgmma kernel, for q, k or v
+// not 16-byte aligned.
 int flash_attention_fwd(const void* q, const void* k, const void* v,
                         const void* qpos, const void* kpos, void* out, int BH,
                         int BHkv, int Sq, int Skv, int D, float scale, int is_bf16,
                         void* stream) {
-  if (BH <= 0 || BHkv <= 0 || BH % BHkv != 0 || BH > 65535 || Sq <= 0 ||
-      Skv <= 0 || D <= 0 || D > 256)
-    return (int)cudaErrorInvalidValue;
+  if (bad_args(BH, BHkv, Sq, Skv, D)) return (int)cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  cudaError_t err =
+      flash_attention_variant(is_bf16, D)
+          ? dispatch_wgmma(q, k, v, qpos, kpos, out, BH, BHkv, Sq, Skv, D, scale, s)
+      : is_bf16 ? dispatch<__nv_bfloat16>(q, k, v, qpos, kpos, out, BH, BHkv, Sq, Skv, D, scale, s)
+                : dispatch<float>(q, k, v, qpos, kpos, out, BH, BHkv, Sq, Skv, D, scale, s);
+  return (int)err;
+}
+
+// The same function on the first kernel, whatever the type and head dim:
+// the yardstick the wgmma kernel is held and timed against.
+int flash_attention_fwd_simt(const void* q, const void* k, const void* v,
+                             const void* qpos, const void* kpos, void* out, int BH,
+                             int BHkv, int Sq, int Skv, int D, float scale, int is_bf16,
+                             void* stream) {
+  if (bad_args(BH, BHkv, Sq, Skv, D)) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t err =
       is_bf16 ? dispatch<__nv_bfloat16>(q, k, v, qpos, kpos, out, BH, BHkv, Sq, Skv, D, scale, s)

@@ -12,39 +12,57 @@
 //   arithmetic. It is spelled with the `__fmaf_rn` / `__fmul_rn`
 //   intrinsics, which nvcc neither contracts nor reorders.
 // * `_w8a16_kernel` (:123, called at :169), weight-only int8. x (M, K)
-//   float32 or bfloat16 x w (K, N) int8: float32 FMAs of float(x) *
-//   float(w) over K, then acc * w_scale[n] once in the epilogue.
+//   float32 or bfloat16 x w (K, N) int8: the float32 sum over K of
+//   float(x) * float(w), then acc * w_scale[n] once in the epilogue.
 //
 // Design. The TPU grid (m, n, k) carried an accumulator in VMEM across its
 // sequential k axis; here one thread block owns a 128 x 128 output tile
-// and loops over K itself, with the accumulator in registers. Tiles are
-// staged in shared memory, and the next tile's global loads are issued
-// into registers before the current tile is consumed.
+// and loops over K itself, with the accumulator in registers.
 //
 // W8A8: 8 warps as 2 (m) x 4 (n), each warp 64 x 32 outputs, as 4 x 4
 // `mma.sync.m16n8k32` int8 tensor-core products per 32-deep k step (int32
-// accumulate, exact). A is staged row-major with 80-byte rows, so the 32
-// lanes' fragment loads hit 32 banks; w arrives k-major from device memory
-// and is transposed in 4 x 4-byte blocks with byte permutes into words of
-// four consecutive k of one column, the layout the B fragment reads. The
+// accumulate, exact). Tiles are staged in shared memory, the next tile's
+// global loads issued into registers before the current tile is consumed.
+// A is staged row-major with 80-byte rows, so the 32 lanes' fragment
+// loads hit 32 banks; w arrives k-major from device memory and is
+// transposed in 4 x 4-byte blocks with byte permutes into words of four
+// consecutive k of one column, the layout the B fragment reads. The
 // column sums come from a small kernel launched first on the same stream.
 //
-// W8A16: a float32 SGEMM on the CUDA cores, 16 x 16 threads each holding
-// an 8 x 8 register tile; x is staged k-major as float32, w converted to
-// float32 once when it is staged.
+// W8A16 (`w16::w8a16_wgmma_kernel`): the bf16 tensor cores, exactly. Every
+// int8 is exact in bf16 and a product of two bf16 is exact in float32, so
+// bf16 x runs as one `wgmma` per k16 step. float32 x is split into three
+// bf16 pieces, x1 = bf16(x), x2 = bf16(x - x1), x3 = bf16(x - x1 - x2),
+// whose sum is x for 0 and every |x| from 2^-110 up to the largest bf16
+// (bf16 has float32's exponent range; 3 x 8 significant bits hold 24;
+// below 2^-110 the last piece would need bf16 subnormals finer than
+// 2^-133, and its share of x is under 2^-16 there): three
+// wgmmas against the same converted w tile, every product exact. Only the
+// order of the float32 sum differs from a float32 FMA loop. A producer
+// thread keeps a TMA ring of (x, w) k tiles in flight (bf16 x through a
+// 128-byte-swizzled box the wgmmas read in place, float32 x in 8-column
+// boxes; w as int8 rows); the two consumer warpgroups convert w to bf16
+// (and float32 x to its pieces) for the next k tile while
+// the tensor cores run this one. A ragged w (N % 16 != 0) or x (a row
+// that is no multiple of 16 bytes) is read with per-thread loads in the
+// same kernel.
 //
 // Bound on the card, at the full-width shape M 8192 (4 x 2048 tokens),
 // K 4096, N 11008: W8A8 does 2 M N K = 7.39e11 int8 operations, 0.373 ms at
 // the 1,979 TOPS dense int8 peak, above the 0.131 ms its bytes take.
 // `mma.sync` reaches only part of that peak (`wgmma` with TMA-fed shared
-// memory is the later step). W8A16 does the same count of multiply-adds;
-// with bfloat16 x they could run on the bf16 tensor cores exactly (int8
-// values are exact in bf16, the products exact in float32), 0.747 ms at
-// 989 TFLOP/s, while this kernel uses float32 FMAs at 67 TFLOP/s at best.
+// memory is the later step). W8A16 does the same count of multiply-adds
+// on the bf16 tensor cores: 0.747 ms at 989 TFLOP/s dense with bf16 x,
+// three times that with float32 x. Each k tile's loads (x and w, L2 to
+// the SM) and the w conversion sit beside the products: at 128 x 128
+// tiles, bf16 x ran no faster than its loads alone, so bf16 x takes
+// 128 x 256 tiles (float32 x stays at 128 x 128 to fit its pieces).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "hopper.cuh"
 
 namespace {
 
@@ -253,86 +271,295 @@ w8a8_kernel(const int8_t* __restrict__ a, const int8_t* __restrict__ w,
 
 // ---------------------------------------------------------------- W8A16 --
 
-constexpr int FBK = 16;        // k per staged tile
-constexpr int LDS = BM + 4;    // floats per staged k row (x and w)
+namespace w16 {
+
+using hopper::LAYOUT_INTERLEAVE;
+using hopper::LAYOUT_SW128;
+using hopper::make_desc;
+
+constexpr int BM = 128, BK = 64;  // block rows; k per stage
+constexpr int THREADS = 384;      // two consumer warpgroups + a producer warpgroup
+constexpr int X_TILE = BM * BK * 2;  // bytes of a bf16 x tile (or one piece)
+constexpr int CB_SBO = 144;
+constexpr int SMEM_LIMIT = 232448;
+
+// Per activation type: bf16 x takes 128 x 256 output tiles and a ring of
+// three stages; float32 x (three pieces, 32 KB x stages) 128 x 128 tiles
+// and two stages, to fit the shared memory. A wider tile reads fewer
+// bytes per product: at 128 x 128, bf16 x ran as fast as its tile loads
+// alone (L2 to SM).
+template <typename TX>
+__host__ __device__ constexpr int pieces() { return sizeof(TX) == 4 ? 3 : 1; }
+template <typename TX>
+__host__ __device__ constexpr int block_n() { return sizeof(TX) == 4 ? 128 : 256; }
+template <typename TX>
+__host__ __device__ constexpr int stages() { return sizeof(TX) == 4 ? 2 : 3; }
+template <typename TX>
+__host__ __device__ constexpr int x_stage_bytes() { return BM * BK * (int)sizeof(TX); }
+template <typename TX>
+__host__ __device__ constexpr int w_tile_bytes() { return BK * block_n<TX>(); }
+// converted w tile, interleaved MN-major: 8-column chunk c of k group q
+// at c * CB_SBO + q * cb_lbo. The 16-byte pad after each chunk puts the
+// 8 chunks a quarter-warp writes on 8 distinct bank groups.
+template <typename TX>
+__host__ __device__ constexpr int cb_lbo() { return (block_n<TX>() / 8) * CB_SBO; }
+template <typename TX>
+__host__ __device__ constexpr int cb_bytes() { return (BK / 8) * cb_lbo<TX>(); }
+
+template <typename TX>
+__host__ __device__ constexpr int smem_bytes() {  // + 1024 to align the base, + the barriers
+  return 1024 + stages<TX>() * (x_stage_bytes<TX>() + w_tile_bytes<TX>()) +
+         2 * pieces<TX>() * X_TILE + 2 * cb_bytes<TX>() + 16 * stages<TX>();
+}
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
 
+// eight int8 (one row, eight columns) -> eight bf16, exactly, without the
+// slow integer-to-float unit: byte b ^ 0x80 = v + 128 goes into the low
+// byte of 2^23 (0x4B000000), so the float32 is 2^23 + 128 + v, and
+// subtracting 2^23 + 128 leaves v exactly; a small integer's float32 has
+// a zero low half, so its high half is its bf16
+__device__ __forceinline__ uint4 int8x8_to_bf16(uint2 raw) {
+  uint4 out;
+  uint32_t* o = reinterpret_cast<uint32_t*>(&out);
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const uint32_t u = (h ? raw.y : raw.x) ^ 0x80808080u;
+    uint32_t f[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+      f[i] = __float_as_uint(__uint_as_float(__byte_perm(u, 0x4B000000u, 0x7540 | i)) -
+                             8388736.0f);
+    o[2 * h] = __byte_perm(f[0], f[1], 0x7632);
+    o[2 * h + 1] = __byte_perm(f[2], f[3], 0x7632);
+  }
+  return out;
+}
+
+// x[m, k .. k + 7] as float32, zeros past the matrix: the per-thread
+// path, taken only where TMA cannot read x (rows that are no multiple of
+// 16 bytes, or a base that is not 16-byte aligned)
+template <typename TX>
+__device__ __forceinline__ void load_x8(float (&v)[8], const TX* __restrict__ x, int m, int k,
+                                        int M, int K) {
+  const TX* p = x + (size_t)m * K + k;
+#pragma unroll
+  for (int i = 0; i < 8; ++i) v[i] = (m < M && k + i < K) ? to_f32(p[i]) : 0.f;
+}
+
+// The consumer warpgroups' part of w8a16_wgmma_kernel.
 template <typename TX, typename TOut>
-__global__ void __launch_bounds__(THREADS)
-w8a16_kernel(const TX* __restrict__ x, const int8_t* __restrict__ w,
-             const float* __restrict__ w_scale, TOut* __restrict__ out, int M, int K,
-             int N) {
-  __shared__ __align__(16) float sX[FBK * LDS];  // k-major: sX[k][m]
-  __shared__ __align__(16) float sW[FBK * LDS];  // sW[k][n]
-
-  const int tid = threadIdx.x, tx = tid & 15, ty = tid >> 4;
+__device__ __forceinline__ void consume(const TX* __restrict__ x, const int8_t* __restrict__ w,
+                                        const float* __restrict__ w_scale,
+                                        TOut* __restrict__ out, int M, int K, int N, int x_tma,
+                                        int w_tma, uint32_t base, uint8_t* gbase) {
+  constexpr int NP = pieces<TX>(), ST = stages<TX>(), XSB = x_stage_bytes<TX>();
+  constexpr int BN = block_n<TX>(), W_TILE = w_tile_bytes<TX>();
+  constexpr int CB_LBO = cb_lbo<TX>(), CB_BYTES = cb_bytes<TX>();
+  constexpr bool F32 = sizeof(TX) == 4;
+  const uint32_t xs = base, ws = xs + ST * XSB, xp = ws + ST * W_TILE;
+  const uint32_t cb = xp + 2 * NP * X_TILE, bars = cb + 2 * CB_BYTES;
+  const bool x_direct = !F32 && x_tma;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int m0 = blockIdx.y * BM, n0 = blockIdx.x * BN;
+  const int nk = (K + BK - 1) / BK;
 
-  float acc[8][8];
+  const int wg = warp >> 2;
+  // k tile kt into buffer b: w -> bf16; x -> pieces unless the wgmmas read
+  // it from its stage. Each thread converts BN / 32 (k row, 8-column)
+  // chunks of w and 4 (row, 8-k) chunks of x; x's loads are issued first.
+  auto convert = [&](int kt, int b) {
+    const int s = kt % ST, k0 = kt * BK;
+    float xv[4][8];
+    if (!x_direct) {
 #pragma unroll
-  for (int i = 0; i < 8; ++i)
+      for (int e = 0; e < 4; ++e) {  // 128 rows x 8 k chunks
+        const int idx = tid + 256 * e, m = idx & 127, kc = idx >> 7;
+        if (x_tma) {  // float32 from the stage
+          const float4* src = reinterpret_cast<const float4*>(gbase + s * XSB + kc * (BM * 32) +
+                                                               m * 32);
+          const float4 lo = src[0], hi = src[1];
+          xv[e][0] = lo.x; xv[e][1] = lo.y; xv[e][2] = lo.z; xv[e][3] = lo.w;
+          xv[e][4] = hi.x; xv[e][5] = hi.y; xv[e][6] = hi.z; xv[e][7] = hi.w;
+        } else {
+          load_x8<TX>(xv[e], x, m0 + m, k0 + 8 * kc, M, K);
+        }
+      }
+    }
 #pragma unroll
-    for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
-
-  // x tile: 128 rows x 16 k, 8 per thread, 16 consecutive k of a row per
-  // half-warp; w tile: 16 k x 128 columns, 8 per thread, a warp on 32
-  // consecutive bytes of one k row
-  float xr[8], wr[8];
-  auto load = [&](int k0) {
+    for (int e = 0; e < BN / 32; ++e) {  // 64 k rows x BN / 8 column chunks
+      const int idx = tid + 256 * e, k = idx / (BN / 8), c = idx % (BN / 8);
+      uint2 rawv;
+      if (w_tma) {
+        rawv = *reinterpret_cast<const uint2*>(gbase + (ws - base) + s * W_TILE + k * BN + 8 * c);
+      } else {
+        uint8_t* r8 = reinterpret_cast<uint8_t*>(&rawv);
+        const int kg = k0 + k, n = n0 + 8 * c;
 #pragma unroll
-    for (int e = 0; e < 8; ++e) {
-      const int i = tid + e * THREADS;
-      const int row = i >> 4, k = k0 + (i & 15), m = m0 + row;
-      xr[e] = (m < M && k < K) ? to_f32(x[(size_t)m * K + k]) : 0.f;
-      const int kw = k0 + (i >> 7), n = n0 + (i & 127);
-      wr[e] = (kw < K && n < N) ? (float)w[(size_t)kw * N + n] : 0.f;
+        for (int i = 0; i < 8; ++i)
+          r8[i] = (kg < K && n + i < N) ? (uint8_t)w[(size_t)kg * N + n + i] : 0;
+      }
+      *reinterpret_cast<uint4*>(gbase + (cb - base) + b * CB_BYTES + c * CB_SBO +
+                                (k >> 3) * CB_LBO + (k & 7) * 16) = int8x8_to_bf16(rawv);
+    }
+    if (!x_direct) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int idx = tid + 256 * e, m = idx & 127, kc = idx >> 7;
+        uint8_t* dst = gbase + (xp - base) + b * NP * X_TILE + kc * (BM * 16) + m * 16;
+        __nv_bfloat162 pc[NP][4];
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          float lo = xv[e][2 * i], hi = xv[e][2 * i + 1];
+#pragma unroll
+          for (int p = 0; p < NP; ++p) {  // piece p = bf16(what the pieces before left)
+            pc[p][i] = __floats2bfloat162_rn(lo, hi);
+            const float2 f = __bfloat1622float2(pc[p][i]);
+            lo -= f.x;
+            hi -= f.y;
+          }
+        }
+#pragma unroll
+        for (int p = 0; p < NP; ++p)
+          *reinterpret_cast<uint4*>(dst + p * X_TILE) = *reinterpret_cast<const uint4*>(pc[p]);
+      }
+      hopper::mbar_arrive(bars + 8 * (ST + s));  // this thread is done with the stage
     }
   };
-  auto store = [&]() {
-#pragma unroll
-    for (int e = 0; e < 8; ++e) {
-      const int i = tid + e * THREADS;
-      sX[(i & 15) * LDS + (i >> 4)] = xr[e];
-      sW[(i >> 7) * LDS + (i & 127)] = wr[e];
-    }
-  };
 
-  const int n_k = (K + FBK - 1) / FBK;
-  load(0);
-  for (int kt = 0; kt < n_k; ++kt) {
-    __syncthreads();
-    store();
-    __syncthreads();
-    if (kt + 1 < n_k) load((kt + 1) * FBK);
+  float acc[BN / 2];
 #pragma unroll
-    for (int kk = 0; kk < FBK; ++kk) {
-      const float4 a0 = *reinterpret_cast<const float4*>(sX + kk * LDS + ty * 4);
-      const float4 a1 = *reinterpret_cast<const float4*>(sX + kk * LDS + 64 + ty * 4);
-      const float4 b0 = *reinterpret_cast<const float4*>(sW + kk * LDS + tx * 4);
-      const float4 b1 = *reinterpret_cast<const float4*>(sW + kk * LDS + 64 + tx * 4);
-      const float av[8] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
-      const float bv[8] = {b0.x, b0.y, b0.z, b0.w, b1.x, b1.y, b1.z, b1.w};
+  for (int i = 0; i < BN / 2; ++i) acc[i] = 0.f;
+
+  hopper::mbar_wait(bars, 0);
+  convert(0, 0);
+  hopper::fence_proxy_async();
+  hopper::named_barrier_sync(1, 256);
+  for (int kt = 0; kt < nk; ++kt) {
+    const int s = kt % ST, b = kt & 1;
+    hopper::wgmma_fence();
 #pragma unroll
-      for (int i = 0; i < 8; ++i)
+    for (int kk = 0; kk < BK / 16; ++kk) {
+      const uint64_t db = make_desc(cb + b * CB_BYTES + kk * 2 * CB_LBO, CB_LBO, CB_SBO,
+                                    LAYOUT_INTERLEAVE);
 #pragma unroll
-        for (int j = 0; j < 8; ++j) acc[i][j] = fmaf(av[i], bv[j], acc[i][j]);
+      for (int p = 0; p < NP; ++p) {
+        const uint64_t da =
+            x_direct ? make_desc(xs + s * XSB + wg * 64 * 128 + kk * 32, 16, 1024, LAYOUT_SW128)
+                     : make_desc(xp + (b * NP + p) * X_TILE + wg * 64 * 16 + kk * 2 * (BM * 16),
+                                 BM * 16, 128, LAYOUT_INTERLEAVE);
+        if constexpr (BN == 256) {
+          hopper::wgmma_m64n256_ss_tb(acc, da, db, 1);
+        } else {
+          hopper::wgmma_m64n128_ss_tb(acc, da, db, 1);
+        }
+      }
     }
+    hopper::wgmma_commit();
+    if (kt + 1 < nk) {
+      hopper::mbar_wait(bars + 8 * ((kt + 1) % ST), ((kt + 1) / ST) & 1);
+      convert(kt + 1, b ^ 1);
+    }
+    hopper::wgmma_wait<0>();
+    hopper::fence_regs(acc);
+    if (x_direct) hopper::mbar_arrive(bars + 8 * (ST + s));
+    hopper::fence_proxy_async();
+    hopper::named_barrier_sync(1, 256);
   }
 
+  // acc[4 j + 2 h + e]: row 16 (warp % 4) + g + 8 h of this warpgroup's
+  // 64, column 8 j + 2 t4 + e
+  const int g = lane >> 2, t4 = lane & 3;
+  const bool pairs = (N & 1) == 0;
 #pragma unroll
-  for (int j = 0; j < 8; ++j) {
-    const int n = n0 + (j < 4 ? tx * 4 + j : 64 + tx * 4 + j - 4);
+  for (int j = 0; j < BN / 8; ++j) {
+    const int n = n0 + 8 * j + 2 * t4;
     if (n >= N) continue;
-    const float ws = w_scale[n];
+    const float s0 = w_scale[n], s1 = n + 1 < N ? w_scale[n + 1] : 0.f;
 #pragma unroll
-    for (int i = 0; i < 8; ++i) {
-      const int m = m0 + (i < 4 ? ty * 4 + i : 64 + ty * 4 + i - 4);
-      if (m < M) out[(size_t)m * N + n] = from_f32<TOut>(__fmul_rn(acc[i][j], ws));
+    for (int h = 0; h < 2; ++h) {
+      const int m = m0 + 64 * wg + 16 * (warp & 3) + g + 8 * h;
+      if (m >= M) continue;
+      const float v0 = __fmul_rn(acc[4 * j + 2 * h], s0);
+      const float v1 = __fmul_rn(acc[4 * j + 2 * h + 1], s1);
+      TOut* o = out + (size_t)m * N + n;
+      if (pairs) {
+        if constexpr (sizeof(TOut) == 4) {
+          *reinterpret_cast<float2*>(o) = make_float2(v0, v1);
+        } else {
+          *reinterpret_cast<__nv_bfloat162*>(o) = __floats2bfloat162_rn(v0, v1);
+        }
+      } else {
+        o[0] = from_f32<TOut>(v0);
+        if (n + 1 < N) o[1] = from_f32<TOut>(v1);
+      }
     }
   }
 }
+
+
+template <typename TX, typename TOut>
+__global__ void __launch_bounds__(THREADS, 1)
+w8a16_wgmma_kernel(const __grid_constant__ CUtensorMap tmx, const __grid_constant__ CUtensorMap tmw,
+                   const TX* __restrict__ x, const int8_t* __restrict__ w,
+                   const float* __restrict__ w_scale, TOut* __restrict__ out, int M, int K,
+                   int N, int x_tma, int w_tma) {
+  constexpr int NP = pieces<TX>(), ST = stages<TX>(), XSB = x_stage_bytes<TX>();
+  constexpr int BN = block_n<TX>(), W_TILE = w_tile_bytes<TX>(), CB_BYTES = cb_bytes<TX>();
+  constexpr bool F32 = sizeof(TX) == 4;
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t raw = hopper::smem_u32(smem_raw);
+  const uint32_t base = (raw + 1023) & ~1023u;
+  uint8_t* gbase = smem_raw + (base - raw);  // generic pointer to `base`
+  // from `base`: the TMA stages of x, then of w; the x pieces [2][NP]; the
+  // converted w [2]; the barriers full[ST], empty[ST]
+  const uint32_t xs = base, ws = xs + ST * XSB;
+  const uint32_t bars = ws + ST * W_TILE + 2 * NP * X_TILE + 2 * CB_BYTES;
+  const int tid = threadIdx.x, warp = tid >> 5;
+  const int m0 = blockIdx.y * BM, n0 = blockIdx.x * BN;
+  const int nk = (K + BK - 1) / BK;
+
+  if (tid == 0) {
+    for (int s = 0; s < ST; ++s) {
+      hopper::mbar_init(bars + 8 * s, 1);
+      hopper::mbar_init(bars + 8 * (ST + s), 256);
+    }
+    hopper::fence_barrier_init();
+  }
+  __syncthreads();
+
+  if (warp >= 8) {  // producer warpgroup: one thread issues the TMA loads
+    // registers go to the consumers (128 x 40 + 256 x 232 <= 65,536)
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n" ::: "memory");
+    if (tid == 256) {
+      const uint32_t bytes = (x_tma ? XSB : 0) + (w_tma ? W_TILE : 0);
+      for (int kt = 0; kt < nk; ++kt) {
+        const int s = kt % ST;
+        const uint32_t full = bars + 8 * s;
+        hopper::mbar_wait(bars + 8 * (ST + s), ((kt / ST) & 1) ^ 1);
+        if (bytes == 0) {
+          hopper::mbar_arrive(full);
+          continue;
+        }
+        hopper::mbar_arrive_expect_tx(full, bytes);
+        if (x_tma) {
+          if (F32) {  // eight 8-float column chunks: chunk c at c * 4096, row m at m * 32
+            for (int c = 0; c < BK / 8; ++c)
+              hopper::tma_load_2d(xs + s * XSB + c * (BM * 32), &tmx, kt * BK + 8 * c, m0, full);
+          } else {
+            hopper::tma_load_2d(xs + s * XSB, &tmx, kt * BK, m0, full);
+          }
+        }
+        if (w_tma) hopper::tma_load_2d(ws + s * W_TILE, &tmw, n0, kt * BK, full);
+      }
+    }
+  } else {
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n" ::: "memory");
+    consume<TX, TOut>(x, w, w_scale, out, M, K, N, x_tma, w_tma, base, gbase);
+  }
+}
+}  // namespace w16
 
 bool aligned(const void* p, uintptr_t bytes) {
   return (reinterpret_cast<uintptr_t>(p) & (bytes - 1)) == 0;
@@ -360,10 +587,39 @@ cudaError_t launch_w8a8(const void* a, const void* w, const void* a_scale, const
 template <typename TX, typename TOut>
 cudaError_t launch_w8a16(const void* x, const void* w, const void* w_scale, void* out,
                          int M, int K, int N, cudaStream_t stream) {
-  const dim3 grid((N + BN - 1) / BN, (M + BM - 1) / BM);
-  w8a16_kernel<TX, TOut><<<grid, THREADS, 0, stream>>>(
-      static_cast<const TX*>(x), static_cast<const int8_t*>(w),
-      static_cast<const float*>(w_scale), static_cast<TOut*>(out), M, K, N);
+  // TMA where rows are whole multiples of 16 bytes and the base is 16-byte
+  // aligned (bf16 x: K % 8 == 0; w: N % 16 == 0); otherwise the consumers
+  // read that operand with per-thread loads inside the same kernel
+  CUtensorMap tmx{}, tmw{};
+  const bool x_tma = (K * sizeof(TX)) % 16 == 0 && hopper::aligned16(x);
+  const bool w_tma = N % 16 == 0 && hopper::aligned16(w);
+  constexpr int BN = w16::block_n<TX>();
+  if (x_tma) {  // bf16: 64 x 128 boxes, 128-byte swizzled; float32: 8 x 128 boxes
+    const bool f32 = sizeof(TX) == 4;
+    const cuuint64_t dims[2] = {(cuuint64_t)K, (cuuint64_t)M};
+    const cuuint64_t str[1] = {(cuuint64_t)K * sizeof(TX)};
+    const cuuint32_t box[2] = {f32 ? 8u : (cuuint32_t)w16::BK, (cuuint32_t)w16::BM};
+    cudaError_t err = hopper::encode_map(
+        &tmx, f32 ? CU_TENSOR_MAP_DATA_TYPE_FLOAT32 : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, x,
+        dims, str, box, f32 ? CU_TENSOR_MAP_SWIZZLE_NONE : CU_TENSOR_MAP_SWIZZLE_128B);
+    if (err != cudaSuccess) return err;
+  }
+  if (w_tma) {
+    const cuuint64_t dims[2] = {(cuuint64_t)N, (cuuint64_t)K}, str[1] = {(cuuint64_t)N};
+    const cuuint32_t box[2] = {(cuuint32_t)BN, (cuuint32_t)w16::BK};
+    cudaError_t err = hopper::encode_map(&tmw, CU_TENSOR_MAP_DATA_TYPE_UINT8, 2, w, dims, str,
+                                         box, CU_TENSOR_MAP_SWIZZLE_NONE);
+    if (err != cudaSuccess) return err;
+  }
+  auto kernel = w16::w8a16_wgmma_kernel<TX, TOut>;
+  constexpr int smem = w16::smem_bytes<TX>();
+  static_assert(smem <= w16::SMEM_LIMIT, "W8A16 tiles exceed a block's shared memory");
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((N + BN - 1) / BN, (M + w16::BM - 1) / w16::BM);
+  kernel<<<grid, w16::THREADS, smem, stream>>>(
+      tmx, tmw, static_cast<const TX*>(x), static_cast<const int8_t*>(w),
+      static_cast<const float*>(w_scale), static_cast<TOut*>(out), M, K, N, x_tma, w_tma);
   return cudaGetLastError();
 }
 

@@ -1,8 +1,9 @@
 """Build the port's CUDA sources with ``nvcc`` and load them with ctypes.
 
 Each source under ``repro_torch/csrc`` is compiled on first use into a
-shared library with a plain C interface, keyed on a hash of the source
-and the flags, in ``build/repro_torch/`` at the root of the checkout (an
+shared library with a plain C interface, keyed on a hash of the source,
+the headers beside it (``csrc/*.cuh``) and the flags, in
+``build/repro_torch/`` at the root of the checkout (an
 installed package uses ``$XDG_CACHE_HOME/repro_torch``, and
 ``$REPRO_TORCH_BUILD_DIR`` overrides both). A library that already exists
 for the same hash is loaded without a rebuild. Nothing here runs at import time: the
@@ -45,6 +46,11 @@ SIGNATURES: dict[str, dict[str, tuple[list, object]]] = {
         # q, k, v, qpos, kpos, out, BH, BHkv, Sq, Skv, D, scale, is_bf16, stream
         "flash_attention_fwd": ([_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                                  ctypes.c_float, _I, _P], _I),
+        # the same arguments; always the first (CUDA-core) kernel
+        "flash_attention_fwd_simt": ([_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+                                      ctypes.c_float, _I, _P], _I),
+        # is_bf16, D -> 1 when flash_attention_fwd runs the wgmma kernel
+        "flash_attention_variant": ([_I, _I], _I),
         "cuda_error_string": ([_I], ctypes.c_char_p),
     },
     "quant_matmul.cu": {
@@ -101,15 +107,24 @@ def nvcc_path() -> str:
                        "CUDA toolkit is needed to build the port's kernels")
 
 
+def source_digest(src: Path) -> str:
+    """The build key of ``src``: a hash of the source, of every header
+    beside it (``*.cuh``, which a source may include) and of the flags."""
+    digest = hashlib.sha256(src.read_bytes())
+    for header in sorted(src.parent.glob("*.cuh")):
+        digest.update(header.read_bytes())
+    digest.update(" ".join(NVCC_FLAGS).encode())
+    return digest.hexdigest()[:16]
+
+
 def load(source: str = "split_dp.cu") -> BuiltLibrary:
     """The loaded library for ``csrc/<source>``, built on first use."""
     if source in _LOADED:
         return _LOADED[source]
     src = CSRC / source
-    digest = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode())
     out_dir = build_dir()
     out_dir.mkdir(parents=True, exist_ok=True)
-    so = out_dir / f"lib{src.stem}_{digest.hexdigest()[:16]}.so"
+    so = out_dir / f"lib{src.stem}_{source_digest(src)}.so"
     build_time, log = 0.0, ""
     if not so.exists():
         t0 = time.perf_counter()

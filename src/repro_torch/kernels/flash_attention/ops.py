@@ -5,7 +5,14 @@
 :func:`flash_attention_kernel`, which launches the hand-written CUDA
 kernel ``csrc/flash_attention.cu``. For tensors on the CPU it runs the
 plain version (:func:`.ref.attention_ref`) instead; for any other device
-it launches the kernel or raises. :data:`FLASH_LAUNCHES` counts launches.
+it launches the kernel or raises.
+
+The source holds two kernels. :func:`_variant` names the one a call takes:
+``"wgmma"`` (bf16 tensor cores fed by TMA) for bfloat16 with a head dim
+that is a multiple of 16 up to 256, ``"simt"`` (float32 FMAs on the CUDA
+cores) for float32 and for any other head dim. :data:`FLASH_LAUNCHES`
+counts launches of either, :data:`FLASH_WGMMA_LAUNCHES` those of the
+first.
 """
 
 from __future__ import annotations
@@ -15,22 +22,36 @@ import torch
 from repro_torch.kernels import build
 from repro_torch.kernels.flash_attention.ref import attention_ref
 
-__all__ = ["FLASH_LAUNCHES", "MAX_HEAD_DIM", "flash_attention",
-           "flash_attention_kernel", "reset_launch_count"]
+__all__ = ["FLASH_LAUNCHES", "FLASH_WGMMA_LAUNCHES", "MAX_HEAD_DIM", "VARIANTS",
+           "flash_attention", "flash_attention_kernel", "reset_launch_count"]
 
-# Kernel launches since the last reset_launch_count(); bumped only where
-# the kernel is launched, never by the plain version.
+# Kernel launches since the last reset_launch_count(), of either kernel and
+# of the wgmma kernel; bumped only where a kernel is launched, never by
+# the plain version.
 FLASH_LAUNCHES = 0
+FLASH_WGMMA_LAUNCHES = 0
 
-# Largest head dim the kernel is compiled for (its register tile).
+VARIANTS = ("wgmma", "simt")
+
+# Largest head dim the kernels are compiled for (their register tiles).
 MAX_HEAD_DIM = 256
 
 _DTYPES = (torch.float32, torch.bfloat16)
 
 
 def reset_launch_count() -> None:
-    global FLASH_LAUNCHES
-    FLASH_LAUNCHES = 0
+    global FLASH_LAUNCHES, FLASH_WGMMA_LAUNCHES
+    FLASH_LAUNCHES = FLASH_WGMMA_LAUNCHES = 0
+
+
+def _variant(dtype: torch.dtype, head_dim: int) -> str:
+    """The kernel ``flash_attention_fwd`` runs for this type and head dim
+    (its C twin is ``flash_attention_variant``): the wgmma kernel takes
+    bfloat16 with a head dim that is a multiple of 16 up to 256; float32
+    and every other head dim take the CUDA-core kernel."""
+    if dtype == torch.bfloat16 and 16 <= head_dim <= MAX_HEAD_DIM and head_dim % 16 == 0:
+        return "wgmma"
+    return "simt"
 
 
 def _check(q, k, v, q_positions, kv_positions) -> None:
@@ -62,13 +83,21 @@ def _check(q, k, v, q_positions, kv_positions) -> None:
 
 
 def flash_attention_kernel(q, k, v, q_positions, kv_positions, *,
-                           scale: float) -> torch.Tensor:
-    """Launch the CUDA kernel on folded inputs: q (BH, Sq, D), k/v
+                           scale: float, variant: str | None = None) -> torch.Tensor:
+    """Launch a CUDA kernel on folded inputs: q (BH, Sq, D), k/v
     (BHkv, Skv, D), contiguous CUDA tensors of one type (float32 or
-    bfloat16), int32 positions (Sq,) and (Skv,). Raises if the kernel
-    cannot be built or launched; it never computes the result otherwise."""
-    global FLASH_LAUNCHES
+    bfloat16), int32 positions (Sq,) and (Skv,). ``variant`` None takes
+    :func:`_variant`'s kernel; ``"simt"`` forces the CUDA-core kernel (any
+    type and head dim); ``"wgmma"`` is refused where :func:`_variant`
+    would not pick it. Raises if the kernel cannot be built or launched;
+    it never computes the result otherwise."""
+    global FLASH_LAUNCHES, FLASH_WGMMA_LAUNCHES
     _check(q, k, v, q_positions, kv_positions)
+    chosen = _variant(q.dtype, q.shape[2])
+    if variant not in (None, *VARIANTS) or (variant == "wgmma" and chosen != "wgmma"):
+        raise ValueError(f"flash_attention_kernel: variant {variant!r} cannot run "
+                         f"{q.dtype} with head dim {q.shape[2]} (it takes {chosen!r})")
+    chosen = variant or chosen
     built = build.load("flash_attention.cu")
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention_kernel: needs CUDA tensors, got "
@@ -79,14 +108,17 @@ def flash_attention_kernel(q, k, v, q_positions, kv_positions, *,
             raise ValueError(f"flash_attention_kernel: {name} must be contiguous")
     BH, Sq, D = q.shape
     out = torch.empty_like(q)
+    launch = (built.lib.flash_attention_fwd if chosen == "wgmma"
+              else built.lib.flash_attention_fwd_simt)
     with torch.cuda.device(q.device):
-        code = built.lib.flash_attention_fwd(
+        code = launch(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), q_positions.data_ptr(),
             kv_positions.data_ptr(), out.data_ptr(), BH, k.shape[0], Sq,
             k.shape[1], D, float(scale), int(q.dtype == torch.bfloat16),
             torch.cuda.current_stream(q.device).cuda_stream)
-    build.check_launch(built, code, "flash_attention")
+    build.check_launch(built, code, f"flash_attention ({chosen})")
     FLASH_LAUNCHES += 1
+    FLASH_WGMMA_LAUNCHES += int(chosen == "wgmma")
     return out
 
 
@@ -100,9 +132,11 @@ def flash_attention(q, k, v, *, q_positions, kv_positions, scale) -> torch.Tenso
     Hkv = k.shape[2]
     if q_positions.dim() == 2:
         q_positions = q_positions[0]
-    qf = q.transpose(1, 2).reshape(B * H, Sq, D)
-    kf = k.transpose(1, 2).reshape(B * Hkv, k.shape[1], k.shape[3])
-    vf = v.transpose(1, 2).reshape(B * Hkv, v.shape[1], v.shape[3])
+    # (B, S, H, D) -> (B*H, S, D): where B or H is 1, reshape returns a
+    # strided view, and the kernels read contiguous rows
+    qf = q.transpose(1, 2).reshape(B * H, Sq, D).contiguous()
+    kf = k.transpose(1, 2).reshape(B * Hkv, k.shape[1], k.shape[3]).contiguous()
+    vf = v.transpose(1, 2).reshape(B * Hkv, v.shape[1], v.shape[3]).contiguous()
     qpos = q_positions.to(torch.int32).contiguous()
     kpos = kv_positions.to(torch.int32).contiguous()
     if q.device.type == "cpu":

@@ -10,8 +10,11 @@ counts and the plain PyTorch version of each kernel's own arithmetic.
   colsum`` into an FMA. Where ``|acc| > 2^24`` this differs from
   ``quant_matmul_ref``, which subtracts in int32 before its one rounding.
 * :func:`w8a16_matmul_kernel` (weight-only int8) replaces
-  ``_w8a16_kernel``: float32 FMAs of ``float(x) * float(w)`` over K, then
-  ``acc * w_scale[n]`` once in the epilogue.
+  ``_w8a16_kernel``: the float32 sum over K of ``float(x) * float(w)``,
+  then ``acc * w_scale[n]`` once in the epilogue. The kernel forms every
+  product exactly on the bf16 tensor cores: int8 w is exact in bf16, and
+  float32 x is split into the bf16 pieces :func:`split_bf16` gives, whose
+  sum is x; only the order of the float32 sum differs.
 
 A ``*_kernel`` function launches its kernel on CUDA tensors and raises on
 anything else; the ``*_plain`` functions compute the same function with
@@ -29,7 +32,7 @@ from repro_torch.kernels.quant_matmul.ref import int_matmul
 
 __all__ = ["OUT_DTYPES", "W8A16_LAUNCHES", "W8A8_LAUNCHES", "X_DTYPES",
            "quant_matmul_kernel", "quant_matmul_plain", "reset_launch_counts",
-           "w8a16_matmul_kernel", "w8a16_matmul_plain"]
+           "split_bf16", "w8a16_matmul_kernel", "w8a16_matmul_plain"]
 
 # Kernel launches since the last reset_launch_counts(); bumped only where
 # a kernel is launched, never by a plain version.
@@ -105,6 +108,24 @@ def quant_matmul_kernel(a_q, w_q, a_scale, a_zp, w_scale, *, out_dtype=torch.flo
             int(out_dtype == torch.bfloat16), torch.cuda.current_stream(dev).cuda_stream)
     build.check_launch(built, code, "quant_matmul_w8a8")
     W8A8_LAUNCHES += 1
+    return out
+
+
+def split_bf16(x: torch.Tensor, pieces: int = 3) -> list[torch.Tensor]:
+    """The W8A16 kernel's bf16 pieces of x: ``x1 = bf16(x)``, ``x2 =
+    bf16(x - x1)``, ``x3 = bf16(x - x1 - x2)`` (nearest even; each
+    difference is exact in float32). For float32 x the three sum to x
+    exactly for 0 and for every |x| from 2^-110 up to bf16's largest
+    finite value (3.3895e38): bf16 has float32's exponent range, and three
+    8-bit significands cover 24 bits (below 2^-110 the last piece would
+    need bf16 subnormals finer than 2^-133). bfloat16 x is its own single
+    piece."""
+    rest = x.float()
+    out = []
+    for _ in range(pieces):
+        piece = rest.to(torch.bfloat16)
+        out.append(piece)
+        rest = rest - piece.float()
     return out
 
 

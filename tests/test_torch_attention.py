@@ -9,7 +9,11 @@
   functions in float32 (``rtol 1e-5``: the same arithmetic, summed in
   another order), including idle rows at position -1;
 * the wrapper's refusals: bad inputs raise, and the kernel path raises
-  when the kernel cannot be built instead of computing anything.
+  when the kernel cannot be built instead of computing anything;
+* the wgmma kernel's arithmetic, mirrored on the CPU (64-row tiles, the
+  skip rule, float32 scores of bf16 inputs, the online softmax, P split
+  into two bf16 pieces times bf16 V), against both references, and the
+  rule that routes a call to one kernel or the other.
 
 Inputs are made from a seed with numpy and handed to both sides."""
 
@@ -23,7 +27,7 @@ from repro.kernels.flash_attention.ref import attention_ref as ref_attention
 from repro.models import layers as RL
 from repro_torch.kernels import build
 from repro_torch.kernels.flash_attention import ops as FA
-from repro_torch.kernels.flash_attention.ref import attention_ref
+from repro_torch.kernels.flash_attention.ref import attention_ref, split_hi_lo
 from repro_torch.models import layers as PL
 
 # (B, Sq, Skv, H, Hkv, D, bq, bkv): the reference kernel test's shapes
@@ -199,6 +203,21 @@ def test_wrapper_rejects_what_the_kernel_does_not_take(case):
         _bad_calls()[case]()
 
 
+@pytest.mark.parametrize("B,H,Hkv", [(1, 4, 2), (2, 1, 1), (1, 1, 1)])
+def test_wrapper_hands_the_kernel_contiguous_rows(monkeypatch, B, H, Hkv):
+    """Folding (B, S, H, D) to (B*H, S, D) with B or H of 1 is a strided
+    view under reshape; the kernel path gets contiguous tensors."""
+    seen = []
+    monkeypatch.setattr(FA, "flash_attention_kernel",
+                        lambda *a, **kw: seen.extend(a[:3]) or a[0])
+    q = torch.zeros((B, 16, H, 8), device="meta")
+    kv = torch.zeros((B, 16, Hkv, 8), device="meta")
+    pos = torch.arange(16, dtype=torch.int32, device="meta")
+    FA.flash_attention(q, kv, kv, q_positions=pos, kv_positions=pos, scale=1.0)
+    assert [t.shape for t in seen] == [(B * H, 16, 8), (B * Hkv, 16, 8), (B * Hkv, 16, 8)]
+    assert all(t.is_contiguous() for t in seen)
+
+
 def test_kernel_path_raises_without_a_built_kernel(tmp_path, monkeypatch):
     """The kernel path (taken for every tensor not on the CPU) builds the
     CUDA kernel or raises; it never computes the result another way."""
@@ -224,3 +243,115 @@ def test_wrapper_never_falls_back_off_the_cpu(monkeypatch):
     pos = torch.arange(16, dtype=torch.int32, device="meta")
     FA.flash_attention(q, q, q, q_positions=pos, kv_positions=pos, scale=1.0)
     assert taken == [torch.device("meta")]
+
+
+def test_split_hi_lo_keeps_16_bits_of_p():
+    """p_hi + p_lo carries p to 2^-16 of itself wherever the rounding of
+    p_lo stays normal (p >= 2^-118); below that the error is under half
+    bf16's smallest subnormal (2^-134); p = 0 splits into zeros."""
+    rng = np.random.default_rng(0)
+    p = np.concatenate([
+        rng.uniform(0, 1, 20000), np.exp(-rng.uniform(0, 87, 20000)),
+        [0.0, 1.0, 0.5, 2.0 ** -118, 2.0 ** -126, 2.0 ** -100, 1e-30,
+         np.nextafter(np.float32(1), np.float32(0)), np.nextafter(np.float32(0.5), np.float32(1)),
+         np.float32(1 - 2 ** -9), np.float32(2 ** -8 + 2 ** -17)]]).astype(np.float32)
+    hi, lo = split_hi_lo(torch.from_numpy(p))
+    assert hi.dtype == lo.dtype == torch.bfloat16
+    pd = torch.from_numpy(p).double()
+    err = (pd - hi.double() - lo.double()).abs()
+    normal = pd >= 2.0 ** -118
+    assert bool((err[normal] <= 2.0 ** -16 * pd[normal]).all())
+    assert bool((err <= torch.maximum(2.0 ** -16 * pd, torch.tensor(2.0 ** -134))).all())
+    assert float(hi[p == 0].abs().max()) == 0.0 and float(lo[p == 0].abs().max()) == 0.0
+
+
+def wgmma_arithmetic(q, k, v, qpos, kpos, scale, tile=64):
+    """The wgmma kernel's function on the CPU, tile by tile: q rows in
+    tiles of 64 (a consumer warpgroup), kv rows in tiles of 64, a tile
+    skipped when its first position is past the q tile's last; float32
+    scores of bf16 inputs scaled, the -1e30 mask, the online softmax with
+    corr = exp(m_old - m_new), P V as split_hi_lo's two pieces times V
+    (exact products, summed in float64), out = acc / max(l, 1e-30)."""
+    group = q.shape[0] // k.shape[0]
+    Sq, Skv = q.shape[1], k.shape[1]
+    out = torch.zeros(q.shape, dtype=torch.float32)
+    for h in range(q.shape[0]):
+        kh, vh = k[h // group].float(), v[h // group].float()
+        for q0 in range(0, Sq, tile):
+            qt, pos = q[h, q0:q0 + tile].float(), qpos[q0:q0 + tile]
+            m = torch.full((len(pos), 1), -1e30)
+            l = torch.zeros((len(pos), 1))
+            acc = torch.zeros((len(pos), q.shape[2]), dtype=torch.float64)
+            for k0 in range(0, Skv, tile):
+                if int(kpos[k0]) > int(pos[-1]):
+                    continue
+                s = (qt @ kh[k0:k0 + tile].T) * scale
+                s = torch.where(kpos[None, k0:k0 + tile] <= pos[:, None], s, -1e30)
+                m_new = torch.maximum(m, s.max(1, keepdim=True).values)
+                p = torch.exp(s - m_new)
+                corr = torch.exp(m - m_new)
+                l = l * corr + p.sum(1, keepdim=True)
+                m = m_new
+                hi, lo = split_hi_lo(p)
+                acc = acc * corr.double() + (hi.double() + lo.double()) @ vh[k0:k0 + tile].double()
+            out[h, q0:q0 + tile] = (acc.float() / torch.clamp(l, min=1e-30))
+    return out
+
+
+@pytest.mark.parametrize("shape", [(1, 100, 100, 4, 2, 32), (1, 70, 200, 2, 1, 48),
+                                   (2, 130, 130, 2, 2, 16)],
+                         ids=lambda s: "x".join(map(str, s)))
+def test_wgmma_arithmetic_matches_references(shape):
+    """bf16 inputs through the kernel's tiled arithmetic stay within the
+    float32 tolerance of both references on the same bf16 values: the
+    split P costs ~2^-16 relative, not a bf16 rounding."""
+    B, Sq, Skv, H, Hkv, D = shape
+    q, k, v = (fold(x) for x in qkv(B, Sq, Skv, H, Hkv, D, seed=Sq + D))
+    q, k, v = (torch.from_numpy(x).to(torch.bfloat16) for x in (q, k, v))
+    qpos = np.arange(Skv - Sq, Skv, dtype=np.int32)
+    kpos = np.arange(Skv, dtype=np.int32)
+    scale = D ** -0.5
+    got = wgmma_arithmetic(q, k, v, torch.from_numpy(qpos), torch.from_numpy(kpos), scale)
+    want = attention_ref(q.float(), k.float(), v.float(), torch.from_numpy(qpos),
+                         torch.from_numpy(kpos), scale)
+    torch.testing.assert_close(got, want, rtol=1e-3, atol=2e-5)
+    ref = ref_attention(*(jnp.asarray(x.float().numpy()) for x in (q, k, v)),
+                        jnp.asarray(qpos), jnp.asarray(kpos), scale)
+    np.testing.assert_allclose(got.numpy(), np.asarray(ref), rtol=1e-3, atol=2e-5)
+
+
+@pytest.mark.parametrize("D", [1, 8, 16, 40, 64, 128, 160, 240, 256])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_variant_routes_bf16_multiples_of_16_to_wgmma(dtype, D):
+    want = "wgmma" if dtype == torch.bfloat16 and D % 16 == 0 else "simt"
+    assert FA._variant(dtype, D) == want
+
+
+@pytest.mark.parametrize("dtype,D", [(torch.float32, 128), (torch.bfloat16, 40)],
+                         ids=["f32", "bf16-D40"])
+def test_wgmma_variant_is_refused_where_it_does_not_apply(dtype, D):
+    """Asking for the wgmma kernel where the rule would not pick it raises
+    before anything is built or counted; so does an unknown variant."""
+    q = torch.zeros((2, 16, D), dtype=dtype)
+    pos = torch.arange(16, dtype=torch.int32)
+    before = FA.FLASH_LAUNCHES, FA.FLASH_WGMMA_LAUNCHES
+    with pytest.raises(ValueError, match="wgmma"):
+        FA.flash_attention_kernel(q, q, q, pos, pos, scale=1.0, variant="wgmma")
+    with pytest.raises(ValueError, match="tensor"):
+        FA.flash_attention_kernel(q, q, q, pos, pos, scale=1.0, variant="tensor")
+    assert (FA.FLASH_LAUNCHES, FA.FLASH_WGMMA_LAUNCHES) == before
+
+
+def test_kernel_wrapper_routes_by_the_variant_rule(monkeypatch):
+    """The wrapper asks ``_variant`` for the kernel before it builds; on CPU
+    tensors it then refuses to launch and counts nothing."""
+    asked = []
+    monkeypatch.setattr(FA, "_variant", lambda dtype, D: asked.append((dtype, D)) or "wgmma")
+    monkeypatch.setattr(build, "load", lambda source: None)
+    q = torch.zeros((2, 16, 64), dtype=torch.bfloat16)
+    pos = torch.arange(16, dtype=torch.int32)
+    before = FA.FLASH_LAUNCHES, FA.FLASH_WGMMA_LAUNCHES
+    with pytest.raises(ValueError, match="CUDA"):
+        FA.flash_attention_kernel(q, q, q, pos, pos, scale=1.0)
+    assert asked == [(torch.bfloat16, 64)]
+    assert (FA.FLASH_LAUNCHES, FA.FLASH_WGMMA_LAUNCHES) == before

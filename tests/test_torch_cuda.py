@@ -67,7 +67,10 @@ def test_sweep_on_card_equals_plain(card):
 
 
 # (B, Sq, Skv, H, Hkv, D): MHA, GQA (group 4), MQA, ragged, q a suffix of
-# a longer kv (prefill into a cache), and the full-width prefill shape
+# a longer kv (prefill into a cache), the full-width prefill shape, and
+# head dims that take the wgmma kernel's other paths in bf16: D 64 over a
+# ragged 1,000-row kv, stablelm-12b's 160 (64-column products plus
+# 16-column ones; Sq 130 leaves a q tile of 2 rows), 48 and 256
 FLASH_SHAPES = [
     (2, 128, 128, 8, 8, 64),
     (2, 256, 256, 8, 2, 128),
@@ -75,6 +78,10 @@ FLASH_SHAPES = [
     (2, 100, 100, 4, 2, 16),
     (1, 96, 2080, 4, 4, 128),
     (4, 2048, 2048, 32, 32, 128),
+    (1, 200, 1000, 8, 2, 64),
+    (2, 130, 130, 4, 2, 160),
+    (2, 64, 64, 2, 1, 48),
+    (1, 256, 256, 4, 4, 256),
 ]
 # the reference kernel test's tolerances (tests/test_kernels.py)
 FLASH_TOL = {torch.float32: dict(rtol=1e-3, atol=2e-5),
@@ -85,9 +92,10 @@ FLASH_TOL = {torch.float32: dict(rtol=1e-3, atol=2e-5),
 FULL_WIDTH_BF16_TOL = dict(rtol=2e-2, atol=4e-3)
 
 
-def check_flash(card, B, Sq, Skv, H, Hkv, D, dtype, q0):
-    """The kernel on seeded inputs, q at positions q0.., against its plain
-    version; one launch counted."""
+def check_flash(card, B, Sq, Skv, H, Hkv, D, dtype, q0, variant=None):
+    """The kernel ``variant`` (None: the wrapper's pick) on seeded inputs, q
+    at positions q0.., against its plain version; one launch counted, of
+    the wgmma kernel where that one ran."""
     from repro_torch.kernels.flash_attention import ops as FA
     from repro_torch.kernels.flash_attention.ref import attention_ref
 
@@ -97,10 +105,12 @@ def check_flash(card, B, Sq, Skv, H, Hkv, D, dtype, q0):
     v = torch.randn((B * Hkv, Skv, D), generator=g, device=card).to(dtype)
     qpos = torch.arange(q0, q0 + Sq, dtype=torch.int32, device=card)
     kpos = torch.arange(Skv, dtype=torch.int32, device=card)
-    before = FA.FLASH_LAUNCHES
-    got = FA.flash_attention_kernel(q, k, v, qpos, kpos, scale=D ** -0.5)
+    before = FA.FLASH_LAUNCHES, FA.FLASH_WGMMA_LAUNCHES
+    got = FA.flash_attention_kernel(q, k, v, qpos, kpos, scale=D ** -0.5, variant=variant)
     torch.cuda.synchronize()
-    assert FA.FLASH_LAUNCHES == before + 1 and got.dtype == dtype
+    wgmma = (variant or FA._variant(dtype, D)) == "wgmma"
+    assert (FA.FLASH_LAUNCHES, FA.FLASH_WGMMA_LAUNCHES) == (before[0] + 1, before[1] + wgmma)
+    assert got.dtype == dtype
     want = attention_ref(q, k, v, qpos, kpos, D ** -0.5)
     tol = FULL_WIDTH_BF16_TOL if dtype == torch.bfloat16 and B * H == 128 \
         else FLASH_TOL[dtype]
@@ -112,6 +122,51 @@ def check_flash(card, B, Sq, Skv, H, Hkv, D, dtype, q0):
 def test_flash_kernel_equals_plain(card, shape, dtype):
     B, Sq, Skv, H, Hkv, D = shape
     check_flash(card, B, Sq, Skv, H, Hkv, D, dtype, q0=Skv - Sq)
+
+
+@pytest.mark.parametrize("shape", FLASH_SHAPES, ids=lambda s: "x".join(map(str, s)))
+def test_flash_simt_kernel_equals_plain_in_bf16(card, shape):
+    """The CUDA-core kernel, which bf16 no longer takes by default, still
+    holds the same tolerances on bf16 inputs."""
+    B, Sq, Skv, H, Hkv, D = shape
+    check_flash(card, B, Sq, Skv, H, Hkv, D, torch.bfloat16, q0=Skv - Sq, variant="simt")
+
+
+def test_flash_variant_rule_is_the_c_entrys(card):
+    """``_variant`` names the kernel ``flash_attention_fwd`` runs, for both
+    types and every head dim."""
+    from repro_torch.kernels import build
+    from repro_torch.kernels.flash_attention import ops as FA
+
+    lib = build.load("flash_attention.cu").lib
+    for dtype in (torch.float32, torch.bfloat16):
+        for D in range(1, FA.MAX_HEAD_DIM + 1):
+            assert bool(lib.flash_attention_variant(int(dtype == torch.bfloat16), D)) \
+                == (FA._variant(dtype, D) == "wgmma"), (dtype, D)
+
+
+def test_flash_variants_agree_on_masked_rows(card):
+    """kv positions start at 50: in the first 64-row kv tile, q rows at
+    positions 0..49 see only masked keys and take uniform weights over that
+    tile (the reference's arithmetic); the next tile starts past the first
+    64 q rows and is skipped for them. Both kernels apply the 64-row skip
+    rule, so they agree there, and elsewhere with the plain version."""
+    from repro_torch.kernels.flash_attention import ops as FA
+    from repro_torch.kernels.flash_attention.ref import attention_ref
+
+    g = torch.Generator(device=card).manual_seed(3)
+    q, k, v = (torch.randn((2, S, 64), generator=g, device=card).to(torch.bfloat16)
+               for S in (128, 256, 256))
+    qpos = torch.arange(128, dtype=torch.int32, device=card)
+    kpos = torch.arange(50, 306, dtype=torch.int32, device=card)
+    got = FA.flash_attention_kernel(q, k, v, qpos, kpos, scale=0.125)
+    want = FA.flash_attention_kernel(q, k, v, qpos, kpos, scale=0.125, variant="simt")
+    torch.testing.assert_close(got.float(), want.float(), **FLASH_TOL[torch.bfloat16])
+    uniform = v[:, :64].float().mean(1, keepdim=True).expand(2, 50, 64)
+    torch.testing.assert_close(got[:, :50].float(), uniform, **FLASH_TOL[torch.bfloat16])
+    plain = attention_ref(q, k, v, qpos, kpos, 0.125)
+    torch.testing.assert_close(got[:, 50:].float(), plain[:, 50:].float(),
+                               **FLASH_TOL[torch.bfloat16])
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
@@ -134,10 +189,25 @@ def test_flash_kernel_skipped_q_tile_writes_zero(card):
     assert torch.equal(out, torch.zeros_like(out))
 
 
+def test_flash_wgmma_kernel_skipped_q_tile_writes_zero(card):
+    from repro_torch.kernels.flash_attention import ops as FA
+
+    q = torch.randn((2, 64, 32), device=card).to(torch.bfloat16)
+    k = torch.randn((2, 128, 32), device=card).to(torch.bfloat16)
+    before = FA.FLASH_WGMMA_LAUNCHES
+    out = FA.flash_attention_kernel(
+        q, k, k, torch.arange(64, dtype=torch.int32, device=card),
+        torch.arange(1000, 1128, dtype=torch.int32, device=card), scale=0.2)
+    assert FA.FLASH_WGMMA_LAUNCHES == before + 1
+    assert torch.equal(out, torch.zeros_like(out))
+
+
 # (M, K, N): ragged, one row, a wide ragged N, the MobileNet-V2 Logits head,
-# and the full-width deepseek-7b MLP up-projection over 4 x 2,048 tokens
+# the full-width deepseek-7b MLP up-projection over 4 x 2,048 tokens, a K
+# that is no multiple of 8 (bf16 x read without TMA) with N 48 (w by TMA),
+# and K 37, N 40 (x of either type and w read without TMA)
 GEMM_SHAPES = [(100, 200, 300), (1, 64, 17), (33, 1280, 1000), (64, 1280, 1000),
-               (8192, 4096, 11008)]
+               (8192, 4096, 11008), (37, 100, 48), (19, 37, 40)]
 
 
 def int8(g, shape, card, lo=-128, hi=128):
@@ -185,10 +255,11 @@ def test_w8a8_kernel_fma_epilogue_beyond_2_24(card, zp):
 @pytest.mark.parametrize("x_dtype", [torch.float32, torch.bfloat16], ids=["x-f32", "x-bf16"])
 @pytest.mark.parametrize("shape", GEMM_SHAPES, ids=lambda s: "x".join(map(str, s)))
 def test_w8a16_kernel_equals_plain(card, shape, x_dtype, out_dtype):
-    """Both sum float32 products of the same values, in another order: the
-    reference kernel test's rtol (1e-4 in float32, 2e-2 for a bfloat16
-    output: one rounding), with atol scaled to the output's rms, as the
-    reference test's outputs are O(1) and these grow with K."""
+    """Both sum float32 products of the same values, in another order (the
+    kernel forms them on the bf16 tensor cores, float32 x as three bf16
+    pieces): the reference kernel test's rtol (1e-4 in float32, 2e-2 for a
+    bfloat16 output: one rounding), with atol scaled to the output's rms,
+    as the reference test's outputs are O(1) and these grow with K."""
     from repro_torch.kernels.quant_matmul import kernel as QK
 
     M, K, N = shape

@@ -165,3 +165,21 @@ def test_kernel_build_directory(tmp_path, monkeypatch, layout):
     else:
         monkeypatch.setenv("REPRO_TORCH_BUILD_DIR", str(tmp_path / "kernels"))
         assert build.build_dir() == tmp_path / "kernels"
+
+
+def test_kernel_build_key_covers_the_headers(tmp_path):
+    """A library is rebuilt when a header beside its source changes, not
+    only when the source does: the build key hashes both."""
+    from repro_torch.kernels import build
+
+    src = tmp_path / "k.cu"
+    src.write_text('#include "shared.cuh"\n')
+    header = tmp_path / "shared.cuh"
+    header.write_text("// one\n")
+    first = build.source_digest(src)
+    assert build.source_digest(src) == first
+    header.write_text("// two\n")
+    second = build.source_digest(src)
+    assert second != first
+    src.write_text('#include "shared.cuh"\n// edited\n')
+    assert build.source_digest(src) not in (first, second)

@@ -151,6 +151,69 @@ def test_w8a16_bf16_activations(out_dtype):
                                rtol=2e-2, atol=2e-2)
 
 
+# float32 values the three-piece split must carry exactly: zero, tiny and
+# huge normals, both signs, and neighbours of powers of two
+SPLIT_EDGES = np.array(
+    [0.0, -0.0, 1e-30, -1e-30, 3e38, -3e38, 2.0 ** -110, -(2.0 ** -110), 1.0, -1.0,
+     np.nextafter(np.float32(1), np.float32(2)), np.nextafter(np.float32(1), np.float32(0)),
+     np.nextafter(np.float32(2), np.float32(0)), np.nextafter(np.float32(0.5), np.float32(1)),
+     np.float32(1 + 2 ** -8 + 2 ** -16 + 2 ** -23), np.float32(-(2 - 2 ** -23)) * 2.0 ** 100,
+     np.float32(1 + 2 ** -9) * 2.0 ** -60, 127.5, -128.0, 65504.0], np.float32)
+
+
+def split_draws(seed):
+    """Seeded float32 draws over many binades, with the edge values."""
+    rng = np.random.default_rng(seed)
+    mant = rng.uniform(1, 2, 4000) * rng.choice([-1, 1], 4000)
+    x = (mant * 2.0 ** rng.integers(-110, 127, 4000)).astype(np.float32)
+    return np.concatenate([x, rng.standard_normal(4000).astype(np.float32), SPLIT_EDGES])
+
+
+def test_split_bf16_reconstructs_float32_exactly():
+    """x1 + x2 + x3 == x for every draw (in float64, where the sum is
+    exact), each piece a bf16 and each rounding that of the kernel."""
+    x = T(split_draws(0))
+    pieces = QK.split_bf16(x)
+    assert [p.dtype for p in pieces] == [torch.bfloat16] * 3
+    total = sum(p.double() for p in pieces)
+    assert torch.equal(total, x.double())
+    # each piece carries the next 8 significant bits: |x - x1| <= 2^-8 |x|
+    rest = (x.double() - pieces[0].double()).abs()
+    assert bool((rest <= 2.0 ** -8 * x.double().abs()).all())
+    # bfloat16 x is its own single piece
+    xb = x.to(torch.bfloat16)
+    assert torch.equal(QK.split_bf16(xb, pieces=1)[0], xb)
+
+
+def test_split_bf16_products_are_exact():
+    """sum over pieces of bf16(piece) * bf16(w), formed in float64, equals
+    float64(x) * float64(w) for every int8 w: each product the tensor cores
+    form is exact, so only the order of the float32 sum can differ."""
+    x = T(split_draws(1))
+    w = torch.arange(-128, 128, dtype=torch.int8)
+    wb = w.to(torch.bfloat16)
+    assert torch.equal(wb.double(), w.double())  # int8 is exact in bf16
+    got = sum(p.double()[:, None] * wb.double()[None, :] for p in QK.split_bf16(x))
+    assert torch.equal(got, x.double()[:, None] * w.double()[None, :])
+
+
+@pytest.mark.parametrize("shape", W8A16_SHAPES, ids=lambda s: "x".join(map(str, s)))
+def test_w8a16_split_arithmetic_matches_interpreted_kernel(shape):
+    """The kernel's arithmetic, mirrored on the CPU: the exact sum of the
+    three pieces' products (float64), rounded to float32, times w_scale,
+    against the reference kernel in interpret mode at its tolerance."""
+    M, K, N = shape
+    rng = np.random.default_rng(M * K + N)
+    x = rng.normal(size=(M, K)).astype(np.float32)
+    w = rng.integers(-128, 128, (K, N)).astype(np.int8)
+    ws = rng.uniform(0.001, 0.05, N).astype(np.float32)
+    acc = sum(p.double() @ T(w).double() for p in QK.split_bf16(T(x)))
+    got = (acc.float() * T(ws)[None, :]).numpy()
+    want = np.asarray(ref_w8a16_kernel(jnp.asarray(x), jnp.asarray(w), jnp.asarray(ws),
+                                       interpret=True))
+    np.testing.assert_allclose(got, want, rtol=1e-4, atol=1e-4)
+
+
 def linear_inputs(shape, seed):
     rng = np.random.default_rng(seed)
     x = rng.standard_normal(shape).astype(np.float32)
