@@ -59,16 +59,19 @@ reference package ``repro``) on the card and fails on any fault:
    host enqueue time, and the allocator's retries and cudaMalloc calls
    over those steps; ``Server`` tokens/s; traced runs of a prefill
    step and a ``serve_step`` (device busy time, idle share, launches);
-11. the int8 GEMMs: the W8A8 kernel equals its plain version exactly in
-   float32 and bfloat16 output (ragged 100 x 200 x 300, one row, ragged
-   M with N 1000, MobileNet-V2's Logits head 64 x 1280 x 1000, the
-   full-width deepseek-7b up-projection 8192 x 4096 x 11008, and
-   a_zp != 0 with |acc| > 2^24, K 100 with N 48, and K 37 with N 40); the
-   W8A16 kernel, float32 and bfloat16 x, float32 and bfloat16 out,
-   within the reference test's rtol; then the path: ``quant_linear`` and
-   ``w8a16_linear`` on x (4, 2048, 4096) bf16 against seeded random
-   up-projection weights and on the Logits head, with the launch counters
-   read around these four calls only (two launches of each kernel);
+11. the int8 GEMMs: the wrapper's W8A8 variant rule is held to the C
+   entry's (K 1..300, activations off 16-byte alignment); both W8A8
+   kernels (``wgmma`` where K % 16 == 0, ``mma.sync`` on every case) equal
+   the plain version exactly in float32 and bfloat16 output (ragged 100 x
+   200 x 300, one row, ragged M with N 1000, MobileNet-V2's Logits head
+   64 x 1280 x 1000, the full-width deepseek-7b up-projection 8192 x 4096
+   x 11008, a_zp != 0 with |acc| > 2^24, K 100 with N 48, K 37 with N
+   40, and one row of K 200 against N 1000); the W8A16 kernel, float32
+   and bfloat16 x, float32 and bfloat16 out, within the reference test's
+   rtol; then the path: ``quant_linear`` and ``w8a16_linear`` on x (4,
+   2048, 4096) bf16 against seeded random up-projection weights and on
+   the Logits head, with the launch counters read around these four calls
+   only (two launches of each GEMM, both W8A8 launches on ``wgmma``);
    ``quant_linear`` equal to the W8A8 kernel's plain version on the same
    quantized activations and, while |acc| <= 2^24, to the integer path;
    ``w8a16_linear`` against its plain path; and the reference tests'
@@ -77,13 +80,19 @@ reference package ``repro``) on the card and fails on any fault:
    S 2048, 64 heads of 64, ds 64), float32 and bfloat16, with the launch
    counter read around these two calls only; each against the chunked
    plain version and the sequential oracle, then ragged S = 1000 with
-   chunks of 128 and 16;
+   chunks of 128 and 16 and ds 128 at chunk 128 (every case with B and
+   C shared by the heads of a batch row); the kernels' arithmetic
+   mirrored in PyTorch (``ssm_scan_pieces``) at full width against the
+   same two, with the share of each limit it uses;
 13. times at full width beside the card line: each int8 GEMM and the SSD
-   kernel, its plain version and the PyTorch yardstick (``torch._int_mm``
+   kernels, the plain version and the PyTorch yardstick (``torch._int_mm``
    plus the epilogue; for W8A16 with bf16 x, dequantize to bf16 plus a
    bf16 ``torch.matmul`` and the scale, with the float32 one beside it;
-   none for the scan) beside the kernel's bound (the scan's counts the
-   flops its causal mask keeps, C Bᵀ once per batch row); W8A16 with
+   none for the scan) beside the bound; W8A8 on both kernels in turns;
+   the SSD in bfloat16 and float32, each beside a bound that counts the
+   flops its causal mask keeps (C Bᵀ once per batch row) times the bf16
+   piece products each needs at the bf16 tensor-core rate, with the
+   float32 CUDA-core bound of the same flops beside it; W8A16 with
    float32 x; the ops' wall times and a traced ``quant_linear``;
 14. a JSON line of per-kernel results, the card line, and the last line
    ``{"ok": true, "device": {...}}``.
@@ -148,7 +157,8 @@ GEMM_CASES = [("ragged", 100, 200, 300), ("one row", 1, 4096, 11008),
               ("MobileNet-V2 Logits head", 64, 1280, 1000),
               ("full width (deepseek-7b up-projection, 4 x 2048 tokens)", 8192, 4096, 11008),
               ("K 100, no multiple of 8 (bf16 x without TMA)", 37, 100, 48),
-              ("K 37, N 40 (x and w without TMA)", 19, 37, 40)]
+              ("K 37, N 40 (x and w without TMA)", 19, 37, 40),
+              ("one row, K 200 (W8A8 on mma.sync only)", 1, 200, 1000)]
 
 
 def card_line() -> str:
@@ -897,22 +907,41 @@ def phase_gemm_kernels(dev) -> dict[str, float]:
     returns the largest max abs error of each."""
     import torch
 
+    from repro_torch.kernels import build
     from repro_torch.kernels.quant_matmul import kernel as QK
     from repro_torch.kernels.quant_matmul.ref import int_matmul, quant_matmul_ref
 
     errs = {"w8a8_matmul": 0.0, "w8a16_matmul": 0.0}
+    lib = build.load("quant_matmul.cu").lib
+    buf = torch.zeros((64,), dtype=torch.int8, device=dev)
+    for off in range(16):
+        ptr = buf[off:].data_ptr()
+        for K in range(1, 301):
+            if bool(lib.quant_matmul_w8a8_variant(K, ptr)) != (QK._variant(K, ptr) == "wgmma"):
+                raise AssertionError(f"w8a8: _variant({K}, +{off}) != the C entry's rule")
+    print("  ok the wrapper's W8A8 variant rule == quant_matmul_w8a8_variant for K 1..300 "
+          "at 16 alignments")
     a_scale = torch.tensor([0.03], device=dev)
+
+    def w8a8_exact(label, args):
+        """Both W8A8 kernels where the rule picks wgmma, else the mma one,
+        equal to the plain version in float32 and bfloat16 out."""
+        variants = [QK._variant(args[0].shape[1], args[0].data_ptr())]
+        variants += ["mma"] if variants[0] == "wgmma" else []
+        for variant in variants:
+            for out in (torch.float32, torch.bfloat16):
+                got = QK.quant_matmul_kernel(*args, out_dtype=out, variant=variant)
+                torch.cuda.synchronize()
+                if not torch.equal(got, QK.quant_matmul_plain(*args, out_dtype=out)):
+                    raise AssertionError(f"w8a8 {label} {variant} {out}: kernel != plain version")
+        return "/".join(variants)
+
     for i, (label, M, K, N) in enumerate(GEMM_CASES):
         g = torch.Generator(device=dev).manual_seed(500 + i)
         a, w = int8(g, (M, K), dev), int8(g, (K, N), dev)
         ws8 = torch.rand((N,), generator=g, device=dev) * 0.099 + 0.001
         a_zp = torch.tensor([-5], dtype=torch.int32, device=dev)
-        for out in (torch.float32, torch.bfloat16):
-            got = QK.quant_matmul_kernel(a, w, a_scale, a_zp, ws8, out_dtype=out)
-            torch.cuda.synchronize()
-            if not torch.equal(got, QK.quant_matmul_plain(a, w, a_scale, a_zp, ws8,
-                                                          out_dtype=out)):
-                raise AssertionError(f"w8a8 {label} {out}: kernel != plain version")
+        ran = w8a8_exact(label, (a, w, a_scale, a_zp, ws8))
         x = torch.randn((M, K), generator=g, device=dev)
         ws16 = torch.rand((N,), generator=g, device=dev) * 0.049 + 0.001
         worst = 0.0
@@ -929,7 +958,7 @@ def phase_gemm_kernels(dev) -> dict[str, float]:
                                          f"the limit)")
                 errs["w8a16_matmul"] = max(errs["w8a16_matmul"], err)
                 worst = max(worst, used)
-        print(f"  ok {label} M={M} K={K} N={N}: w8a8 == plain (float32 and bfloat16 out); "
+        print(f"  ok {label} M={M} K={K} N={N}: w8a8 ({ran}) == plain (float32 and bfloat16 out); "
               f"w8a16 (float32/bfloat16 x, float32/bfloat16 out) within rtol "
               f"{W8A16_RTOL}, atol rtol x rms: {worst:.3f} of the limit")
     for zp in (-37, 91):  # |acc| > 2^24: f32(acc) rounds, and one FMA differs
@@ -938,15 +967,12 @@ def phase_gemm_kernels(dev) -> dict[str, float]:
         ws8 = torch.rand((512,), generator=g, device=dev) * 0.099 + 0.001
         args = (a, w, a_scale, torch.tensor([zp], dtype=torch.int32, device=dev), ws8)
         acc_max = int(int_matmul(a, w).abs().max())
-        for out in (torch.float32, torch.bfloat16):
-            got = QK.quant_matmul_kernel(*args, out_dtype=out)
-            if not torch.equal(got, QK.quant_matmul_plain(*args, out_dtype=out)):
-                raise AssertionError(f"w8a8 a_zp={zp} {out}: kernel != plain version")
+        ran = w8a8_exact(f"a_zp={zp}", args)
         got = QK.quant_matmul_kernel(*args)
         ref = quant_matmul_ref(*args)
         differ = int((got != ref).sum())
-        print(f"  ok a_zp={zp}, max |acc| {acc_max} > 2^24: w8a8 == plain (float32 and "
-              f"bfloat16 out); vs the int32-subtracting quant_matmul_ref {differ} of "
+        print(f"  ok a_zp={zp}, max |acc| {acc_max} > 2^24: w8a8 ({ran}) == plain (float32 "
+              f"and bfloat16 out); vs the int32-subtracting quant_matmul_ref {differ} of "
               f"{got.numel()} outputs differ, by at most "
               f"{float(((got - ref).abs() / ref.abs()).max()):.3g} relative")
     return errs
@@ -981,11 +1007,17 @@ def phase_gemm_path(dev, tokens=(4, 2048), d=4096, d_ff=11008, head=(64, 1280, 1
             for k, (x, _) in cases.items()}
     torch.cuda.synchronize()
     launches = {"w8a8_matmul": QK.W8A8_LAUNCHES, "w8a16_matmul": QK.W8A16_LAUNCHES}
-    print(f"  path: quant_linear and w8a16_linear on {', '.join(cases)}: launches {launches}")
+    by_variant = {"wgmma": QK.W8A8_WGMMA_LAUNCHES,
+                  "mma": QK.W8A8_LAUNCHES - QK.W8A8_WGMMA_LAUNCHES}
+    print(f"  path: quant_linear and w8a16_linear on {', '.join(cases)}: launches {launches}; "
+          f"W8A8 by kernel {by_variant}")
     for kernel, n in launches.items():
         if n != len(cases):
             raise AssertionError(f"{kernel} was launched {n} times on the main path, "
                                  f"not {len(cases)}")
+    if by_variant["wgmma"] != len(cases):
+        raise AssertionError(f"W8A8 ran {by_variant} on the main path, not the wgmma kernel "
+                             f"{len(cases)} times")
     for label, (x, w) in cases.items():
         y8, y16 = outs[label]
         K = x.shape[-1]
@@ -1027,8 +1059,8 @@ def phase_gemm_path(dev, tokens=(4, 2048), d=4096, d_ff=11008, head=(64, 1280, 1
               f"{rel16:.4f} (< 0.01)")
         if not (rel8 < 0.02 and rel16 < 0.01):
             raise AssertionError(f"{label}: quantized linear too far from the float linear")
-    return {"launches": launches, "x": cases["deepseek-7b up-projection"][0],
-            "wq": wq["deepseek-7b up-projection"]}
+    return {"launches": launches, "by_variant": by_variant,
+            "x": cases["deepseek-7b up-projection"][0], "wq": wq["deepseek-7b up-projection"]}
 
 
 def ssd_inputs(dev, B, S, H, ph, ds, dtype, seed):
@@ -1108,7 +1140,21 @@ def phase_ssd(dev, B=4, S=2048, H=64, ph=64, ds=64, ragged=(2, 1000, 8)) -> dict
             got = SK.ssm_scan_kernel(*folded, chunk=chunk)
             err = max(err, check_scan(f"ragged S={ragged[1]} (B {ragged[0]}, H {ragged[2]})",
                                       got, folded, chunk, str(dt_)[6:]))
-    return {"launches": launches, "err": err, "inputs": inputs[torch.bfloat16]}
+    for dt_ in dtypes:  # the widest state the kernels take, at chunk 128 and ph 64
+        folded = fold_scan(*ssd_inputs(dev, 2, 300, 4, ph, 128, dt_, 42))
+        got = SK.ssm_scan_kernel(*folded, chunk=128)
+        err = max(err, check_scan("ds 128, ragged S=300 (B 2, H 4)", got, folded, 128,
+                                  str(dt_)[6:]))
+    # the kernels' arithmetic (rescaled rows, bf16 pieces) in plain PyTorch
+    for dt_ in dtypes:
+        folded = fold_scan(*inputs[dt_])
+        mirror = SK.ssm_scan_pieces(*folded, chunk=128)
+        check_scan("full width, the kernels' arithmetic mirrored (ssm_scan_pieces)", mirror,
+                   folded, 128, str(dt_)[6:])
+        got = ys[dt_].transpose(1, 2).reshape(B * H, S, ph)
+        print(f"    kernel vs its mirror: max abs diff "
+              f"{float((got.float() - mirror.float()).abs().max()):.3g}")
+    return {"launches": launches, "err": err, "inputs": inputs}
 
 
 def phase_quant_times(dev, card, gemm, ssd) -> dict:
@@ -1159,26 +1205,40 @@ def phase_quant_times(dev, card, gemm, ssd) -> dict:
                          lambda: QK.w8a16_matmul_plain(xb, w, ws), dequant_matmul_bf16,
                          2 * M * K + K * N + 4 * N + 4 * M * N, flops, BF16_FLOPS_PER_S),
     }
-    xs, bs, cs, dAs, dts = ssd["inputs"]  # bfloat16, model layout
-    B, S, H, ph = xs.shape
-    ds = bs.shape[2]
-    folded = fold_scan(xs, bs, cs, dAs, dts)
+    B, S, H, ph = ssd["inputs"][torch.bfloat16][0].shape
+    ds = ssd["inputs"][torch.bfloat16][1].shape[2]
     ck = 128
     n_chunks = -(-S // ck)
     # per chunk of r rows: C Bᵀ on the r (r + 1) / 2 pairs the causal mask
     # keeps, once per batch row (its H heads share B and C); per head, the
-    # masked (C Bᵀ ∘ L)(dt x), C h and the state update Bᵀ(dt x)
+    # masked (C Bᵀ ∘ L)(dt x), C h and the state update Bᵀ(dt x). Each
+    # product runs as bf16 piece products: with bf16 inputs C Bᵀ as one and
+    # the rest as three (one operand float32); with float32 inputs six.
     rows = [min(ck, S - i * ck) for i in range(n_chunks)]
-    ssd_flops = sum(2 * B * (r * (r + 1) // 2 * ds + H * (r * (r + 1) // 2 * ph
-                                                          + 2 * r * ds * ph))
-                    for r in rows)
-    ssd_bytes = 2 * (2 * B * H * S * ph + 2 * B * S * ds) + 4 * 2 * B * H * S
-    work["ssd_scan"] = (lambda: SK.ssm_scan_kernel(*folded, chunk=ck),
-                        lambda: SK.ssm_scan_plain(*folded, chunk=ck), None, ssd_bytes,
-                        ssd_flops, FP32_FLOPS_PER_S)
+
+    def ssd_flops(cb_pieces, pieces):
+        return sum(2 * B * (r * (r + 1) // 2 * ds * cb_pieces
+                            + H * pieces * (r * (r + 1) // 2 * ph + 2 * r * ds * ph))
+                   for r in rows)
+
+    cuda_core_ms = ssd_flops(1, 1) / FP32_FLOPS_PER_S * 1e3
+    folded = {}
+    for dt_, (cb_pieces, pieces) in ((torch.bfloat16, (1, 3)), (torch.float32, (6, 6))):
+        folded[dt_] = fold_scan(*ssd["inputs"][dt_])
+        size = dt_.itemsize
+        nbytes = size * (2 * B * H * S * ph + 2 * B * S * ds) + 4 * 2 * B * H * S
+        work[f"ssd_scan {str(dt_)[6:]}"] = (
+            lambda f=folded[dt_]: SK.ssm_scan_kernel(*f, chunk=ck),
+            lambda f=folded[dt_]: SK.ssm_scan_plain(*f, chunk=ck), None, nbytes,
+            ssd_flops(cb_pieces, pieces), BF16_FLOPS_PER_S)
     for name, (kernel, plain, library, nbytes, ops, peak) in work.items():
         plain_a = timed_ms(plain, 3)
-        ms = timed_ms(kernel, 10)
+        if name == "w8a8_matmul":  # in turns: wgmma, mma, mma, wgmma
+            mma = lambda: QK.quant_matmul_kernel(a, w, a_scale, a_zp, ws, variant="mma")
+            ms_a, mma_a = timed_ms(kernel, 10), timed_ms(mma, 10)
+            mma_ms, ms = min(mma_a, timed_ms(mma, 10)), min(ms_a, timed_ms(kernel, 10))
+        else:
+            ms = timed_ms(kernel, 10)
         plain_ms = min(plain_a, timed_ms(plain, 3))
         lib_ms = None
         if library is not None:
@@ -1196,15 +1256,25 @@ def phase_quant_times(dev, card, gemm, ssd) -> dict:
         out[name] = dict(ms=ms, plain_ms=plain_ms, bound_ms=max(bytes_ms, ops_ms),
                          bound_by="bytes" if bytes_ms >= ops_ms else "operations",
                          library_ms=lib_ms)
-        shape = (f"B={B} S={S} H={H} ph={ph} ds={ds} chunk {ck} bf16" if name == "ssd_scan"
-                 else f"M={M} K={K} N={N}" + (" bf16 x" if name == "w8a16_matmul" else ""))
+        if name.startswith("ssd_scan"):
+            shape = f"B={B} S={S} H={H} ph={ph} ds={ds} chunk {ck} {name[9:]}"
+        else:
+            shape = f"M={M} K={K} N={N}" + (" bf16 x" if name == "w8a16_matmul" else "")
         lib = "" if lib_ms is None else f"; PyTorch yardstick {lib_ms:.4f} ms"
         if name == "w8a16_matmul":
             lib = f"; dequantize-to-bf16 + bf16 torch.matmul + scale {lib_ms:.4f} ms"
-        print(f"  {name} {shape}: {ms:.4f} ms (plain {plain_ms:.3f} ms{lib}; bound "
+        if name == "w8a8_matmul":
+            out[name]["mma_ms"] = mma_ms
+            lib += f"; the mma.sync kernel {mma_ms:.4f} ms"
+        if name.startswith("ssd_scan"):
+            out[name]["cuda_core_bound_ms"] = cuda_core_ms
+            lib += (f"; the same flops once each on the float32 CUDA cores: "
+                    f"{cuda_core_ms:.4f} ms")
+        print(f"  {name.split()[0]} {shape}: {ms:.4f} ms (plain {plain_ms:.3f} ms{lib}; bound "
               f"{out[name]['bound_ms']:.4f} ms by {out[name]['bound_by']}: {ops / 1e9:.1f} G "
               f"ops in {ops_ms:.4f} ms, {nbytes / 1e6:.1f} MB in {bytes_ms:.4f} ms; "
               f"{ms / out[name]['bound_ms']:.1f}x the bound) [{card}]")
+    xs, bs, cs, dAs, dts = ssd["inputs"][torch.bfloat16]
 
     for label, fn in (("quant_linear", lambda: QO.quant_linear(x, wq)),
                       ("w8a16_linear", lambda: QO.w8a16_linear(x, wq)),
@@ -1301,6 +1371,10 @@ def main() -> int:
 
     print("== 13 int8 GEMM and SSD scan times")
     times.update(phase_quant_times(dev, card, gemm, ssd))
+    # the path's SSD timing is bfloat16's; float32's goes beside it
+    f32 = times.pop("ssd_scan float32")
+    times["ssd_scan"] = {**times.pop("ssd_scan bfloat16"), "f32_ms": f32["ms"],
+                         "f32_bound_ms": f32["bound_ms"], "f32_plain_ms": f32["plain_ms"]}
 
     kernels = []
     for name, line in (("dense_dp", 150), ("fused_dp", 170)):
@@ -1330,6 +1404,9 @@ def main() -> int:
             "name": name, "route": "cuda", "source": f"src/repro_torch/csrc/{source}",
             "replaces": f"src/repro/kernels/{replaces}", "launches": launches,
             "max_abs_err": errs[name], **times[name],
+            **({"launches_by_variant": gemm["by_variant"]} if name == "w8a8_matmul" else {}),
+            # one launch = one call of the C entry, which runs three CUDA kernels
+            **({"launch_is": "ssm_scan_fwd call (3 kernels)"} if name == "ssd_scan" else {}),
         })
     print(f"  total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))

@@ -19,15 +19,38 @@
 // sequential k axis; here one thread block owns a 128 x 128 output tile
 // and loops over K itself, with the accumulator in registers.
 //
-// W8A8: 8 warps as 2 (m) x 4 (n), each warp 64 x 32 outputs, as 4 x 4
-// `mma.sync.m16n8k32` int8 tensor-core products per 32-deep k step (int32
-// accumulate, exact). Tiles are staged in shared memory, the next tile's
-// global loads issued into registers before the current tile is consumed.
-// A is staged row-major with 80-byte rows, so the 32 lanes' fragment
-// loads hit 32 banks; w arrives k-major from device memory and is
-// transposed in 4 x 4-byte blocks with byte permutes into words of four
-// consecutive k of one column, the layout the B fragment reads. The
-// column sums come from a small kernel launched first on the same stream.
+// W8A8 runs two kernels, named by a rule with a C twin
+// (`quant_matmul_w8a8_variant`, mirrored by `_variant` in
+// kernels/quant_matmul/kernel.py): where K % 16 == 0 and a is 16-byte
+// aligned (rows TMA can read), `w8::w8a8_wgmma_kernel`; otherwise the
+// `mma.sync` kernel `w8a8_kernel`. A pre-pass, `w8a8_prep_kernel`, reads w
+// once and writes its column sums (atomic int32 adds into a zeroed
+// vector: exact, in any order) and, for the wgmma kernel, w transposed to
+// wT (N, K): for 8-bit types `wgmma` takes both operands K-major (its
+// transpose bits exist only for 16-bit types), and w (K, N) row-major is
+// N-major. Nothing is cached across calls.
+//
+// `w8a8_wgmma_kernel`: 128 x 256 output tiles (the W8A16 bf16 shape),
+// taken in groups of 16 M tiles that walk N together. A producer warp
+// keeps a four-stage TMA ring of (a, wT) k tiles in flight, 128 bytes of k
+// per stage, both 128-byte swizzled; two consumer warpgroups each run
+// `wgmma.m64n256k32.s32.s8.s8` on their 64 rows, four k32 steps per stage,
+// with one stage's products left in flight while the next stage's arrive;
+// int32 accumulators, exact. Ragged M and N edges read TMA's zero fill and
+// are masked at the store.
+//
+// `w8a8_kernel` (K % 16 != 0, where TMA cannot read a row): 8 warps as 2
+// (m) x 4 (n), each warp 64 x 32 outputs, as 4 x 4 `mma.sync.m16n8k32`
+// int8 tensor-core products per 32-deep k step. Tiles are staged in
+// shared memory, the next tile's global loads issued into registers
+// before the current tile is consumed. A is staged row-major with 80-byte
+// rows, so the 32 lanes' fragment loads hit 32 banks; w arrives k-major
+// from device memory and is transposed in 4 x 4-byte blocks with byte
+// permutes into words of four consecutive k of one column, the layout the
+// B fragment reads.
+//
+// Both kernels end in the same epilogue, bit for bit: one `__fmaf_rn`,
+// two `__fmul_rn`, then the cast.
 //
 // W8A16 (`w16::w8a16_wgmma_kernel`): the bf16 tensor cores, exactly. Every
 // int8 is exact in bf16 and a product of two bf16 is exact in float32, so
@@ -49,9 +72,12 @@
 //
 // Bound on the card, at the full-width shape M 8192 (4 x 2048 tokens),
 // K 4096, N 11008: W8A8 does 2 M N K = 7.39e11 int8 operations, 0.373 ms at
-// the 1,979 TOPS dense int8 peak, above the 0.131 ms its bytes take.
-// `mma.sync` reaches only part of that peak (`wgmma` with TMA-fed shared
-// memory is the later step). W8A16 does the same count of multiply-adds
+// the 1,979 TOPS dense int8 peak, above the 0.131 ms its bytes take (the
+// pre-pass adds 2 K N = 90 MB, 0.027 ms, counted inside the W8A8 time).
+// The wgmma kernel's tile loads hold it near 0.70 ms: with its products
+// removed it took about as long. Two-block clusters that multicast each
+// wT tile (half the L2 reads of w) and a persistent grid were no faster.
+// W8A16 does the same count of multiply-adds
 // on the bf16 tensor cores: 0.747 ms at 989 TFLOP/s dense with bf16 x,
 // three times that with float32 x. Each k tile's loads (x and w, L2 to
 // the SM) and the w conversion sit beside the products: at 128 x 128
@@ -91,21 +117,79 @@ __device__ __forceinline__ uint32_t pack4(const int8_t* p, int n_valid) {
   return v;
 }
 
-// colsum[n] = sum_k w[k, n]: 32 columns x 8 k-slices per block.
+// 4 k rows x 4 columns of w (r[q] holds k row q, columns 0..3) -> word j
+// = column j, k rows 0..3 (four consecutive k of one column)
+__device__ __forceinline__ void transpose4x4(const uint32_t (&r)[4], uint32_t (&d)[4]) {
+  const uint32_t t0 = __byte_perm(r[0], r[1], 0x5140);
+  const uint32_t t1 = __byte_perm(r[0], r[1], 0x7362);
+  const uint32_t t2 = __byte_perm(r[2], r[3], 0x5140);
+  const uint32_t t3 = __byte_perm(r[2], r[3], 0x7362);
+  d[0] = __byte_perm(t0, t2, 0x5410);
+  d[1] = __byte_perm(t0, t2, 0x7632);
+  d[2] = __byte_perm(t1, t3, 0x5410);
+  d[3] = __byte_perm(t1, t3, 0x7632);
+}
+
+constexpr int PREP_K = 64, PREP_N = 128, PREP_KSPLIT = 512;
+
+// colsum[n] += sum over this block's k of w[k, n] (colsum zeroed first) and,
+// when wT is given, wT[n, k] = w[k, n]. Block (PREP_N columns, PREP_KSPLIT
+// k rows) in 64 x 128 tiles: each thread reads two 4 x 4-byte blocks of a
+// tile, transposes them with byte permutes, and the block writes wT rows
+// as 16-byte chunks from shared memory. wT needs K % 16 == 0.
 __global__ void __launch_bounds__(256)
-colsum_kernel(const int8_t* __restrict__ w, int* __restrict__ colsum, int K, int N) {
-  __shared__ int part[8][33];
-  const int tx = threadIdx.x & 31, ty = threadIdx.x >> 5;
-  const int n = blockIdx.x * 32 + tx;
-  int s = 0;
-  if (n < N)
-    for (int k = ty; k < K; k += 8) s += w[(size_t)k * N + n];
-  part[ty][tx] = s;
-  __syncthreads();
-  if (ty == 0 && n < N) {
-    for (int i = 1; i < 8; ++i) s += part[i][tx];
-    colsum[n] = s;
+w8a8_prep_kernel(const int8_t* __restrict__ w, int8_t* __restrict__ wT, int* __restrict__ colsum,
+                 int K, int N, bool w_vec) {
+  __shared__ uint32_t sT[PREP_N][PREP_K / 4 + 1];  // [column][k quad], one word of pad
+  __shared__ int sCol[PREP_N];
+  const int tid = threadIdx.x, nq = tid & 31;
+  const int n0 = blockIdx.x * PREP_N, kb = blockIdx.y * PREP_KSPLIT;
+  const int k_end = min(K, kb + PREP_KSPLIT);
+  if (tid < PREP_N) sCol[tid] = 0;
+  int cs[4] = {0, 0, 0, 0};
+  for (int k0 = kb; k0 < k_end; k0 += PREP_K) {
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      const int kq = (tid >> 5) + 8 * e;
+      const int n = n0 + 4 * nq;
+      uint32_t r[4], d[4];
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        const int k = k0 + 4 * kq + q;
+        uint32_t v = 0;
+        if (k < K && n < N) {
+          const int8_t* p = w + (size_t)k * N + n;
+          v = (w_vec && n + 4 <= N) ? *reinterpret_cast<const uint32_t*>(p) : pack4(p, N - n);
+        }
+        r[q] = v;
+      }
+      transpose4x4(r, d);
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        cs[j] = __dp4a((int)d[j], 0x01010101, cs[j]);
+        sT[4 * nq + j][kq] = d[j];
+      }
+    }
+    if (wT != nullptr) {
+      __syncthreads();
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {  // 128 rows of wT x 4 chunks of 16 k
+        const int idx = tid + 256 * e, row = idx >> 2, q = idx & 3;
+        const int n = n0 + row, k = k0 + 16 * q;
+        if (n < N && k < K) {
+          const uint32_t* src = &sT[row][4 * q];
+          *reinterpret_cast<uint4*>(wT + (size_t)n * K + k) =
+              make_uint4(src[0], src[1], src[2], src[3]);
+        }
+      }
+      __syncthreads();
+    }
   }
+  __syncthreads();
+#pragma unroll
+  for (int j = 0; j < 4; ++j) atomicAdd(&sCol[4 * nq + j], cs[j]);
+  __syncthreads();
+  if (tid < PREP_N && n0 + tid < N) atomicAdd(colsum + n0 + tid, sCol[tid]);
 }
 
 struct W8A8Stage {
@@ -169,17 +253,12 @@ __device__ __forceinline__ void w8a8_store(const W8A8Stage& st, uint8_t* sA, uin
   for (int e = 0; e < 2; ++e) {
     const int i = tid + e * THREADS;
     const int kb = i >> 5, nb = i & 31;
-    const uint32_t* r = st.b[e];
-    // r[q] holds (k q; columns 0..3); word j below holds (column j; k 0..3)
-    const uint32_t t0 = __byte_perm(r[0], r[1], 0x5140);
-    const uint32_t t1 = __byte_perm(r[0], r[1], 0x7362);
-    const uint32_t t2 = __byte_perm(r[2], r[3], 0x5140);
-    const uint32_t t3 = __byte_perm(r[2], r[3], 0x7362);
+    // st.b[e][q] holds (k q; columns 0..3); word j below holds (column j; k 0..3)
+    uint32_t d[4];
+    transpose4x4(st.b[e], d);
     uint32_t* dst = sB + kb * LDBW + nb * 4;
-    dst[0] = __byte_perm(t0, t2, 0x5410);
-    dst[1] = __byte_perm(t0, t2, 0x7632);
-    dst[2] = __byte_perm(t1, t3, 0x5410);
-    dst[3] = __byte_perm(t1, t3, 0x7632);
+#pragma unroll
+    for (int j = 0; j < 4; ++j) dst[j] = d[j];
   }
 }
 
@@ -187,6 +266,15 @@ template <typename TOut> __device__ __forceinline__ TOut from_f32(float x);
 template <> __device__ __forceinline__ float from_f32<float>(float x) { return x; }
 template <> __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
   return __float2bfloat16_rn(x);
+}
+
+// The W8A8 epilogue, the reference kernel's arithmetic: one FMA for the
+// zero-point fold, then the two scales, each rounded to float32.
+__device__ __forceinline__ float w8a8_out(int acc, float neg_zp, float cs, float a_scale,
+                                          float ws) {
+  float v = __fmaf_rn(neg_zp, cs, __int2float_rn(acc));
+  v = __fmul_rn(v, a_scale);
+  return __fmul_rn(v, ws);
 }
 
 template <typename TOut>
@@ -259,10 +347,8 @@ w8a8_kernel(const int8_t* __restrict__ a, const int8_t* __restrict__ w,
         for (int h = 0; h < 2; ++h) {
           const int m = m0 + wm + i * 16 + g + 8 * h;
           if (m >= M) continue;
-          float v = __fmaf_rn(neg_zp, cs, __int2float_rn(acc[i][j][2 * h + c]));
-          v = __fmul_rn(v, a_scale);
-          v = __fmul_rn(v, ws);
-          out[(size_t)m * N + n] = from_f32<TOut>(v);
+          out[(size_t)m * N + n] =
+              from_f32<TOut>(w8a8_out(acc[i][j][2 * h + c], neg_zp, cs, a_scale, ws));
         }
       }
     }
@@ -561,17 +647,158 @@ w8a16_wgmma_kernel(const __grid_constant__ CUtensorMap tmx, const __grid_constan
 }
 }  // namespace w16
 
+// ---------------------------------------------------------- W8A8 wgmma --
+
+namespace w8 {
+
+using hopper::LAYOUT_SW128;
+using hopper::make_desc;
+
+constexpr int BM = 128, BN = 256, BK = 128;  // tile rows, columns; k bytes per stage
+constexpr int ST = 4;                         // TMA ring stages
+constexpr int THREADS = 384;                  // two consumer warpgroups + a producer warpgroup
+constexpr int GROUP_M = 16;                   // M tiles per raster group
+constexpr int A_TILE = BM * BK, B_TILE = BN * BK;
+constexpr int SMEM = 1024 + ST * (A_TILE + B_TILE) + 16 * ST;  // + alignment, barriers
+
+// Output tile t in grouped order: groups of GROUP_M M tiles walk N
+// together, so the blocks in flight at once read a compact panel of a and
+// wT, which stays in L2 (at 8192 x 4096 x 11008, 0.69 ms against 0.79 ms
+// for the row-major order).
+__device__ __forceinline__ void tile_origin(int t, int M, int N, int& m0, int& n0) {
+  const int num_m = (M + BM - 1) / BM, num_n = (N + BN - 1) / BN;
+  const int per_group = GROUP_M * num_n, first_m = t / per_group * GROUP_M;
+  const int in_group = t % per_group, gm = min(num_m - first_m, GROUP_M);
+  m0 = (first_m + in_group % gm) * BM;
+  n0 = in_group / gm * BN;
+}
+
+// One block per output tile, tile blockIdx.x in grouped order.
+template <typename TOut>
+__global__ void __launch_bounds__(THREADS, 1)
+w8a8_wgmma_kernel(const __grid_constant__ CUtensorMap tma, const __grid_constant__ CUtensorMap tmb,
+                  const float* __restrict__ a_scale_p, const int* __restrict__ a_zp_p,
+                  const float* __restrict__ w_scale, const int* __restrict__ colsum,
+                  TOut* __restrict__ out, int M, int K, int N) {
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t raw = hopper::smem_u32(smem_raw);
+  const uint32_t base = (raw + 1023) & ~1023u;  // 128-byte swizzled tiles start on 1 KB
+  // from `base`: the a stages, the wT stages, the barriers full[ST], empty[ST]
+  const uint32_t as = base, bs = as + ST * A_TILE, bars = bs + ST * B_TILE;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  int m0, n0;
+  tile_origin(blockIdx.x, M, N, m0, n0);
+  const int nk = (K + BK - 1) / BK;
+
+  if (tid == 0) {
+    for (int s = 0; s < ST; ++s) {
+      hopper::mbar_init(bars + 8 * s, 1);
+      hopper::mbar_init(bars + 8 * (ST + s), 8);  // one arrival per consumer warp
+    }
+    hopper::fence_barrier_init();
+  }
+  __syncthreads();
+
+  if (warp >= 8) {  // producer warpgroup: one thread issues the TMA loads
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n" ::: "memory");
+    if (tid == 256) {
+      for (int kt = 0; kt < nk; ++kt) {
+        const int s = kt % ST;
+        const uint32_t full = bars + 8 * s;
+        hopper::mbar_wait(bars + 8 * (ST + s), ((kt / ST) & 1) ^ 1);
+        hopper::mbar_arrive_expect_tx(full, A_TILE + B_TILE);
+        hopper::tma_load_2d(as + s * A_TILE, &tma, kt * BK, m0, full);
+        hopper::tma_load_2d(bs + s * B_TILE, &tmb, kt * BK, n0, full);
+      }
+    }
+  } else {
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n" ::: "memory");
+    const int wg = warp >> 2;
+    uint32_t acc[128];
+#pragma unroll
+    for (int i = 0; i < 128; ++i) acc[i] = 0u;
+    for (int kt = 0; kt < nk; ++kt) {
+      const int s = kt % ST;
+      hopper::mbar_wait(bars + 8 * s, (kt / ST) & 1);
+      hopper::wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < BK / 32; ++kk) {
+        const uint64_t da = make_desc(as + s * A_TILE + wg * 64 * BK + kk * 32, 16, 1024,
+                                      LAYOUT_SW128);
+        const uint64_t db = make_desc(bs + s * B_TILE + kk * 32, 16, 1024, LAYOUT_SW128);
+        hopper::wgmma_m64n256k32_s8(acc, da, db, 1);
+      }
+      hopper::wgmma_commit();
+      hopper::wgmma_wait<1>();  // the stage before this one has been read
+      if (kt > 0 && lane == 0) hopper::mbar_arrive(bars + 8 * (ST + (kt - 1) % ST));
+      __syncwarp();
+    }
+    hopper::wgmma_wait<0>();
+    hopper::fence_regs(acc);
+
+    // acc[4 j + 2 h + e]: row 16 (warp % 4) + g + 8 h of this warpgroup's
+    // 64, column 8 j + 2 t4 + e
+    const float a_scale = *a_scale_p;
+    const float neg_zp = -(float)(*a_zp_p);
+    const int g = lane >> 2, t4 = lane & 3;
+    const bool pairs = (N & 1) == 0;
+#pragma unroll
+    for (int j = 0; j < BN / 8; ++j) {
+      const int n = n0 + 8 * j + 2 * t4;
+      if (n >= N) continue;
+      const bool two = n + 1 < N;
+      const float cs0 = __int2float_rn(colsum[n]), ws0 = w_scale[n];
+      const float cs1 = two ? __int2float_rn(colsum[n + 1]) : 0.f;
+      const float ws1 = two ? w_scale[n + 1] : 0.f;
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int m = m0 + 64 * wg + 16 * (warp & 3) + g + 8 * h;
+        if (m >= M) continue;
+        const float v0 = w8a8_out((int)acc[4 * j + 2 * h], neg_zp, cs0, a_scale, ws0);
+        const float v1 = w8a8_out((int)acc[4 * j + 2 * h + 1], neg_zp, cs1, a_scale, ws1);
+        TOut* o = out + (size_t)m * N + n;
+        if (pairs) {
+          if constexpr (sizeof(TOut) == 4) {
+            *reinterpret_cast<float2*>(o) = make_float2(v0, v1);
+          } else {
+            *reinterpret_cast<__nv_bfloat162*>(o) = __floats2bfloat162_rn(v0, v1);
+          }
+        } else {
+          o[0] = from_f32<TOut>(v0);
+          if (two) o[1] = from_f32<TOut>(v1);
+        }
+      }
+    }
+  }
+}
+
+}  // namespace w8
+
 bool aligned(const void* p, uintptr_t bytes) {
   return (reinterpret_cast<uintptr_t>(p) & (bytes - 1)) == 0;
 }
 
-template <typename TOut>
-cudaError_t launch_w8a8(const void* a, const void* w, const void* a_scale, const void* a_zp,
-                        const void* w_scale, void* colsum, void* out, int M, int K, int N,
+// The W8A8 variant rule: the wgmma kernel where TMA can read a's rows (K %
+// 16 == 0, a 16-byte aligned); the mma.sync kernel otherwise.
+bool w8a8_wgmma(int K, const void* a) { return K % 16 == 0 && aligned(a, 16); }
+
+// colsum (zeroed here) and, when wT is given, wT = w^T
+cudaError_t launch_prep(const void* w, void* wT, void* colsum, int K, int N,
                         cudaStream_t stream) {
-  colsum_kernel<<<(N + 31) / 32, 256, 0, stream>>>(static_cast<const int8_t*>(w),
-                                                   static_cast<int*>(colsum), K, N);
-  cudaError_t err = cudaGetLastError();
+  cudaError_t err = cudaMemsetAsync(colsum, 0, (size_t)N * sizeof(int), stream);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((N + PREP_N - 1) / PREP_N, (K + PREP_KSPLIT - 1) / PREP_KSPLIT);
+  w8a8_prep_kernel<<<grid, 256, 0, stream>>>(static_cast<const int8_t*>(w),
+                                             static_cast<int8_t*>(wT), static_cast<int*>(colsum),
+                                             K, N, N % 4 == 0 && aligned(w, 4));
+  return cudaGetLastError();
+}
+
+template <typename TOut>
+cudaError_t launch_w8a8_mma(const void* a, const void* w, const void* a_scale, const void* a_zp,
+                            const void* w_scale, void* colsum, void* out, int M, int K, int N,
+                            cudaStream_t stream) {
+  cudaError_t err = launch_prep(w, nullptr, colsum, K, N, stream);
   if (err != cudaSuccess) return err;
   const bool a_vec = K % 16 == 0 && aligned(a, 16);
   const bool w_vec = N % 4 == 0 && aligned(w, 4);
@@ -581,6 +808,39 @@ cudaError_t launch_w8a8(const void* a, const void* w, const void* a_scale, const
       static_cast<const float*>(a_scale), static_cast<const int*>(a_zp),
       static_cast<const float*>(w_scale), static_cast<const int*>(colsum),
       static_cast<TOut*>(out), M, K, N, a_vec, w_vec);
+  return cudaGetLastError();
+}
+
+template <typename TOut>
+cudaError_t launch_w8a8_wgmma(const void* a, const void* w, const void* a_scale,
+                              const void* a_zp, const void* w_scale, void* colsum, void* wT,
+                              void* out, int M, int K, int N, cudaStream_t stream) {
+  if (wT == nullptr || !aligned(wT, 16)) return cudaErrorInvalidValue;
+  cudaError_t err = launch_prep(w, wT, colsum, K, N, stream);
+  if (err != cudaSuccess) return err;
+  // a (M, K) and wT (N, K): 128 x 128-byte and 256 x 128-byte boxes,
+  // 128-byte swizzled; zeros past K, M and N
+  CUtensorMap tma{}, tmb{};
+  const cuuint32_t box_a[2] = {(cuuint32_t)w8::BK, (cuuint32_t)w8::BM};
+  const cuuint32_t box_b[2] = {(cuuint32_t)w8::BK, (cuuint32_t)w8::BN};
+  const cuuint64_t dims_a[2] = {(cuuint64_t)K, (cuuint64_t)M};
+  const cuuint64_t dims_b[2] = {(cuuint64_t)K, (cuuint64_t)N};
+  const cuuint64_t stride[1] = {(cuuint64_t)K};
+  err = hopper::encode_map(&tma, CU_TENSOR_MAP_DATA_TYPE_UINT8, 2, a, dims_a, stride, box_a,
+                           CU_TENSOR_MAP_SWIZZLE_128B);
+  if (err != cudaSuccess) return err;
+  err = hopper::encode_map(&tmb, CU_TENSOR_MAP_DATA_TYPE_UINT8, 2, wT, dims_b, stride, box_b,
+                           CU_TENSOR_MAP_SWIZZLE_128B);
+  if (err != cudaSuccess) return err;
+  auto kernel = w8::w8a8_wgmma_kernel<TOut>;
+  static_assert(w8::SMEM <= w16::SMEM_LIMIT, "W8A8 stages exceed a block's shared memory");
+  err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, w8::SMEM);
+  if (err != cudaSuccess) return err;
+  const int tiles = ((M + w8::BM - 1) / w8::BM) * ((N + w8::BN - 1) / w8::BN);
+  kernel<<<tiles, w8::THREADS, w8::SMEM, stream>>>(
+      tma, tmb, static_cast<const float*>(a_scale), static_cast<const int*>(a_zp),
+      static_cast<const float*>(w_scale), static_cast<const int*>(colsum),
+      static_cast<TOut*>(out), M, K, N);
   return cudaGetLastError();
 }
 
@@ -631,19 +891,41 @@ bool bad_shape(int M, int K, int N) {
 
 extern "C" {
 
+// 1 when quant_matmul_w8a8 runs the wgmma kernel for this K and a.
+int quant_matmul_w8a8_variant(int K, const void* a) { return w8a8_wgmma(K, a) ? 1 : 0; }
+
 // a (M, K) int8, w (K, N) int8, a_scale one float32, a_zp one int32 (both
 // read on the device), w_scale (N,) float32, colsum (N,) int32 scratch,
-// out (M, N) float32 or, when out_bf16, bfloat16; all contiguous. Launches
-// on `stream` and returns the CUDA error code (0 = launched).
+// wT (N, K) int8 scratch (needed where quant_matmul_w8a8_variant is 1;
+// refused when null there), out (M, N) float32 or, when out_bf16,
+// bfloat16; all contiguous. Runs the pre-pass and the kernel the variant
+// rule names on `stream` and returns the CUDA error code (0 = launched).
 int quant_matmul_w8a8(const void* a, const void* w, const void* a_scale, const void* a_zp,
-                      const void* w_scale, void* colsum, void* out, int M, int K, int N,
-                      int out_bf16, void* stream) {
+                      const void* w_scale, void* colsum, void* wT, void* out, int M, int K,
+                      int N, int out_bf16, void* stream) {
   if (bad_shape(M, K, N)) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return (int)(out_bf16 ? launch_w8a8<__nv_bfloat16>(a, w, a_scale, a_zp, w_scale, colsum,
-                                                     out, M, K, N, s)
-                        : launch_w8a8<float>(a, w, a_scale, a_zp, w_scale, colsum, out, M,
-                                             K, N, s));
+  if (!w8a8_wgmma(K, a))
+    return (int)(out_bf16 ? launch_w8a8_mma<__nv_bfloat16>(a, w, a_scale, a_zp, w_scale, colsum,
+                                                           out, M, K, N, s)
+                          : launch_w8a8_mma<float>(a, w, a_scale, a_zp, w_scale, colsum, out,
+                                                   M, K, N, s));
+  return (int)(out_bf16 ? launch_w8a8_wgmma<__nv_bfloat16>(a, w, a_scale, a_zp, w_scale, colsum,
+                                                           wT, out, M, K, N, s)
+                        : launch_w8a8_wgmma<float>(a, w, a_scale, a_zp, w_scale, colsum, wT,
+                                                   out, M, K, N, s));
+}
+
+// The same arguments but wT; always the mma.sync kernel (any K).
+int quant_matmul_w8a8_mma(const void* a, const void* w, const void* a_scale, const void* a_zp,
+                          const void* w_scale, void* colsum, void* out, int M, int K, int N,
+                          int out_bf16, void* stream) {
+  if (bad_shape(M, K, N)) return (int)cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return (int)(out_bf16 ? launch_w8a8_mma<__nv_bfloat16>(a, w, a_scale, a_zp, w_scale, colsum,
+                                                         out, M, K, N, s)
+                        : launch_w8a8_mma<float>(a, w, a_scale, a_zp, w_scale, colsum, out, M,
+                                                 K, N, s));
 }
 
 // x (M, K) float32 or, when x_bf16, bfloat16; w (K, N) int8; w_scale (N,)

@@ -54,15 +54,20 @@ SIGNATURES: dict[str, dict[str, tuple[list, object]]] = {
         "cuda_error_string": ([_I], ctypes.c_char_p),
     },
     "quant_matmul.cu": {
-        # a, w, a_scale, a_zp, w_scale, colsum, out, M, K, N, out_bf16, stream
-        "quant_matmul_w8a8": ([_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P], _I),
+        # a, w, a_scale, a_zp, w_scale, colsum, wT, out, M, K, N, out_bf16, stream
+        "quant_matmul_w8a8": ([_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P], _I),
+        # the same arguments but wT; always the mma.sync kernel
+        "quant_matmul_w8a8_mma": ([_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P], _I),
+        # K, a -> 1 when quant_matmul_w8a8 runs the wgmma kernel
+        "quant_matmul_w8a8_variant": ([_I, _P], _I),
         # x, w, w_scale, out, M, K, N, x_bf16, out_bf16, stream
         "quant_matmul_w8a16": ([_P, _P, _P, _P, _I, _I, _I, _I, _I, _P], _I),
         "cuda_error_string": ([_I], ctypes.c_char_p),
     },
     "ssm_scan.cu": {
-        # x, b, c, dA, dt, y, BH, BG, S, ph, ds, ck, is_bf16, stream
-        "ssm_scan_fwd": ([_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P], _I),
+        # x, b, c, dA, dt, y, states, decay, hp, BH, BG, S, ph, ds, ck, is_bf16, stream
+        "ssm_scan_fwd": ([_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
+                          _P], _I),
         "cuda_error_string": ([_I], ctypes.c_char_p),
     },
 }

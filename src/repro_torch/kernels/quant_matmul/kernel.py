@@ -19,7 +19,8 @@ counts and the plain PyTorch version of each kernel's own arithmetic.
 A ``*_kernel`` function launches its kernel on CUDA tensors and raises on
 anything else; the ``*_plain`` functions compute the same function with
 PyTorch on any device. ``ops.py`` picks between them by the tensors'
-device. The TPU kernel's tiling arguments (``block_m/n/k``) are not part
+device. :func:`w8a8_prep_mirror` computes the W8A8 pre-pass (w transposed
+and its column sums) as the kernel does, for tests. The TPU kernel's tiling arguments (``block_m/n/k``) are not part
 of these signatures: the CUDA kernels pick their own tiles.
 """
 
@@ -30,22 +31,34 @@ import torch
 from repro_torch.kernels import build
 from repro_torch.kernels.quant_matmul.ref import int_matmul
 
-__all__ = ["OUT_DTYPES", "W8A16_LAUNCHES", "W8A8_LAUNCHES", "X_DTYPES",
+__all__ = ["OUT_DTYPES", "W8A16_LAUNCHES", "W8A8_LAUNCHES", "W8A8_VARIANTS",
+           "W8A8_WGMMA_LAUNCHES", "X_DTYPES",
            "quant_matmul_kernel", "quant_matmul_plain", "reset_launch_counts",
-           "split_bf16", "w8a16_matmul_kernel", "w8a16_matmul_plain"]
+           "split_bf16", "w8a16_matmul_kernel", "w8a16_matmul_plain", "w8a8_prep_mirror"]
 
 # Kernel launches since the last reset_launch_counts(); bumped only where
 # a kernel is launched, never by a plain version.
 W8A8_LAUNCHES = 0
+W8A8_WGMMA_LAUNCHES = 0
 W8A16_LAUNCHES = 0
+
+W8A8_VARIANTS = ("wgmma", "mma")
 
 OUT_DTYPES = (torch.float32, torch.bfloat16)
 X_DTYPES = (torch.float32, torch.bfloat16)  # W8A16 activations
 
 
 def reset_launch_counts() -> None:
-    global W8A8_LAUNCHES, W8A16_LAUNCHES
-    W8A8_LAUNCHES = W8A16_LAUNCHES = 0
+    global W8A8_LAUNCHES, W8A8_WGMMA_LAUNCHES, W8A16_LAUNCHES
+    W8A8_LAUNCHES = W8A8_WGMMA_LAUNCHES = W8A16_LAUNCHES = 0
+
+
+def _variant(K: int, a_ptr: int) -> str:
+    """The W8A8 kernel ``quant_matmul_w8a8`` runs for a reduction depth K
+    and an activation tensor at address ``a_ptr`` (its C twin is
+    ``quant_matmul_w8a8_variant``): the wgmma kernel where TMA can read a's
+    rows (K % 16 == 0, a 16-byte aligned), the mma.sync kernel otherwise."""
+    return "wgmma" if K % 16 == 0 and a_ptr % 16 == 0 else "mma"
 
 
 def _check_gemm(name, a, w_q, w_scale, a_dtypes, out_dtype) -> tuple[int, int, int]:
@@ -82,13 +95,63 @@ def quant_matmul_plain(a_q, w_q, a_scale, a_zp, w_scale, *, out_dtype=torch.floa
     return t.to(out_dtype)
 
 
-def quant_matmul_kernel(a_q, w_q, a_scale, a_zp, w_scale, *, out_dtype=torch.float32):
+# k rows per block of the pre-pass in csrc/quant_matmul.cu: each block adds
+# its column sums to the total once
+PREP_KSPLIT = 512
+
+
+def _byte_perm(x: torch.Tensor, y: torch.Tensor, sel: int) -> torch.Tensor:
+    """CUDA's ``__byte_perm(x, y, sel)`` on int64 tensors of 32-bit words:
+    byte i of the result is byte ``(sel >> 4 i) & 7`` of the eight bytes
+    of x (bytes 0-3) and y (bytes 4-7)."""
+    src = (y << 32) | x
+    out = torch.zeros_like(x)
+    for i in range(4):
+        b = (sel >> (4 * i)) & 7
+        out |= ((src >> (8 * b)) & 0xFF) << (8 * i)
+    return out
+
+
+def w8a8_prep_mirror(w_q: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """The W8A8 pre-pass's arithmetic (``w8a8_prep_kernel``) in PyTorch,
+    for tests: ``(wT, colsum)`` of int8 w (K, N). Rows of four columns are
+    read as little-endian words, each 4 x 4-byte block (four k rows of one
+    word) is transposed with the kernel's byte permutes into words of four
+    consecutive k of one column, and each column's words are summed as
+    signed bytes (``__dp4a`` against 0x01010101) per block of
+    ``PREP_KSPLIT`` k rows; the blocks' sums are then added, as the
+    kernel's atomic adds do. wT (N, K) is read back from the transposed
+    words. Runs on any device and launches nothing."""
+    K, N = w_q.shape
+    Kp, Np = -(-K // PREP_KSPLIT) * PREP_KSPLIT, -(-N // 4) * 4
+    wp = torch.nn.functional.pad(w_q, (0, Np - N, 0, Kp - K))
+    words = wp.contiguous().view(torch.int32).to(torch.int64) & 0xFFFFFFFF  # (Kp, Np / 4)
+    r = words.reshape(Kp // 4, 4, Np // 4)  # [k quad][row q of the quad][column quad]
+    t0, t1 = _byte_perm(r[:, 0], r[:, 1], 0x5140), _byte_perm(r[:, 0], r[:, 1], 0x7362)
+    t2, t3 = _byte_perm(r[:, 2], r[:, 3], 0x5140), _byte_perm(r[:, 2], r[:, 3], 0x7362)
+    d = torch.stack([_byte_perm(t0, t2, 0x5410), _byte_perm(t0, t2, 0x7632),
+                     _byte_perm(t1, t3, 0x5410), _byte_perm(t1, t3, 0x7632)], -1)
+    d = d.reshape(Kp // 4, Np)  # [k quad][column]: four k of one column
+    sbytes = torch.stack([((d >> (8 * i)) & 0xFF) for i in range(4)], -1)
+    sbytes = torch.where(sbytes >= 128, sbytes - 256, sbytes)  # (Kp / 4, Np, 4) signed
+    per_block = sbytes.sum(-1).reshape(Kp // PREP_KSPLIT, PREP_KSPLIT // 4, Np).sum(1)
+    colsum = per_block.sum(0)[:N].to(torch.int32)
+    wT = sbytes.permute(1, 0, 2).reshape(Np, Kp)[:N, :K].to(torch.int8)
+    return wT.contiguous(), colsum
+
+
+def quant_matmul_kernel(a_q, w_q, a_scale, a_zp, w_scale, *, out_dtype=torch.float32,
+                        variant: str | None = None):
     """Launch the W8A8 kernel: ``a_q`` int8 (M, K), ``w_q`` int8 (K, N),
     ``a_scale`` float32 and ``a_zp`` int32 of one element each (read on
     the card: no host sync), ``w_scale`` float32 (N,); contiguous CUDA
-    tensors on one card. Returns (M, N) in ``out_dtype``. Raises if the
-    kernel cannot be built or launched."""
-    global W8A8_LAUNCHES
+    tensors on one card. Returns (M, N) in ``out_dtype``. ``variant`` None
+    takes :func:`_variant`'s kernel; ``"mma"`` forces the mma.sync kernel
+    (any K; for timing and tests); ``"wgmma"`` is refused where
+    :func:`_variant` would not pick it. Allocates int32 column sums and,
+    for the wgmma kernel, w transposed (N, K). Raises if the kernel cannot
+    be built or launched."""
+    global W8A8_LAUNCHES, W8A8_WGMMA_LAUNCHES
     M, K, N = _check_gemm("quant_matmul_kernel", a_q, w_q, w_scale, (torch.int8,),
                           out_dtype)
     if a_scale.dtype != torch.float32 or a_scale.numel() != 1 \
@@ -98,16 +161,28 @@ def quant_matmul_kernel(a_q, w_q, a_scale, a_zp, w_scale, *, out_dtype=torch.flo
                          f"and {a_zp.dtype} x{a_zp.numel()}")
     dev = build.check_cuda("quant_matmul_kernel", a_q=a_q, w_q=w_q, a_scale=a_scale,
                       a_zp=a_zp, w_scale=w_scale)
+    chosen = _variant(K, a_q.data_ptr())
+    if variant not in (None, *W8A8_VARIANTS) or (variant == "wgmma" and chosen != "wgmma"):
+        raise ValueError(f"quant_matmul_kernel: variant {variant!r} cannot run K {K} "
+                         f"(it takes {chosen!r})")
+    chosen = variant or chosen
     built = build.load("quant_matmul.cu")
     out = torch.empty((M, N), dtype=out_dtype, device=dev)
     colsum = torch.empty((N,), dtype=torch.int32, device=dev)
+    args = (a_q.data_ptr(), w_q.data_ptr(), a_scale.data_ptr(), a_zp.data_ptr(),
+            w_scale.data_ptr(), colsum.data_ptr())
+    tail = (M, K, N, int(out_dtype == torch.bfloat16))
     with torch.cuda.device(dev):
-        code = built.lib.quant_matmul_w8a8(
-            a_q.data_ptr(), w_q.data_ptr(), a_scale.data_ptr(), a_zp.data_ptr(),
-            w_scale.data_ptr(), colsum.data_ptr(), out.data_ptr(), M, K, N,
-            int(out_dtype == torch.bfloat16), torch.cuda.current_stream(dev).cuda_stream)
-    build.check_launch(built, code, "quant_matmul_w8a8")
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        if chosen == "wgmma":
+            w_t = torch.empty((N, K), dtype=torch.int8, device=dev)
+            code = built.lib.quant_matmul_w8a8(*args, w_t.data_ptr(), out.data_ptr(), *tail,
+                                               stream)
+        else:
+            code = built.lib.quant_matmul_w8a8_mma(*args, out.data_ptr(), *tail, stream)
+    build.check_launch(built, code, f"quant_matmul_w8a8 ({chosen})")
     W8A8_LAUNCHES += 1
+    W8A8_WGMMA_LAUNCHES += int(chosen == "wgmma")
     return out
 
 

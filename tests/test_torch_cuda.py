@@ -205,39 +205,83 @@ def test_flash_wgmma_kernel_skipped_q_tile_writes_zero(card):
 # (M, K, N): ragged, one row, a wide ragged N, the MobileNet-V2 Logits head,
 # the full-width deepseek-7b MLP up-projection over 4 x 2,048 tokens, a K
 # that is no multiple of 8 (bf16 x read without TMA) with N 48 (w by TMA),
-# and K 37, N 40 (x of either type and w read without TMA)
+# K 37, N 40 (x of either type and w read without TMA), and one row of K
+# 200 against N 1000 (W8A8 on its mma.sync kernel: K % 16 != 0)
 GEMM_SHAPES = [(100, 200, 300), (1, 64, 17), (33, 1280, 1000), (64, 1280, 1000),
-               (8192, 4096, 11008), (37, 100, 48), (19, 37, 40)]
+               (8192, 4096, 11008), (37, 100, 48), (19, 37, 40), (1, 200, 1000)]
 
 
 def int8(g, shape, card, lo=-128, hi=128):
     return torch.randint(lo, hi, shape, generator=g, device=card, dtype=torch.int8)
 
 
-@pytest.mark.parametrize("out_dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
-@pytest.mark.parametrize("shape", GEMM_SHAPES, ids=lambda s: "x".join(map(str, s)))
-def test_w8a8_kernel_equals_plain_exactly(card, shape, out_dtype):
-    from repro_torch.kernels.quant_matmul import kernel as QK
-
-    M, K, N = shape
-    g = torch.Generator(device=card).manual_seed(M + K + N)
+def w8a8_case(card, M, K, N, seed):
+    g = torch.Generator(device=card).manual_seed(seed)
     a, w = int8(g, (M, K), card), int8(g, (K, N), card)
     ws = torch.rand((N,), generator=g, device=card) * 0.1 + 0.001
     a_scale = torch.tensor([0.03], device=card)
     a_zp = torch.tensor([-5], dtype=torch.int32, device=card)
-    before = QK.W8A8_LAUNCHES
-    got = QK.quant_matmul_kernel(a, w, a_scale, a_zp, ws, out_dtype=out_dtype)
+    return a, w, a_scale, a_zp, ws
+
+
+@pytest.mark.parametrize("out_dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("shape", GEMM_SHAPES, ids=lambda s: "x".join(map(str, s)))
+def test_w8a8_kernel_equals_plain_exactly(card, shape, out_dtype):
+    """The kernel the variant rule picks (wgmma where K % 16 == 0)."""
+    from repro_torch.kernels.quant_matmul import kernel as QK
+
+    M, K, N = shape
+    args = w8a8_case(card, M, K, N, M + K + N)
+    before, before_wgmma = QK.W8A8_LAUNCHES, QK.W8A8_WGMMA_LAUNCHES
+    got = QK.quant_matmul_kernel(*args, out_dtype=out_dtype)
     torch.cuda.synchronize()
     assert QK.W8A8_LAUNCHES == before + 1 and got.dtype == out_dtype
-    want = QK.quant_matmul_plain(a, w, a_scale, a_zp, ws, out_dtype=out_dtype)
+    wgmma = QK._variant(K, args[0].data_ptr()) == "wgmma"
+    assert wgmma == (K % 16 == 0)
+    assert QK.W8A8_WGMMA_LAUNCHES == before_wgmma + wgmma
+    want = QK.quant_matmul_plain(*args, out_dtype=out_dtype)
     assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("out_dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("shape", GEMM_SHAPES, ids=lambda s: "x".join(map(str, s)))
+def test_w8a8_mma_variant_equals_plain_exactly(card, shape, out_dtype):
+    """The mma.sync kernel, forced, at every shape (it takes any K)."""
+    from repro_torch.kernels.quant_matmul import kernel as QK
+
+    M, K, N = shape
+    args = w8a8_case(card, M, K, N, M + K + N)
+    before_wgmma = QK.W8A8_WGMMA_LAUNCHES
+    got = QK.quant_matmul_kernel(*args, out_dtype=out_dtype, variant="mma")
+    torch.cuda.synchronize()
+    assert QK.W8A8_WGMMA_LAUNCHES == before_wgmma
+    assert torch.equal(got, QK.quant_matmul_plain(*args, out_dtype=out_dtype))
+
+
+def test_w8a8_variant_rule_is_the_c_entrys(card):
+    """``_variant`` names the kernel ``quant_matmul_w8a8`` runs, for every
+    K up to 300 and activation addresses off 16-byte alignment; the wgmma
+    variant is refused where the rule does not pick it."""
+    from repro_torch.kernels import build
+    from repro_torch.kernels.quant_matmul import kernel as QK
+
+    lib = build.load("quant_matmul.cu").lib
+    buf = torch.zeros((64,), dtype=torch.int8, device=card)
+    for off in range(16):
+        ptr = buf[off:].data_ptr()
+        for K in range(1, 301):
+            assert bool(lib.quant_matmul_w8a8_variant(K, ptr)) == (QK._variant(K, ptr) == "wgmma")
+    args = w8a8_case(card, 4, 200, 16, 1)
+    with pytest.raises(ValueError):
+        QK.quant_matmul_kernel(*args, variant="wgmma")
 
 
 @pytest.mark.parametrize("zp", [-37, 91])
 def test_w8a8_kernel_fma_epilogue_beyond_2_24(card, zp):
     """int8 values near 100 make |acc| > 2^24, where f32(acc) rounds: the
     kernel's one-FMA epilogue must still equal the plain version bit for
-    bit (and so differ from the int32-subtracting reference there)."""
+    bit (and so differ from the int32-subtracting reference there), on the
+    wgmma kernel the rule picks (K 4096) and on the mma.sync kernel."""
     from repro_torch.kernels.quant_matmul import kernel as QK
     from repro_torch.kernels.quant_matmul.ref import quant_matmul_ref
 
@@ -246,9 +290,12 @@ def test_w8a8_kernel_fma_epilogue_beyond_2_24(card, zp):
     ws = torch.rand((512,), generator=g, device=card) * 0.1 + 0.001
     args = (a, w, torch.tensor([0.03], device=card),
             torch.tensor([zp], dtype=torch.int32, device=card), ws)
+    before_wgmma = QK.W8A8_WGMMA_LAUNCHES
     got = QK.quant_matmul_kernel(*args)
+    assert QK.W8A8_WGMMA_LAUNCHES == before_wgmma + 1
     assert torch.equal(got, QK.quant_matmul_plain(*args))
     assert not torch.equal(got, quant_matmul_ref(*args))
+    assert torch.equal(QK.quant_matmul_kernel(*args, variant="mma"), got)
 
 
 @pytest.mark.parametrize("out_dtype", [torch.float32, torch.bfloat16], ids=["out-f32", "out-bf16"])
@@ -278,10 +325,13 @@ def test_w8a16_kernel_equals_plain(card, shape, x_dtype, out_dtype):
 
 
 # (BH, BG, S, ph, ds, chunk): the reference kernel test's shapes, a shared
-# B/C group, ragged S, and one zamba2-1.2b Mamba2 layer (4 x 64 heads)
+# B/C group, ragged S, one zamba2-1.2b Mamba2 layer (4 x 64 heads), a chunk
+# of 50 (no multiple of 16) with ds 4, odd widths with groups of 3 heads,
+# ds 128 at chunk 128 and ph 64, and ragged S with chunk 16 in groups of 2
 SSD_SHAPES = [(4, 4, 64, 16, 8, 16), (3, 3, 100, 16, 8, 32), (1, 1, 256, 64, 64, 128),
               (2, 2, 37, 8, 8, 16), (8, 2, 1000, 64, 64, 128), (8, 2, 1000, 64, 64, 16),
-              (256, 4, 2048, 64, 64, 128)]
+              (256, 4, 2048, 64, 64, 128), (2, 1, 50, 8, 4, 128), (6, 2, 257, 33, 17, 64),
+              (8, 2, 300, 64, 128, 128), (4, 2, 999, 24, 40, 16)]
 # the reference kernel test's tolerance in float32; in bfloat16 both round
 # the same float32 result, so one bf16 ulp (2^-7 relative) on top
 SSD_TOL = {torch.float32: dict(rtol=2e-4, atol=1e-4),

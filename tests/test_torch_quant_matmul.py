@@ -9,6 +9,9 @@
   differs from it, as the reference kernel does.
 * W8A16: the plain version against the interpreted kernel at the
   reference test's tolerances (1e-4 in float32, 2e-2 with bfloat16 x).
+* the W8A8 pre-pass (w transposed and its column sums) mirrored on the
+  CPU (``w8a8_prep_mirror``: the kernel's byte permutes and per-block
+  signed-byte sums) against the plain version and the reference;
 * ``quant_linear`` and ``w8a16_linear`` end to end against the
   reference's, and the refusals of the wrappers.
 
@@ -97,6 +100,32 @@ def test_w8a8_out_dtypes_equal_interpreted_kernel(out_dtype, a_zp):
     assert got.dtype == getattr(torch, out_dtype)
     want = ref_w8a8(a, w, 0.1, a_zp, ws, out_dtype=getattr(jnp, out_dtype))
     assert np.array_equal(got.float().numpy(), want)
+
+
+# the reference kernel test's shapes, then K over several pre-pass blocks
+# with N no multiple of 4, and MobileNet-V2's Logits head (K 1280, N 1000)
+PREP_SHAPES = [s[1:] for s in W8A8_SHAPES] + [(1100, 17), (1280, 1000)]
+
+
+@pytest.mark.parametrize("shape", PREP_SHAPES, ids=lambda s: "x".join(map(str, s)))
+def test_w8a8_prep_mirror_equals_plain_and_reference(shape):
+    """The W8A8 pre-pass's byte permutes and per-block signed-byte sums,
+    mirrored on the CPU: w transposed exactly, and column sums equal to
+    the plain version's and to the reference kernel's zero-point sums."""
+    K, N = shape
+    _, w, _ = w8a8_inputs(1, K, N, seed=K + N)
+    wT, colsum = QK.w8a8_prep_mirror(T(w))
+    assert wT.dtype == torch.int8 and torch.equal(wT, T(w).T.contiguous())
+    assert colsum.dtype == torch.int32
+    assert torch.equal(colsum, T(w).sum(0, dtype=torch.int32))
+    assert np.array_equal(colsum.numpy(), np.asarray(jnp.sum(jnp.asarray(w, jnp.int32), 0)))
+
+
+def test_w8a8_prep_mirror_launches_nothing():
+    QK.reset_launch_counts()
+    _, w, _ = w8a8_inputs(1, 64, 64, seed=5)
+    QK.w8a8_prep_mirror(T(w))
+    assert (QK.W8A8_LAUNCHES, QK.W8A8_WGMMA_LAUNCHES) == (0, 0)
 
 
 def test_integer_and_float_references_match_the_reference():

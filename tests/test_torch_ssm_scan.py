@@ -10,7 +10,11 @@
   index, no broadcast copy) against the reference op;
 * the long-sequence stability case, bfloat16 inputs, the op on mixed
   input types (computed in float32, as the reference does), and the
-  wrappers' refusals.
+  wrappers' refusals;
+* the CUDA kernels' arithmetic mirrored in PyTorch (``ssm_scan_pieces``:
+  three passes, products of exact bf16 pieces summed in float32) against
+  the interpreted kernel and the sequential oracle, in float32 and
+  bfloat16.
 
 Inputs are made from a seed with numpy and handed to both sides."""
 
@@ -204,3 +208,55 @@ def test_op_never_falls_back_off_the_cpu(monkeypatch):
                 torch.zeros((2, 16, 4), device=meta), torch.zeros((2, 16, 3), device=meta),
                 torch.zeros((2, 16, 3), device=meta))
     assert taken == [meta]
+
+
+# (BH, BG, S, ph, ds, chunk): the reference test's shapes, ragged S with a
+# shared B/C group, and a chunk longer than S
+MIRROR_SHAPES = [(4, 4, 64, 16, 8, 16), (2, 2, 128, 32, 16, 32), (3, 3, 100, 16, 8, 32),
+                 (1, 1, 256, 64, 64, 128), (2, 2, 37, 8, 8, 16),
+                 (6, 2, 300, 16, 16, 128), (2, 1, 50, 8, 4, 128)]
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("shape", MIRROR_SHAPES, ids=lambda s: "x".join(map(str, s)))
+def test_kernel_arithmetic_mirror_matches_references(shape, dtype):
+    """The kernels' rescaled, piece-split arithmetic, mirrored on the CPU,
+    against the reference kernel in interpret mode and the sequential
+    oracle, at the reference test's tolerance (in bfloat16 one bf16 ulp on
+    top: both round one float32 result)."""
+    BH, BG, S, ph, ds, ck = shape
+    x, b, c, dA, dt = scan_inputs((BH,), S, ph, ds, seed=BH * S + ds, bc_lead=(BG,))
+    tt = lambda a: torch.from_numpy(a).to(getattr(torch, dtype))
+    got = SK.ssm_scan_pieces(tt(x), tt(b), tt(c), torch.from_numpy(dA), torch.from_numpy(dt),
+                             chunk=ck)
+    assert got.shape == (BH, S, ph) and got.dtype == getattr(torch, dtype)
+    # the reference kernel takes b, c per sequence: broadcast copies
+    group = BH // BG
+    jt = lambda t: jnp.asarray(t.float().numpy()).astype(getattr(jnp, dtype))
+    args = (jt(tt(x)), jt(tt(np.repeat(b, group, 0))), jt(tt(np.repeat(c, group, 0))),
+            jnp.asarray(dA), jnp.asarray(dt))
+    tol = TOL if dtype == "float32" else dict(rtol=2 ** -7 + 2e-4, atol=1e-3)
+    kern = ref_kernel(*args, chunk=ck, interpret=True).astype(jnp.float32)
+    np.testing.assert_allclose(got.float().numpy(), np.asarray(kern), **tol)
+    oracle = ref_oracle(*args).astype(jnp.float32)
+    np.testing.assert_allclose(got.float().numpy(), np.asarray(oracle), **tol)
+
+
+def test_kernel_arithmetic_mirror_long_sequence_stays_finite():
+    """|cum| passes 90 within a chunk here, where exp(-cum) would overflow
+    float32: the kernels form L as exp(cum_i - cum_j), never as a product."""
+    args = scan_inputs((1,), 1024, 8, 8, seed=2, dA_shift=1.0)
+    cum = np.cumsum(args[3].reshape(8, 128), axis=1)
+    assert np.abs(cum).max() > 90
+    got = SK.ssm_scan_pieces(*map(torch.from_numpy, args), chunk=128)
+    assert bool(torch.isfinite(got).all())
+    kern = np.asarray(ref_kernel(*map(jnp.asarray, args), chunk=128, interpret=True))
+    np.testing.assert_allclose(got.numpy(), kern, **TOL)
+
+
+def test_kernel_arithmetic_mirror_launches_nothing():
+    args = tuple(map(torch.from_numpy, scan_inputs((2,), 40, 8, 8, seed=4)))
+    SK.reset_launch_count()
+    got = SK.ssm_scan_pieces(*args, chunk=16)
+    torch.testing.assert_close(got, SK.ssm_scan_plain(*args, chunk=16), **TOL)
+    assert SK.SSD_LAUNCHES == 0
