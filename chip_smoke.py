@@ -10,19 +10,26 @@ reference package ``repro``) on the card and fails on any fault:
 2. build: every source under ``src/repro_torch/csrc`` with ``nvcc`` for
    sm_90a, one ``nvcc`` per source, all started together;
 3. DP kernels against their plain PyTorch versions on the card (dense and
-   fused x float32/float64 x sum/max, S = 4,099, tie-rich inputs with
-   ~15% +inf and frozen rows, a heterogeneous ``bank_idx`` case): tables
-   and parents exactly equal, and in float64 equal to the numpy oracle;
+   both fused kernels, tiled and one block per scenario, x float32/float64
+   x sum/max, S = 4,099, tie-rich inputs with ~15% +inf and frozen rows, a
+   heterogeneous ``bank_idx`` case): tables and parents exactly equal, and
+   in float64 equal to the numpy oracle; then the wrapper's fused variant
+   rule held to the C entry's over L 2..300 x both types x banks of 1-40
+   matrices;
 4. the planning path: ``sweep()`` on a 32,768-scenario grid at full model
    width (MobileNet-V2, L = 54; ResNet50, L = 52; four protocols, fleets
    of 2-5 ESP32s, 32 loss rates x 32 rate scales), then a grid with
    heterogeneous device mixes and one with energy budgets (dense kernel),
-   with the launch counters read around these three runs only. Each
+   with the launch counters read around these three runs only (both
+   fused launches of the first and every one of the second on the tiled
+   kernel). Each
    result equals the same sweep run on the plain versions; the float32
    fused path agrees with ``backend="torch"`` within a stated tolerance;
    float64 on the card equals ``backend="numpy"`` exactly;
 5. DP times with CUDA events at S = 65,536, N = 5, L = 54, float32,
-   beside each kernel's bound; the sweep's scenarios/s and wall time,
+   beside each kernel's bound; the tiled fused kernel and the first one
+   in turns on the path's bank and on the device-mix shape (4 matrices, a
+   row per scenario and slot); the sweep's scenarios/s and wall time,
    and a profiled run's device busy time and idle share;
 6. the two flash-attention kernels against their plain version on the
    card, after the wrapper's routing rule is held to the C entry's for
@@ -215,6 +222,7 @@ def phase_kernels(dev, S=4099) -> dict[str, float]:
 
     from repro_torch.core import cuda_dp as CD
     from repro_torch.core import sweep as PS
+    from repro_torch.kernels import build
 
     errs = {"dense_dp": 0.0, "fused_dp": 0.0}
     cases = [(N, L, dtype, combine)
@@ -248,11 +256,25 @@ def phase_kernels(dev, S=4099) -> dict[str, float]:
                 torch.from_numpy(bank_idx.astype(np.int32)).to(dev))
         C = bank[idx] + tx[:, None, None, :]
         oracle = ((S, N, L), PS._dp_numpy(C, combine, ns)) if f64 else None
-        errs["fused_dp"] = max(errs["fused_dp"], check_tables(
-            f"fused_dp {tag}{' bank_idx' if bank_idx is not None else ''}",
-            CD.fused_dp(*args), CD.fused_dp_plain(*args), oracle))
-        print(f"  ok {tag}: dense and fused == plain"
+        want = CD.fused_dp_plain(*args)
+        for variant in (None, "per_scenario"):  # the rule's pick (tiled), the first kernel
+            errs["fused_dp"] = max(errs["fused_dp"], check_tables(
+                f"fused_dp ({variant or 'tiled'}) {tag}"
+                f"{' bank_idx' if bank_idx is not None else ''}",
+                CD.fused_dp(*args, variant=variant), want, oracle))
+        print(f"  ok {tag}: dense and both fused kernels == plain"
               f"{' == numpy oracle' if f64 else ''}")
+    lib = build.load("split_dp.cu").lib
+    banks = (1, 2, 3, 4, 5, 6, 8, 9, 12, 13, 17, 18, 20, 40)
+    for dtype in (torch.float32, torch.float64):
+        for L in range(2, 301):
+            for B in banks:
+                if bool(lib.split_dp_fused_variant(B, L, int(dtype == torch.float64))) \
+                        != (CD._fused_variant(B, L, dtype) == "tiled"):
+                    raise AssertionError(f"fused_dp: _fused_variant({B}, {L}, {dtype}) "
+                                         "!= the C entry's rule")
+    print(f"  ok the wrapper's fused variant rule == split_dp_fused_variant for both "
+          f"types, L 2..300, banks of {banks[0]}..{banks[-1]} matrices")
     return errs
 
 
@@ -333,17 +355,23 @@ def phase_main_path() -> dict:
     main, mixes, budgets, sub = grids()
     CD.reset_launch_counts()
     res_main = sweep(main)
-    per_sweep = (CD.DENSE_LAUNCHES, CD.FUSED_LAUNCHES)
+    per_sweep = (CD.DENSE_LAUNCHES, CD.FUSED_LAUNCHES, CD.FUSED_TILED_LAUNCHES)
     res_mixes = sweep(mixes)
+    mix_fused = (CD.FUSED_LAUNCHES - per_sweep[1], CD.FUSED_TILED_LAUNCHES - per_sweep[2])
     res_budgets = sweep(budgets)
     launches = {"dense_dp": CD.DENSE_LAUNCHES, "fused_dp": CD.FUSED_LAUNCHES}
+    by_variant = {"tiled": CD.FUSED_TILED_LAUNCHES,
+                  "per_scenario": CD.FUSED_LAUNCHES - CD.FUSED_TILED_LAUNCHES}
     print(f"  main path: {main.size} + {mixes.size} (device mixes) + "
-          f"{budgets.size} (energy budgets) scenarios; launches {launches}; "
-          f"the {main.size}-scenario sweep alone: dense {per_sweep[0]}, "
-          f"fused {per_sweep[1]}")
+          f"{budgets.size} (energy budgets) scenarios; launches {launches}, fused by "
+          f"kernel {by_variant}; the {main.size}-scenario sweep alone: dense "
+          f"{per_sweep[0]}, fused {per_sweep[1]} ({per_sweep[2]} tiled); the device-mix "
+          f"sweep: fused {mix_fused[0]} ({mix_fused[1]} tiled)")
     for kernel, n in launches.items():
         if n == 0:
             raise AssertionError(f"{kernel} was not launched on the main path")
+    if per_sweep[1:] != (2, 2) or mix_fused[0] == 0 or mix_fused[0] != mix_fused[1]:
+        raise AssertionError("the sweeps' fused launches did not all run the tiled kernel")
     for res in (res_main, res_mixes, res_budgets):
         rows = res.rows
         if not all(r.feasible == np.isfinite(r.total_latency_s) for r in rows) \
@@ -371,7 +399,8 @@ def phase_main_path() -> dict:
         if not rows_equal(got, sweep(grid, backend="numpy")):
             raise AssertionError(f"{name}: cuda float64 != numpy")
         print(f"  {name} ({grid.size} scenarios): cuda float64 == numpy")
-    return {"launches": launches, "per_sweep": per_sweep, "main": main}
+    return {"launches": launches, "by_variant": by_variant, "per_sweep": per_sweep,
+            "main": main}
 
 
 def timed_ms(fn, reps) -> float:
@@ -441,6 +470,32 @@ def phase_times(dev, card, launches, S=65536, N=5, L=54) -> dict:
               f"{nbytes / 1e6:.1f} MB in {bytes_ms:.4f} ms, {ops / 1e9:.2f} G "
               f"ops in {ops_ms:.4f} ms) at S={S} N={N} L={L} float32; "
               f"{launches[name]} launches on the main path [{card}]")
+
+    # the fused kernels in turns on the same inputs (first kernel, tiled,
+    # tiled, first kernel): the path's bank, then the device-mix grid's
+    # shape (4 matrices, a row drawn per scenario and slot, so the tiled
+    # kernel builds its costs again at most steps); the bound is the same
+    bank4 = tie_rich(4, L, L)
+    idx4 = torch.randint(0, 4, (S, N), generator=g, device=dev, dtype=torch.int32)
+    fused = out["fused_dp"]
+    for tag, bk, idx in (("path", bank, bank_idx), ("device mix", bank4, idx4)):
+        tiled = CD.fused_dp(bk, tx, ns, bank_idx=idx)
+        first = CD.fused_dp(bk, tx, ns, bank_idx=idx, variant="per_scenario")
+        if not all(torch.equal(x, y) for x, y in zip(tiled, first)):
+            raise AssertionError(f"fused_dp {tag}: tiled kernel != first kernel")
+        turns = [timed_ms(lambda: CD.fused_dp(bk, tx, ns, bank_idx=idx, variant=v), 20)
+                 for v in ("per_scenario", "tiled", "tiled", "per_scenario")]
+        t_ms, ps_ms = (turns[1] + turns[2]) / 2, (turns[0] + turns[3]) / 2
+        nbytes = (bk.numel() + tx.numel() + (S + steps)) * 4 + out_bytes
+        bound = max(nbytes / HBM_BYTES_PER_S, 3 * cand / FP32_OPS_PER_S) * 1e3
+        if tag == "path":
+            fused.update(ms=t_ms, per_scenario_ms=ps_ms)
+        else:
+            fused.update(mix_ms=t_ms, mix_per_scenario_ms=ps_ms, mix_bound_ms=bound)
+        print(f"  fused_dp {tag}, B={bk.shape[0]}: tiled {t_ms:.4f} ms, first kernel "
+              f"{ps_ms:.4f} ms (in turns: {', '.join(f'{t:.4f}' for t in turns)}); bound "
+              f"{bound:.4f} ms; tiled at {bound / t_ms:.1%} of it, "
+              f"{ps_ms / t_ms:.2f}x the first kernel [{card}]")
     return out
 
 
@@ -1384,6 +1439,7 @@ def main() -> int:
             "replaces": f"src/repro/core/pallas_dp.py:{line}",
             "launches": path["launches"][name], "max_abs_err": errs[name],
             **times[name], "library_ms": None,
+            **({"launches_by_variant": path["by_variant"]} if name == "fused_dp" else {}),
         })
     kernels.append({
         "name": "flash_attention", "route": "cuda",

@@ -16,11 +16,21 @@ The port's counterpart of ``repro.core.pallas_dp``. Two kernels in
   the kernel gathers each scenario's stack from the bank itself. Like the
   reference's fused kernel it rounds ``f(local) + f(tx)`` where the dense
   path rounds ``f(local64 + tx64)``, a <= 1 ulp difference in float32.
+  Two kernels compute it, picked by a shape rule fixed before the launch
+  (:func:`_fused_variant`, twin of the C entry ``split_dp_fused_variant``):
+  ``"tiled"`` (tiles of scenarios, the bank in shared memory, each
+  thread's costs in registers, a split first-minimum reduction) wherever
+  ``L <= 65`` and the bank fits a block's shared memory, which covers
+  every shape ``sweep`` launches; ``"per_scenario"`` (the first design,
+  one block per scenario) elsewhere. :func:`fused_dp_split_mirror` is the
+  tiled kernel's reduction in PyTorch.
 
 Each kernel has a plain PyTorch version here (:func:`dense_dp_plain`,
 :func:`fused_dp_plain`). A wrapper takes the plain version only for
 tensors on the CPU; for CUDA tensors it launches the kernel or raises.
-:data:`DENSE_LAUNCHES` / :data:`FUSED_LAUNCHES` count kernel launches.
+:data:`DENSE_LAUNCHES` / :data:`FUSED_LAUNCHES` count kernel launches,
+:data:`FUSED_TILED_LAUNCHES` those of the fused launches that ran the
+tiled kernel.
 
 Recurrence, per device step ``k = 2..N``::
 
@@ -45,6 +55,8 @@ from repro_torch.kernels import build
 __all__ = [
     "DENSE_LAUNCHES",
     "FUSED_LAUNCHES",
+    "FUSED_TILED_LAUNCHES",
+    "FUSED_VARIANTS",
     "MAX_L",
     "cuda_dp_tables",
     "cuda_fused_dp_tables",
@@ -54,6 +66,7 @@ __all__ = [
     "dense_dp_plain",
     "fused_dp",
     "fused_dp_plain",
+    "fused_dp_split_mirror",
     "plain_dp_tables",
     "reset_launch_counts",
 ]
@@ -62,16 +75,74 @@ __all__ = [
 # a wrapper launches its kernel, never by the plain versions.
 DENSE_LAUNCHES = 0
 FUSED_LAUNCHES = 0
+FUSED_TILED_LAUNCHES = 0
+
+FUSED_VARIANTS = ("tiled", "per_scenario")
 
 # Longest layer chain a block's shared-memory dp rows take: two rows of
 # MAX_L float64 entries stay under the 48 KB a block gets without opt-in.
 MAX_L = 2048
 
+# The tiled fused kernel (csrc/split_dp.cu; keep these equal to its
+# kGroup, kTiledMaxGroups, kTiledMaxThreads and kSmemLimit): candidates in
+# groups of 4, at most 16 groups of costs in registers (L <= 65), at most
+# 224 threads a block, and the 227 KB of shared memory a block may use.
+GROUP = 4
+TILED_MAX_GROUPS = 16
+TILED_MAX_THREADS = 224
+SMEM_LIMIT = 232_448
+
 
 def reset_launch_counts() -> None:
-    global DENSE_LAUNCHES, FUSED_LAUNCHES
+    global DENSE_LAUNCHES, FUSED_LAUNCHES, FUSED_TILED_LAUNCHES
     DENSE_LAUNCHES = 0
     FUSED_LAUNCHES = 0
+    FUSED_TILED_LAUNCHES = 0
+
+
+def _tile_scenarios(L: int) -> int:
+    """Scenarios per tile of the tiled kernel (C twin ``tile_scenarios``):
+    the count in ``[1, max(1, 224 // L)]`` whose (scenario, b) pairs fill
+    the largest share of the block's 32-lane warps, the larger on a tie."""
+    best, best_live, best_lanes = 1, 0, 1
+    for st in range(1, max(1, TILED_MAX_THREADS // L) + 1):
+        live = st * L
+        lanes = -(-live // 32) * 32
+        if live * best_lanes >= best_live * lanes:
+            best, best_live, best_lanes = st, live, lanes
+    return best
+
+
+def _col_stride(L: int, dtype: torch.dtype) -> int:
+    """Entries of a staged cost column (C twin ``col_stride``): the
+    ``4 * ceil((L-1)/4)`` candidate costs, padded so a column spans 16 bytes
+    modulo 32 (neighbouring threads' 16-byte loads on distinct banks)."""
+    elt = 8 if dtype == torch.float64 else 4
+    w = -(-(L - 1) // GROUP) * GROUP
+    while w * elt % 32 != 16:
+        w += 1
+    return w
+
+
+def _tiled_smem_bytes(B: int, L: int, dtype: torch.dtype) -> int:
+    """Shared memory of one tiled block: the bank of ``B`` (L, L) matrices
+    transposed into B * L cost columns of :func:`_col_stride` entries, row
+    0 of every matrix, then two dp rows of ``round4(L)`` entries per
+    scenario of the tile."""
+    elt = 8 if dtype == torch.float64 else 4
+    row0 = -(-B * L // 4) * 4
+    dp_rows = 2 * _tile_scenarios(L) * (-(-L // 4) * 4)
+    return (B * L * _col_stride(L, dtype) + row0 + dp_rows) * elt
+
+
+def _fused_variant(B: int, L: int, dtype: torch.dtype) -> str:
+    """The fused kernel ``split_dp_fused`` runs for a bank of ``B`` (L, L)
+    matrices in ``dtype`` (C twin ``split_dp_fused_variant``): ``"tiled"``
+    where the L - 1 costs fit 16 groups of 4 registers and the bank with the
+    tile's dp rows fits a block's shared memory, else ``"per_scenario"``."""
+    fits = (B >= 1 and L >= 2 and -(-(L - 1) // GROUP) <= TILED_MAX_GROUPS
+            and _tiled_smem_bytes(B, L, dtype) <= SMEM_LIMIT)
+    return "tiled" if fits else "per_scenario"
 
 
 # ---------------------------------------------------------------------------
@@ -132,6 +203,79 @@ def fused_dp_plain(bank: torch.Tensor, tx: torch.Tensor, ns: torch.Tensor,
     return dp0, dps, args
 
 
+def fused_dp_split_mirror(bank: torch.Tensor, tx: torch.Tensor, ns: torch.Tensor,
+                          combine: str = "sum",
+                          bank_idx: torch.Tensor | None = None):
+    """``(dp0, dps, args)`` of the fused recurrence as the tiled kernel
+    reduces it, in plain PyTorch: scenarios in tiles of
+    :func:`_tile_scenarios` (the last one partial); per step, candidates
+    ``a`` in groups of 4 padded with +inf, each group's minimum (``fmin``),
+    two running (value, group) minima over the even and the odd groups with
+    a strict ``<``, merged by strict value then the lower group; then the
+    winning group's lowest ``a`` whose candidate equals the minimum, and
+    that candidate as the value. The kernel builds a thread's costs once
+    per bank row and keeps them across steps; they are the same bits as
+    building them each step, as here. Launches nothing; equals
+    :func:`fused_dp_plain` bit for bit."""
+    S, L = tx.shape
+    N = bank.shape[0] if bank_idx is None else bank_idx.shape[1]
+    ng = -(-(L - 1) // GROUP)
+    width = ng * GROUP  # candidates a = 0..width-1, +inf past L-2
+    st = _tile_scenarios(L)
+    dp0 = torch.empty((S, L), dtype=tx.dtype, device=tx.device)
+    dps, args = _new_tables(S, N, L, tx.dtype, tx.device)
+    inf = torch.tensor(float("inf"), dtype=tx.dtype, device=tx.device)
+    for lo in range(0, S, st):
+        t, n = tx[lo:lo + st], ns[lo:lo + st]
+        T = t.shape[0]
+
+        def row(k: int):  # device k's bank row; dead slots are never read
+            if bank_idx is None:
+                return torch.full((T,), k - 1, dtype=torch.long, device=t.device)
+            return torch.where(n >= k, bank_idx[lo:lo + st, k - 1], 0).long()
+
+        dp = bank[row(1), 0, :] + t
+        dp0[lo:lo + st] = dp
+        for k in range(2, N + 1):
+            c = torch.full((T, width, L), float("inf"), dtype=t.dtype, device=t.device)
+            c[:, :L - 1] = bank[row(k), 1:, :] + t[:, None, :]
+            d = torch.zeros((T, width), dtype=t.dtype, device=t.device)
+            d[:, :min(width, L)] = dp[:, :width]
+            if combine == "sum":
+                v = d[:, :, None] + c
+            else:
+                v = torch.where(c > d[:, :, None], c, d[:, :, None])
+            q = v.view(T, ng, GROUP, L)
+            m = torch.fmin(torch.fmin(q[:, :, 0], q[:, :, 1]),
+                           torch.fmin(q[:, :, 2], q[:, :, 3]))  # (T, ng, L)
+            chains = []
+            for parity in (0, 1):
+                mc = torch.full((T, L), float("inf"), dtype=t.dtype, device=t.device)
+                gc = torch.full((T, L), -1, dtype=torch.long, device=t.device)
+                for g in range(parity, ng, 2):
+                    better = m[:, g] < mc
+                    mc = torch.where(better, m[:, g], mc)
+                    gc = torch.where(better, g, gc)
+                chains.append((mc, gc))
+            (m0, g0), (m1, g1) = chains
+            odd = (m1 < m0) | ((m1 == m0) & (g1 < g0))
+            mw, gw = torch.where(odd, m1, m0), torch.where(odd, g1, g0)
+            best = inf.expand(T, L).clone()
+            first = torch.zeros((T, L), dtype=torch.long, device=t.device)
+            for j in reversed(range(GROUP)):
+                a = gw * GROUP + j
+                va = v.gather(1, a.clamp(0, width - 1)[:, None, :])[:, 0]
+                hit = (gw >= 0) & (a < L - 1) & (va == mw)
+                best = torch.where(hit, va, best)
+                first = torch.where(hit, a, first)
+            arg = torch.where(torch.isfinite(best), first.to(torch.int32) + 1, -1)
+            act = (n >= k)[:, None]
+            dp = torch.where(act, best, dp)
+            dps[lo:lo + st, k - 2] = dp
+            args[lo:lo + st, k - 2] = torch.where(act, arg, -1)
+    return dp0, dps, args
+
+
 # ---------------------------------------------------------------------------
 # Kernel wrappers
 # ---------------------------------------------------------------------------
@@ -188,14 +332,18 @@ def dense_dp(C: torch.Tensor, ns: torch.Tensor, combine: str = "sum"):
 
 
 def fused_dp(bank: torch.Tensor, tx: torch.Tensor, ns: torch.Tensor,
-             combine: str = "sum", bank_idx: torch.Tensor | None = None):
+             combine: str = "sum", bank_idx: torch.Tensor | None = None, *,
+             variant: str | None = None):
     """The fused kernel: ``bank`` (B, L, L) and ``tx`` (S, L) of one
     floating type, ``ns`` (S,) int32 and ``bank_idx`` (S, N) int32 (or
     ``None``: ``bank`` is then the shared (N, L, L) stack) on one device
     -> ``(dp0, dps, args)``. Live ``bank_idx`` entries must lie in
     ``[0, B)``; the caller checks that on the host. A CPU tensor runs
-    :func:`fused_dp_plain`; a CUDA tensor launches the kernel."""
-    global FUSED_LAUNCHES
+    :func:`fused_dp_plain`; a CUDA tensor launches the kernel
+    :func:`_fused_variant` names. ``variant="per_scenario"`` forces the
+    first kernel (any shape; for timing and tests); ``"tiled"`` is refused
+    where the rule would not pick it."""
+    global FUSED_LAUNCHES, FUSED_TILED_LAUNCHES
     if bank.dim() != 3 or bank.shape[1] != bank.shape[2]:
         raise ValueError(f"fused_dp: bank must be (B, L, L), got {tuple(bank.shape)}")
     L = bank.shape[1]
@@ -215,19 +363,28 @@ def fused_dp(bank: torch.Tensor, tx: torch.Tensor, ns: torch.Tensor,
         tensors["bank_idx"] = bank_idx
     _check_common("fused_dp", ns, combine, S, N, L, bank.dtype, bank.device,
                   tensors)
+    B = bank.shape[0]
+    chosen = _fused_variant(B, L, bank.dtype)
+    if variant not in (None, *FUSED_VARIANTS) or (variant == "tiled" and chosen != "tiled"):
+        raise ValueError(f"fused_dp: variant {variant!r} cannot run a bank of "
+                         f"{B} x ({L}, {L}) {bank.dtype} (it takes {chosen!r})")
     if bank.device.type == "cpu":
         return fused_dp_plain(bank, tx, ns, combine, bank_idx)
+    chosen = variant or chosen
     dp0 = torch.empty((S, L), dtype=bank.dtype, device=bank.device)
     dps, args = _new_tables(S, N, L, bank.dtype, bank.device)
     built = build.load()
+    entry = built.lib.split_dp_fused if chosen == "tiled" \
+        else built.lib.split_dp_fused_per_scenario
     with torch.cuda.device(bank.device):
-        code = built.lib.split_dp_fused(
+        code = entry(
             bank.data_ptr(), None if bank_idx is None else bank_idx.data_ptr(),
             tx.data_ptr(), ns.data_ptr(), dp0.data_ptr(), dps.data_ptr(),
-            args.data_ptr(), S, N, L, int(bank.dtype == torch.float64),
+            args.data_ptr(), S, N, L, B, int(bank.dtype == torch.float64),
             int(combine == "max"), _stream_ptr(bank.device))
-    build.check_launch(built, code, "fused_dp")
+    build.check_launch(built, code, f"fused_dp ({chosen})")
     FUSED_LAUNCHES += 1
+    FUSED_TILED_LAUNCHES += int(chosen == "tiled")
     return dp0, dps, args
 
 

@@ -37,9 +37,15 @@ SIGNATURES: dict[str, dict[str, tuple[list, object]]] = {
     "split_dp.cu": {
         # C, ns, dp0, dps, args, S, N, L, is_f64, is_max, stream
         "split_dp_dense": ([_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P], _I),
-        # bank, bank_idx, tx, ns, dp0, dps, args, S, N, L, is_f64, is_max, stream
-        "split_dp_fused": ([_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+        # bank, bank_idx, tx, ns, dp0, dps, args, S, N, L, B, is_f64, is_max,
+        # stream: the kernel split_dp_fused_variant names
+        "split_dp_fused": ([_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
                            _I),
+        # the same arguments; always the first kernel (one block per scenario)
+        "split_dp_fused_per_scenario": ([_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+                                         _I, _P], _I),
+        # B, L, is_f64 -> 1 when split_dp_fused runs the tiled kernel
+        "split_dp_fused_variant": ([_I, _I, _I], _I),
         "cuda_error_string": ([_I], ctypes.c_char_p),
     },
     "flash_attention.cu": {

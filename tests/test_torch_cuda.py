@@ -34,9 +34,30 @@ def tie_rich(S, N, L, seed):
     return C, rng.randint(1, N + 1, size=S)
 
 
+def fused_both_variants(bank, tx, ns, combine, bank_idx):
+    """Both fused kernels (the rule's pick, then the first kernel forced)
+    against the plain version, exactly; the launch counters say which
+    kernel ran."""
+    want = CD.fused_dp_plain(bank, tx, ns, combine, bank_idx)
+    tiled = CD._fused_variant(bank.shape[0], bank.shape[1], bank.dtype) == "tiled"
+    for variant in (None, "per_scenario"):
+        before = CD.FUSED_LAUNCHES, CD.FUSED_TILED_LAUNCHES
+        got = CD.fused_dp(bank, tx, ns, combine, bank_idx, variant=variant)
+        torch.cuda.synchronize()
+        ran_tiled = variant is None and tiled
+        assert (CD.FUSED_LAUNCHES, CD.FUSED_TILED_LAUNCHES) == \
+            (before[0] + 1, before[1] + ran_tiled)
+        for a, b in zip(got, want):
+            assert torch.equal(a, b)
+
+
+# L 2..65 take the tiled fused kernel (1..16 groups of 4, 31/32/33 and
+# 64/65 around group and warp edges, the sweep's 52 and 54), 300 the first;
+# S = 129 is no multiple of any tile
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
 @pytest.mark.parametrize("combine", ["sum", "max"])
-@pytest.mark.parametrize("N,L", [(2, 7), (5, 54), (3, 300)])
+@pytest.mark.parametrize("N,L", [(2, 7), (5, 54), (3, 300), (4, 2), (4, 31), (4, 32),
+                                 (4, 33), (5, 52), (3, 64), (3, 65)])
 def test_kernels_equal_plain(card, N, L, combine, dtype):
     C, ns = tie_rich(129, N, L, seed=N * L)
     C_t = torch.from_numpy(C).to(card, dtype)
@@ -48,9 +69,38 @@ def test_kernels_equal_plain(card, N, L, combine, dtype):
     idx = torch.from_numpy(np.random.RandomState(L).randint(
         0, N, size=(129, N)).astype(np.int32)).to(card)
     for bank_idx in (None, idx):
-        for a, b in zip(CD.fused_dp(bank, tx, ns_t, combine, bank_idx),
-                        CD.fused_dp_plain(bank, tx, ns_t, combine, bank_idx)):
-            assert torch.equal(a, b)
+        fused_both_variants(bank, tx, ns_t, combine, bank_idx)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_fused_bank_at_shared_memory_limit(card, dtype):
+    """The largest bank of (54, 54) matrices the tiled kernel stages (17 in
+    float32, 8 in float64) and one matrix more, which takes the first
+    kernel; a forced tiled launch of the larger bank is refused."""
+    top = {torch.float32: 17, torch.float64: 8}[dtype]
+    rng = np.random.RandomState(top)
+    for B, kernel in ((top, "tiled"), (top + 1, "per_scenario")):
+        assert CD._fused_variant(B, 54, dtype) == kernel
+        bank = torch.from_numpy(tie_rich(1, B, 54, seed=B)[0][0]).to(card, dtype)
+        tx = torch.from_numpy(rng.randint(0, 9, size=(301, 54)) / 4.0).to(card, dtype)
+        ns = torch.from_numpy(rng.randint(1, 6, size=301).astype(np.int32)).to(card)
+        idx = torch.from_numpy(rng.randint(0, B, size=(301, 5)).astype(np.int32)).to(card)
+        fused_both_variants(bank, tx, ns, "sum", idx)
+    with pytest.raises(ValueError, match="variant"):
+        CD.fused_dp(bank, tx, ns, "sum", idx, variant="tiled")
+
+
+def test_fused_variant_rule_is_the_c_entrys(card):
+    """``_fused_variant`` names the kernel ``split_dp_fused`` runs, for L
+    2..300, both types and banks of 1 to 40 matrices."""
+    from repro_torch.kernels import build
+
+    lib = build.load("split_dp.cu").lib
+    for dtype in (torch.float32, torch.float64):
+        for L in range(2, 301):
+            for B in (1, 2, 3, 4, 5, 6, 8, 9, 12, 13, 17, 18, 20, 40):
+                assert bool(lib.split_dp_fused_variant(B, L, int(dtype == torch.float64))) \
+                    == (CD._fused_variant(B, L, dtype) == "tiled"), (B, L, dtype)
 
 
 def test_sweep_on_card_equals_plain(card):
@@ -59,9 +109,9 @@ def test_sweep_on_card_equals_plain(card):
                 "resnet50": PP.resnet50_cost_profile()},
         links=dict(PP.PROTOCOLS), n_devices=(2, 3, 4, 5),
         loss_p=(None, 0.1), rate_scale=(1.0, 0.25), devices=(PP.ESP32,))
-    before = CD.FUSED_LAUNCHES
+    before = CD.FUSED_LAUNCHES, CD.FUSED_TILED_LAUNCHES
     got, want = sweep(grid), sweep(grid, device="cpu")
-    assert CD.FUSED_LAUNCHES == before + 2
+    assert (CD.FUSED_LAUNCHES, CD.FUSED_TILED_LAUNCHES) == (before[0] + 2, before[1] + 2)
     assert [(r.splits, r.objective_cost_s) for r in got.rows] == \
         [(r.splits, r.objective_cost_s) for r in want.rows]
 
