@@ -101,7 +101,30 @@ reference package ``repro``) on the card and fails on any fault:
    piece products each needs at the bf16 tensor-core rate, with the
    float32 CUDA-core bound of the same flops beside it; W8A16 with
    float32 x; the ops' wall times and a traced ``quant_linear``;
-14. a JSON line of per-kernel results, the card line, and the last line
+14. the paper's solvers, the planner and degradation surfaces on the card,
+   with the launch counters read around this phase only (both DP kernels
+   must launch): (a) ``plan_split_batch`` on 2,048 MobileNet-V2 and
+   2,048 ResNet50 cost models (4 protocols x 8 loss rates x 16 rate
+   scales x fleets of 2-5 as a per-model list) on ``backend=None`` (the
+   dense kernel, float32), equal to the same call on ``device="cpu"``;
+   float64 on the card equal to ``backend="numpy"``; a variant bank with
+   an accuracy floor and an energy budget, each equal on the card and the
+   CPU; (b) a MobileNet-V2 ``batched_dp`` surface family (4 protocols, 32
+   packet-time scales x 32 loss rates, the refit floor joining each
+   packet-time axis: 4,192 nodes; fleets 2-5):
+   unbudgeted on the fused kernel (its launch on the tiled kernel),
+   node-identical to the build on the CPU, and within the fused/dense
+   float32 tolerance of ``backend="torch"`` (differing nodes counted);
+   budgeted on the dense kernel, node-identical to ``backend="torch"``;
+   (c) ``compare_solvers`` (beam, greedy, first-fit, random-fit, brute
+   force, the scalar DP) and ``plan_split(solver="batched_dp")`` on the
+   card for both models over ESP-NOW at N 2-5: brute force equal to the
+   DP's optimum, the card's DP cost within 4·N·eps32 of it and its plan's
+   float64-repriced regret within 1e-12 relative (an exact tie),
+   each solver's latency, regret and host wall time; (d) the launches by
+   path, the host wall times of (a) and (b) beside their twins, and a
+   traced build of (b) (device busy time, idle share, the kernel's share);
+15. a JSON line of per-kernel results, the card line, and the last line
    ``{"ok": true, "device": {...}}``.
 
 Exits non-zero, printing no result, when no card is present.
@@ -790,9 +813,11 @@ def phase_server(params, cfg) -> dict:
             "prompt_tokens": sum(len(p) for _, p, _ in reqs)}
 
 
-def traced_run(label, fn, card) -> None:
+def traced_run(label, fn, card) -> dict | None:
     """One traced run of ``fn``: wall time, device busy time and idle
-    share, kernel launches, and the device time of the largest ops."""
+    share, kernel launches, and the device time of the largest ops.
+    Returns the wall and busy ms and the device ms by op (``None`` when
+    the trace holds no device events)."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -810,13 +835,15 @@ def traced_run(label, fn, card) -> None:
     launches = sum(e.count for e in events if e.key == "cudaLaunchKernel")
     if busy_ms == 0.0:
         print(f"  traced {label}: device time not measured (no device events)")
-        return
+        return None
     top = "; ".join(f"{e.key[:50]} {e.self_device_time_total / 1e3:.2f} ms x{e.count}"
                     for e in ops[:8])
     print(f"  traced {label}: wall {wall * 1e3:.2f} ms, device busy {busy_ms:.2f} ms, "
           f"idle share {1 - busy_ms / 1e3 / wall:.4f}, {launches} kernel launches "
           f"[{card}]")
     print(f"  device time by op: {top}")
+    return {"wall_ms": wall * 1e3, "busy_ms": busy_ms,
+            "ops": {e.key: e.self_device_time_total / 1e3 for e in ops}}
 
 
 def phase_serving_times(dev, cfg, params, cache, server, card) -> dict:
@@ -1350,6 +1377,327 @@ def phase_quant_times(dev, card, gemm, ssd) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# The paper's solvers, the planner and degradation surfaces (phase 14)
+# ---------------------------------------------------------------------------
+
+
+def plans_equal(a, b) -> bool:
+    """Every ``SplitPlan`` field but ``planner_time_s`` equal, plan by plan."""
+    return len(a) == len(b) and all(
+        replace(p, planner_time_s=0.0) == replace(q, planner_time_s=0.0)
+        for p, q in zip(a, b))
+
+
+def powered_links():
+    """The paper's four protocols with radio powers, so energy binds."""
+    from repro_torch.core import profiles as PP
+
+    return {p: replace(lk, tx_power_w=0.3, rx_power_w=0.2)
+            for p, lk in PP.PROTOCOLS.items()}
+
+
+def planner_fleet(profile, n_loss=8, n_rate=16):
+    """4 protocols x ``n_loss`` loss rates x ``n_rate`` rate scales x
+    fleets of 2-5 cost models of one graph (2,048 at the defaults) on
+    powered ESP32s, and the per-model fleet sizes."""
+    from repro_torch.core import profiles as PP
+    from repro_torch.core.latency import SplitCostModel
+
+    dev = replace(PP.ESP32, active_power_w=0.5)
+    models, ns = [], []
+    for base in powered_links().values():
+        for lp in np.linspace(0.0, 0.3, n_loss):
+            for rs in np.linspace(1 / 16, 1.0, n_rate):
+                link = replace(base, loss_p=float(lp),
+                               rate_bytes_per_s=base.rate_bytes_per_s * float(rs))
+                for n in (2, 3, 4, 5):
+                    models.append(SplitCostModel(profile=profile, devices=(dev,),
+                                                 link=link))
+                    ns.append(n)
+    return models, ns
+
+
+def timed_call(fn):
+    t0 = time.perf_counter()
+    out = fn()
+    return out, time.perf_counter() - t0
+
+
+def median_peak_energy(models, plans) -> float:
+    """The median, over the feasible plans, of a plan's largest per-device
+    energy: a per-device budget there binds about half of the plans."""
+    peaks = []
+    for m, p in zip(models, plans):
+        if p.total_latency_s < float("inf"):
+            efn = m.energy_segment_fn()
+            peaks.append(max(efn(s.first_layer, s.last_layer, s.device)
+                             for s in p.segments))
+    return float(np.median(peaks))
+
+
+def phase_plan_batch(card, floor=0.96) -> None:
+    """(a) ``plan_split_batch`` on 2,048 MobileNet-V2 and 2,048 ResNet50
+    cost models: the card (``backend=None``: the dense kernel) against the
+    plain version on the CPU, float64 on the card against numpy, then a
+    variant bank with an accuracy floor and an energy budget that binds
+    about half of the plans."""
+    import torch
+
+    from repro_torch.core import cuda_dp as CD
+    from repro_torch.core import profiles as PP
+    from repro_torch.core.planner import plan_split_batch
+
+    bank = PP.esp32_variant_bank()
+    walls = {}
+    for name, prof in (("mobilenet_v2", PP.mobilenet_cost_profile()),
+                       ("resnet50", PP.resnet50_cost_profile())):
+        models, ns = planner_fleet(prof)
+        before = CD.DENSE_LAUNCHES
+        got, walls[f"{name} card"] = timed_call(lambda: plan_split_batch(models, ns))
+        if CD.DENSE_LAUNCHES != before + 1:
+            raise AssertionError(f"plan_split_batch {name}: {CD.DENSE_LAUNCHES - before} "
+                                 "dense launches, expected 1")
+        plain, walls[f"{name} cpu"] = timed_call(
+            lambda: plan_split_batch(models, ns, device="cpu"))
+        if not plans_equal(got, plain):
+            raise AssertionError(f"plan_split_batch {name}: card != device='cpu'")
+        f64 = plan_split_batch(models, ns, dtype=torch.float64)
+        oracle, walls[f"{name} numpy"] = timed_call(
+            lambda: plan_split_batch(models, ns, backend="numpy"))
+        if not plans_equal(f64, oracle):
+            raise AssertionError(f"plan_split_batch {name}: card float64 != numpy")
+        feasible = sum(p.total_latency_s < float("inf") for p in got)
+        print(f"  plan_split_batch {name}: {len(models)} cost models (fleets 2-5), "
+              f"{feasible} feasible; card == device='cpu' (float32), card float64 "
+              f"== numpy; wall card {walls[f'{name} card']:.3f} s, cpu "
+              f"{walls[f'{name} cpu']:.3f} s, numpy {walls[f'{name} numpy']:.3f} s [{card}]")
+        budget = median_peak_energy(models, got)
+        for label, kw in (("variant bank, floor", dict(variants=bank, accuracy_floor=floor)),
+                          (f"energy budget {budget:.4g} J", dict(energy_budget=budget))):
+            on_card, walls[f"{name} {label} card"] = timed_call(
+                lambda: plan_split_batch(models, ns, **kw))
+            if not plans_equal(on_card, plan_split_batch(models, ns, device="cpu", **kw)):
+                raise AssertionError(f"plan_split_batch {name} {label}: card != cpu")
+            moved = sum(p.splits != q.splits for p, q in zip(on_card, got))
+            ok = sum(p.total_latency_s < float("inf") for p in on_card)
+            extra = ""
+            if "variants" in kw:
+                counts = np.bincount([p.variant for p in on_card if p.variant is not None],
+                                     minlength=len(bank))
+                extra = f", plans by variant {counts.tolist()}"
+            print(f"    {label}: card == device='cpu'; {ok} feasible, {moved} plans "
+                  f"differ from the unconstrained ones{extra}; wall "
+                  f"{walls[f'{name} {label} card']:.3f} s")
+
+
+def surface_family_args(n_pt=32, n_loss=32):
+    """MobileNet-V2 over the four protocols, 32 packet-time scales x 32
+    loss rates (the refit floor joins each packet-time axis, a new row
+    except where it is the nominal packet time: 4,192 nodes), fleets
+    2-5."""
+    from repro_torch.core import profiles as PP
+    from repro_torch.core.latency import SplitCostModel
+
+    model = SplitCostModel(profile=PP.mobilenet_cost_profile(),
+                           devices=(replace(PP.ESP32, active_power_w=0.5),),
+                           link=PP.ESP_NOW)
+    return (model, powered_links(), (2, 3, 4, 5)), dict(
+        pt_scale=tuple(float(x) for x in np.geomspace(1.0, 512.0, n_pt)),
+        loss_p=tuple(float(x) for x in np.linspace(0.0, 0.3, n_loss)),
+        solver="batched_dp")
+
+
+def nodes_of(family):
+    """{(n, protocol): surface arrays} of a surface family."""
+    return {(n, name): (p.splits, p.chunk_bytes, p.latency_s, p.runner_splits,
+                        p.runner_latency_s)
+            for n, s in family.items() for name, p in s.protocols.items()}
+
+
+def families_equal(a, b) -> bool:
+    na, nb = nodes_of(a), nodes_of(b)
+    return na.keys() == nb.keys() and all(
+        all(np.array_equal(x, y) for x, y in zip(na[k], nb[k])) for k in na)
+
+
+def fused_vs_dense_nodes(fused, dense, model, protocols) -> tuple[int, int, float]:
+    """Nodes of two float32 builds (fused: f32(local) + f32(tx); dense:
+    f32(local64 + tx64)) whose best plans differ, checked to be float32
+    near-ties: each plan repriced in float64 at the node's own link within
+    4 * N * eps32 of the other. Returns (differing nodes, nodes, the
+    largest relative gap)."""
+    from repro_torch.core import surface as SF
+
+    differ = total = 0
+    worst = 0.0
+    for n, s in fused.items():
+        tol = 4 * n * F32_EPS
+        for name, p in s.protocols.items():
+            q = dense[n].protocols[name]
+            if not np.array_equal(np.isfinite(p.latency_s), np.isfinite(q.latency_s)):
+                raise AssertionError(f"surfaces n={n} {name}: feasibility differs")
+            for i, pt in enumerate(p.packet_time_s):
+                for j, lp in enumerate(p.loss_p):
+                    total += 1
+                    a, b = p.node(i, j), q.node(i, j)
+                    if a.splits == b.splits:
+                        if a.__dict__ != b.__dict__:
+                            raise AssertionError(f"surfaces n={n} {name}: same plan, "
+                                                 "different node")
+                        continue
+                    differ += 1
+                    m = replace(model, link=SF.refit_link(protocols[name], pt, lp))
+                    ca = m.end_to_end_s(a.splits, with_overheads=False)
+                    cb = m.end_to_end_s(b.splits, with_overheads=False)
+                    gap = abs(ca - cb) / cb
+                    worst = max(worst, gap)
+                    if gap > tol:
+                        raise AssertionError(f"surfaces n={n} {name} ({pt}, {lp}): plans "
+                                             f"differ beyond a float32 tie ({gap})")
+    return differ, total, worst
+
+
+def phase_surface_family(card, budget=1.5) -> tuple:
+    """(b) A DP surface family on the card: unbudgeted on the fused kernel
+    (every launch on the tiled kernel), node-identical to the same build on
+    the CPU; budgeted on the dense kernel, node-identical to
+    ``backend="torch"``; the unbudgeted family against ``backend="torch"``
+    within the fused/dense float32 tolerance. Returns the build's
+    arguments."""
+    from repro_torch.core import cuda_dp as CD
+    from repro_torch.core.surface import build_surfaces
+
+    args, kw = surface_family_args()
+    walls = {}
+    before = (CD.FUSED_LAUNCHES, CD.FUSED_TILED_LAUNCHES, CD.DENSE_LAUNCHES)
+    fam, walls["fused card"] = timed_call(lambda: build_surfaces(*args, **kw))
+    launched = (CD.FUSED_LAUNCHES - before[0], CD.FUSED_TILED_LAUNCHES - before[1],
+                CD.DENSE_LAUNCHES - before[2])
+    if launched != (1, 1, 0):
+        raise AssertionError(f"unbudgeted surface family: (fused, tiled, dense) "
+                             f"launches {launched}, expected (1, 1, 0)")
+    nodes = fam[5].n_nodes
+    plain, walls["fused cpu"] = timed_call(lambda: build_surfaces(*args, device="cpu", **kw))
+    if not families_equal(fam, plain):
+        raise AssertionError("unbudgeted surface family: card != device='cpu'")
+    dense, walls["torch card"] = timed_call(lambda: build_surfaces(*args, backend="torch", **kw))
+    _, walls["numpy"] = timed_call(lambda: build_surfaces(*args, backend="numpy", **kw))
+    differ, total, worst = fused_vs_dense_nodes(fam, dense, args[0], args[1])
+    print(f"  surface family: MobileNet-V2, {nodes} nodes x fleets {args[2]}; fused "
+          f"kernel (1 launch, tiled) == device='cpu' node for node; vs "
+          f"backend='torch': {differ} of {total} nodes differ, all float32 ties "
+          f"(max relative gap {worst:.3g}); wall card {walls['fused card']:.3f} s, cpu "
+          f"{walls['fused cpu']:.3f} s, torch on the card {walls['torch card']:.3f} s, "
+          f"numpy {walls['numpy']:.3f} s [{card}]")
+    before = CD.DENSE_LAUNCHES, CD.FUSED_LAUNCHES
+    fam_b, walls["budget card"] = timed_call(
+        lambda: build_surfaces(*args, energy_budget=budget, **kw))
+    if (CD.DENSE_LAUNCHES - before[0], CD.FUSED_LAUNCHES - before[1]) != (1, 0):
+        raise AssertionError("budgeted surface family did not take one dense launch")
+    twin, walls["budget torch card"] = timed_call(
+        lambda: build_surfaces(*args, energy_budget=budget, backend="torch", **kw))
+    if not families_equal(fam_b, twin):
+        raise AssertionError("budgeted surface family: cuda != backend='torch'")
+    moved = sum(int((x[0] != y[0]).any(axis=-1).sum())
+                for x, y in zip(nodes_of(fam_b).values(), nodes_of(fam).values()))
+    print(f"  budgeted family (E <= {budget} J): dense kernel == backend='torch' node "
+          f"for node; the budget moved the plan of {moved} of {4 * nodes} nodes; wall "
+          f"card {walls['budget card']:.3f} s, torch on the card "
+          f"{walls['budget torch card']:.3f} s [{card}]")
+    return args, kw
+
+
+def phase_compare_solvers(card) -> None:
+    """(c) The paper's Figs. 3-4 quantities: every scalar solver and the
+    card's DP on MobileNet-V2 and ResNet50 over ESP-NOW at N 2-5."""
+    from repro_torch.core import profiles as PP
+    from repro_torch.core import solvers as SV
+    from repro_torch.core.planner import compare_solvers, plan_split
+
+    names = ("beam", "greedy", "first_fit", "random_fit", "brute_force", "optimal_dp")
+    for model_name in ("mobilenet_v2", "resnet50"):
+        model = PP.paper_cost_model(model_name, "esp_now")
+        L = model.profile.num_layers
+        fn = model.cost_segment_fn()
+        for N in (2, 3, 4, 5):
+            plans = compare_solvers(model, N, solvers=names)
+            opt = plans["optimal_dp"].objective_cost_s
+            if plans["brute_force"].objective_cost_s != opt:
+                raise AssertionError(f"{model_name} N={N}: brute force "
+                                     f"{plans['brute_force'].objective_cost_s} != "
+                                     f"optimal_dp {opt}")
+            dp, wall = timed_call(lambda: plan_split(model, N, solver="batched_dp"))
+            if opt == float("inf"):  # no split fits the devices' memory
+                if dp.objective_cost_s != opt or any(
+                        p.objective_cost_s != opt for p in plans.values()):
+                    raise AssertionError(f"{model_name} N={N}: a solver found a plan "
+                                         "where the DP found none")
+                print(f"  {model_name} N={N} esp_now: infeasible for every solver "
+                      f"(segments exceed the ESP32's memory)")
+                continue
+            # the float32 cost within 4*N*eps32; the plan, repriced in
+            # float64, optimal up to the reference tests' exact-tie bound
+            # (tests/test_pallas_dp.py: |regret| <= 1e-12 relative)
+            tol = 4 * N * F32_EPS
+            regret = SV.total_cost(fn, dp.splits, L) - opt
+            if abs(dp.objective_cost_s - opt) > tol * opt or abs(regret) > 1e-12 * opt:
+                raise AssertionError(f"{model_name} N={N}: card DP {dp.objective_cost_s} "
+                                     f"(repriced regret {regret}) vs optimum {opt}")
+            rows = [(n, p.total_latency_s, p.objective_cost_s - opt, p.planner_time_s)
+                    for n, p in plans.items()]
+            rows.append(("batched_dp (card)", dp.total_latency_s, regret, wall))
+            print(f"  {model_name} N={N} esp_now: " + "; ".join(
+                f"{n} {lat:.4f} s (regret {reg:.3g} s, {t * 1e3:.1f} ms)"
+                for n, lat, reg, t in rows))
+    print(f"  brute force == optimal_dp everywhere; the card's DP cost within "
+          f"4*N*eps32 of the optimum, its plan's float64 regret within 1e-12 "
+          f"relative (an exact tie) [{card}]")
+
+
+def phase_planner(card) -> dict:
+    """Phase 14 with the launch counters zeroed just before it and read
+    just after: both DP kernels must launch."""
+    from repro_torch.core import cuda_dp as CD
+
+    CD.reset_launch_counts()
+    counts = {}
+
+    def mark(path):
+        counts[path] = (CD.DENSE_LAUNCHES, CD.FUSED_LAUNCHES, CD.FUSED_TILED_LAUNCHES)
+
+    print("  (a) plan_split_batch at full width")
+    phase_plan_batch(card)
+    mark("plan_split_batch")
+    print("  (b) a DP surface family")
+    args, kw = phase_surface_family(card)
+    mark("surfaces")
+    print("  (c) compare_solvers")
+    phase_compare_solvers(card)
+    mark("compare_solvers")
+    launches = {"dense_dp": CD.DENSE_LAUNCHES, "fused_dp": CD.FUSED_LAUNCHES}
+    tiled = CD.FUSED_TILED_LAUNCHES
+    by_path, prev = {}, (0, 0, 0)
+    for path, now in counts.items():
+        by_path[path] = {"dense_dp": now[0] - prev[0], "fused_dp": now[1] - prev[1]}
+        prev = now
+    print(f"  (d) launches in this phase: {launches} (fused on the tiled kernel: "
+          f"{tiled}); by path {by_path}")
+    if not launches["dense_dp"] or not launches["fused_dp"] or tiled != launches["fused_dp"]:
+        raise AssertionError("phase 14: a DP kernel was not launched (or a fused launch "
+                             "left the tiled kernel)")
+    from repro_torch.core.surface import build_surfaces
+
+    trace = traced_run("surface family (fused)", lambda: build_surfaces(*args, **kw), card)
+    if trace is not None:
+        share = sum(ms for k, ms in trace["ops"].items() if "fused_dp" in k) / trace["busy_ms"]
+        kernel_ms = share * trace["busy_ms"]
+        print(f"  surface family: the fused kernel {kernel_ms:.4f} ms, its share of "
+              f"device busy time {share:.4f}, of the wall {kernel_ms / trace['wall_ms']:.6f} "
+              f"[{card}]")
+    return {"launches": launches, "tiled": tiled, "by_path": by_path}
+
+
 def main() -> int:
     import torch
 
@@ -1431,15 +1779,23 @@ def main() -> int:
     times["ssd_scan"] = {**times.pop("ssd_scan bfloat16"), "f32_ms": f32["ms"],
                          "f32_bound_ms": f32["bound_ms"], "f32_plain_ms": f32["plain_ms"]}
 
+    print("== 14 the paper's solvers, the planner and degradation surfaces on the card")
+    planner = phase_planner(card)
+
     kernels = []
+    by_variant = {"tiled": path["by_variant"]["tiled"] + planner["tiled"],
+                  "per_scenario": path["by_variant"]["per_scenario"]
+                  + planner["launches"]["fused_dp"] - planner["tiled"]}
     for name, line in (("dense_dp", 150), ("fused_dp", 170)):
         kernels.append({
             "name": name, "route": "cuda",
             "source": "src/repro_torch/csrc/split_dp.cu",
             "replaces": f"src/repro/core/pallas_dp.py:{line}",
-            "launches": path["launches"][name], "max_abs_err": errs[name],
-            **times[name], "library_ms": None,
-            **({"launches_by_variant": path["by_variant"]} if name == "fused_dp" else {}),
+            "launches": path["launches"][name] + planner["launches"][name],
+            "launches_by_path": {"sweep": path["launches"][name],
+                                 **{k: v[name] for k, v in planner["by_path"].items()}},
+            "max_abs_err": errs[name], **times[name], "library_ms": None,
+            **({"launches_by_variant": by_variant} if name == "fused_dp" else {}),
         })
     kernels.append({
         "name": "flash_attention", "route": "cuda",

@@ -19,10 +19,12 @@ import torch
 
 from repro_torch.core.latency import (
     BottleneckVariant,
+    ContentionModel,
     DeviceProfile,
     LayerCost,
     LinkProfile,
     ModelCostProfile,
+    SplitCostModel,
 )
 from repro_torch.core.planner import SegmentPlan, SplitPlan
 from repro_torch.core.quantization import QTensor
@@ -30,6 +32,7 @@ from repro_torch.core.sweep import ScenarioGrid
 from repro_torch.models.config import ModelConfig
 
 __all__ = [
+    "cost_model_from_reference",
     "device_from_reference",
     "grid_from_reference",
     "link_from_reference",
@@ -66,6 +69,23 @@ def device_from_reference(dev) -> DeviceProfile:
 
 def variant_from_reference(v) -> BottleneckVariant:
     return _copy_fields(BottleneckVariant, v)
+
+
+def cost_model_from_reference(model) -> SplitCostModel:
+    """A ``SplitCostModel`` from the reference's: its profile, devices,
+    link, contention schedule and bottleneck variant converted, its
+    objective and other flags copied."""
+    return SplitCostModel(
+        profile=profile_from_reference(model.profile),
+        devices=tuple(device_from_reference(d) for d in model.devices),
+        link=link_from_reference(model.link),
+        objective=model.objective,
+        include_setup=model.include_setup,
+        contention=(None if model.contention is None
+                    else _copy_fields(ContentionModel, model.contention)),
+        variant=(None if model.variant is None
+                 else variant_from_reference(model.variant)),
+    )
 
 
 def grid_from_reference(grid) -> ScenarioGrid:

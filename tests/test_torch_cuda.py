@@ -116,6 +116,83 @@ def test_sweep_on_card_equals_plain(card):
         [(r.splits, r.objective_cost_s) for r in want.rows]
 
 
+def planner_models():
+    """32 MobileNet-V2 cost models on powered ESP32s: the four protocols
+    with radio powers, 8 loss rates, and fleets of 2-5 per model."""
+    from dataclasses import replace
+
+    from repro_torch.core.latency import SplitCostModel
+
+    dev = replace(PP.ESP32, active_power_w=0.5)
+    models = [SplitCostModel(profile=PP.mobilenet_cost_profile(), devices=(dev,),
+                             link=replace(lk, tx_power_w=0.3, rx_power_w=0.2,
+                                          loss_p=0.04 * i))
+              for lk in PP.PROTOCOLS.values() for i in range(8)]
+    return models, [2 + i % 4 for i in range(len(models))]
+
+
+def no_times(plans):
+    from dataclasses import replace
+
+    return [replace(p, planner_time_s=0.0) for p in plans]
+
+
+@pytest.mark.parametrize("kw", [{}, {"energy_budget": 1.5},
+                                {"variants": PP.esp32_variant_bank(), "accuracy_floor": 0.96},
+                                {"dtype": torch.float64}],
+                         ids=["plain", "budget", "variants", "float64"])
+def test_plan_split_batch_on_card_equals_plain(card, kw):
+    from repro_torch.core.planner import plan_split_batch
+
+    models, ns = planner_models()
+    before = CD.DENSE_LAUNCHES
+    got = plan_split_batch(models, ns, **kw)
+    assert CD.DENSE_LAUNCHES == before + 1
+    assert no_times(got) == no_times(plan_split_batch(models, ns, device="cpu", **kw))
+
+
+def surface_args():
+    from dataclasses import replace
+
+    from repro_torch.core.latency import SplitCostModel
+
+    model = SplitCostModel(profile=PP.mobilenet_cost_profile(),
+                           devices=(replace(PP.ESP32, active_power_w=0.5),), link=PP.ESP_NOW)
+    links = {p: replace(lk, tx_power_w=0.3, rx_power_w=0.2) for p, lk in PP.PROTOCOLS.items()}
+    return (model, links, (2, 3, 5)), dict(pt_scale=(1.0, 2.0, 8.0, 64.0),
+                                           loss_p=(0.0, 0.1, 0.3), solver="batched_dp")
+
+
+def surface_nodes(family):
+    return {(n, name): (p.splits.tolist(), p.chunk_bytes.tolist(), p.latency_s.tolist(),
+                        p.runner_splits.tolist(), p.runner_latency_s.tolist())
+            for n, s in family.items() for name, p in s.protocols.items()}
+
+
+def test_budgeted_surfaces_on_card_equal_plain(card):
+    from repro_torch.core.surface import build_surfaces
+
+    args, kw = surface_args()
+    before = CD.DENSE_LAUNCHES, CD.FUSED_LAUNCHES
+    got = build_surfaces(*args, energy_budget=1.5, **kw)
+    assert (CD.DENSE_LAUNCHES, CD.FUSED_LAUNCHES) == (before[0] + 1, before[1])
+    assert surface_nodes(got) == surface_nodes(
+        build_surfaces(*args, energy_budget=1.5, device="cpu", **kw))
+
+
+def test_unbudgeted_surfaces_on_card_equal_fused_plain(card):
+    """One launch of the tiled fused kernel; node for node the same family
+    as its plain version (``device="cpu"``)."""
+    from repro_torch.core.surface import build_surfaces
+
+    args, kw = surface_args()
+    before = CD.FUSED_LAUNCHES, CD.FUSED_TILED_LAUNCHES, CD.DENSE_LAUNCHES
+    got = build_surfaces(*args, **kw)
+    assert (CD.FUSED_LAUNCHES, CD.FUSED_TILED_LAUNCHES, CD.DENSE_LAUNCHES) == \
+        (before[0] + 1, before[1] + 1, before[2])
+    assert surface_nodes(got) == surface_nodes(build_surfaces(*args, device="cpu", **kw))
+
+
 # (B, Sq, Skv, H, Hkv, D): MHA, GQA (group 4), MQA, ragged, q a suffix of
 # a longer kv (prefill into a cache), the full-width prefill shape, and
 # head dims that take the wgmma kernel's other paths in bf16: D 64 over a

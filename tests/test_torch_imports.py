@@ -22,6 +22,8 @@ from repro.core import profiles as RP
 from repro.core import sweep as RS
 from repro_torch import convert
 from repro_torch.core import cuda_dp as CD
+from repro_torch.core import planner as PPL
+from repro_torch.core import surface as PSF
 from repro_torch.core import sweep as PS
 from repro_torch.device import resolve_device, resolve_dtype
 
@@ -77,19 +79,40 @@ def small_grid():
         links={"udp": RP.UDP}, n_devices=(2, 3), devices=(RP.ESP32,)))
 
 
-@pytest.mark.parametrize("entry", ["sweep", "batched_optimal_dp",
-                                   "cuda_optimal_dp", "cuda_fused_optimal_dp"])
-def test_default_device_is_the_card(monkeypatch, entry):
-    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+def small_model():
+    return convert.cost_model_from_reference(RP.paper_cost_model("mobilenet_v2", "udp"))
+
+
+def default_entry_calls():
+    """Every entry point whose exact DP runs on the card by default, called
+    with ``backend=None`` (or no backend at all)."""
     C = np.ones((2, 2, 4, 4))
-    calls = {
+    links = {"udp": small_model().link}
+    return {
         "sweep": lambda: PS.sweep(small_grid()),
         "batched_optimal_dp": lambda: PS.batched_optimal_dp(C),
         "cuda_optimal_dp": lambda: CD.cuda_optimal_dp(C),
         "cuda_fused_optimal_dp": lambda: CD.cuda_fused_optimal_dp(C[0], None, C[:, 0, 0]),
+        "solve_batched": lambda: PS.solve_batched(C, backend=None),
+        "solve_multi_channel": lambda: PS.solve_multi_channel(
+            np.stack([C, C]), energy_budget=2.0),
+        "solve_variant_bank": lambda: PS.solve_variant_bank(np.stack([C, C])),
+        "plan_split_batch": lambda: PPL.plan_split_batch([small_model()] * 2, 3),
+        "plan_split": lambda: PPL.plan_split(small_model(), 3, solver="batched_dp"),
+        "build_surfaces": lambda: PSF.build_surfaces(small_model(), links, (2, 3),
+                                                     solver="batched_dp"),
+        "budgeted build_surfaces": lambda: PSF.build_surfaces(
+            small_model(), links, (2,), solver="batched_dp", energy_budget=1.0),
+        "degradation_surfaces": lambda: small_grid().degradation_surfaces(
+            solver="batched_dp"),
     }
+
+
+@pytest.mark.parametrize("entry", sorted(default_entry_calls()))
+def test_default_device_is_the_card(monkeypatch, entry):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA card"):
-        calls[entry]()
+        default_entry_calls()[entry]()
 
 
 def test_device_and_dtype_resolution():
@@ -133,20 +156,62 @@ def test_wrappers_reject_what_the_kernels_do_not_take(case):
         _bad_dense_calls()[case]()
 
 
-@pytest.mark.parametrize("kwargs", [dict(solver="batched_beam"),
-                                    dict(solver="batched_greedy"),
+@pytest.mark.parametrize("kwargs", [dict(solver="batched_beam", backend="cuda"),
+                                    dict(solver="batched_greedy", backend="cuda"),
                                     dict(backend="pallas"),
                                     dict(backend="sharded")],
                          ids=lambda kw: next(iter(kw.values())))
 def test_unported_solvers_and_backends_raise_by_name(kwargs):
+    """The reference's backends the port lacks, and the host heuristics
+    on a card backend, are refused by name."""
     name = next(iter(kwargs.values()))
     with pytest.raises(ValueError, match=name):
         PS.sweep(small_grid(), device="cpu", **kwargs)
 
 
 def test_unported_surfaces_raise():
-    with pytest.raises(ValueError, match="degradation_surface"):
-        small_grid().degradation_surface()
+    """Surfaces are ported; the reference's backends the port lacks are
+    refused by name."""
+    for backend in ("pallas", "jax", "sharded"):
+        with pytest.raises(ValueError, match=backend):
+            small_grid().degradation_surface(solver="batched_dp", backend=backend)
+
+
+def refusing_calls(solver, backend):
+    C = np.ones((3, 2, 4, 4))
+    links = {"udp": small_model().link}
+    kw = dict(solver=solver, backend=backend, device="cpu")
+    return {
+        "sweep": lambda: PS.sweep(small_grid(), **kw),
+        "solve_batched": lambda: PS.solve_batched(C, **kw),
+        "solve_multi_channel": lambda: PS.solve_multi_channel(
+            np.stack([C, C]), energy_budget=2.0, **kw),
+        "solve_variant_bank": lambda: PS.solve_variant_bank(np.stack([C, C]), **kw),
+        "plan_split_batch": lambda: PPL.plan_split_batch([small_model()] * 3, 3, **kw),
+        "build_surfaces": lambda: PSF.build_surfaces(small_model(), links, (2,), **kw),
+    }
+
+
+@pytest.mark.parametrize("solver", ["batched_beam", "batched_greedy"])
+@pytest.mark.parametrize("entry", sorted(refusing_calls("batched_beam", "cuda")))
+def test_host_heuristics_refuse_card_backends(entry, solver):
+    """Beam and greedy are numpy algorithms on the host: a card backend is
+    refused, never silently replaced."""
+    for backend in ("cuda", "torch"):
+        with pytest.raises(ValueError, match=f"{solver} supports backend='numpy' only"):
+            refusing_calls(solver, backend)[entry]()
+
+
+@pytest.mark.parametrize("backend", ["jax", "pallas", "sharded"])
+@pytest.mark.parametrize("entry", sorted(refusing_calls("batched_dp", "jax")))
+def test_reference_backends_refused_by_name(entry, backend):
+    with pytest.raises(ValueError, match=f"backend {backend!r} is not ported"):
+        refusing_calls("batched_dp", backend)[entry]()
+
+
+def test_mesh_spec_is_refused():
+    with pytest.raises(ValueError, match="sharded"):
+        PS.solve_batched(np.ones((2, 2, 4, 4)), backend="numpy", mesh_spec=object())
 
 
 @pytest.mark.parametrize("layout", ["checkout", "installed", "override"])
