@@ -6,7 +6,9 @@
 Drives the port's main paths (``repro_torch``; nothing of JAX or of the
 reference package ``repro``) on the card and fails on any fault:
 
-1. device: the card's name and power limit, the torch and CUDA versions;
+1. device: the card's name, power limit and clocks (SM, memory, maximum
+   SM; read again before phase 15 and at the end), the torch and CUDA
+   versions;
 2. build: every source under ``src/repro_torch/csrc`` with ``nvcc`` for
    sm_90a, one ``nvcc`` per source, all started together;
 3. DP kernels against their plain PyTorch versions on the card (dense and
@@ -124,7 +126,34 @@ reference package ``repro``) on the card and fails on any fault:
    each solver's latency, regret and host wall time; (d) the launches by
    path, the host wall times of (a) and (b) beside their twins, and a
    traced build of (b) (device busy time, idle share, the kernel's share);
-15. a JSON line of per-kernel results, the card line, and the last line
+15. the planner tier, online replanning and the fleet gateway on the card,
+   with the launch counters read around this phase only (both DP kernels
+   must launch; the counts by path must add up to the phase's totals):
+   (a) phase 14's two 2,048-model batches through
+   ``PlannerService().plan(models_spec(...))`` and its JSON round trip,
+   equal to the kwargs call; ``solve_from_json`` on a ``tensor_spec``
+   over the MobileNet-V2 batch's stacked ``C`` equal to
+   ``PlannerService().solve``; a ``backend="pallas"`` spec refused;
+   (b) ``fleet_managers(solver="optimal_dp")`` for fleets 2-5 on the
+   default surface axes with a ``ManualExecutor``, on the card (float32)
+   and on ``device="cpu"``, through one drift trace (1x, 100x, 2000x
+   nominal, back to 1x): equal decision histories and families, every
+   rebuilt family equal to ``build_sync`` of its request, the dense
+   launches equal to the exact re-solves and the fused ones to the
+   builds; (c) ``surface_parity_report`` empty in float64 on the card,
+   and in float32 every differing node a float64 tie; (d) a
+   ``FleetGateway`` (``solver="optimal_dp"``) at ``gateway_load.py``'s
+   full size, 10,000 sessions over fleets 2-5: registration, 3 waves of
+   observes, tokens on 2,000 sessions, a 10% storm on the background
+   thread until every drifted session adopted, the audits (no stale
+   adoption, one shared rebuilder, QoS percentiles == numpy), the fused
+   launches equal to the family build plus the thread's rebuilds, and a
+   traced storm in a fresh ``spawn`` process (device busy time, idle
+   share); (e) one rebuild on
+   a ``spawn`` process pool with ``device="cuda"``, node-identical to the
+   thread-built family. Every step's wall time beside its
+   ``backend="numpy"`` twin;
+16. a JSON line of per-kernel results, the card line, and the last line
    ``{"ok": true, "device": {...}}``.
 
 Exits non-zero, printing no result, when no card is present.
@@ -191,11 +220,18 @@ GEMM_CASES = [("ragged", 100, 200, 300), ("one row", 1, 4096, 11008),
               ("one row, K 200 (W8A8 on mma.sync only)", 1, 200, 1000)]
 
 
-def card_line() -> str:
+def smi(fields: str) -> str:
+    """The first card's ``fields`` as ``nvidia-smi --query-gpu`` gives them."""
     out = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        ["nvidia-smi", f"--query-gpu={fields}", "--format=csv,noheader"],
         capture_output=True, text=True, check=True, timeout=60)
     return out.stdout.strip().splitlines()[0]
+
+
+def card_line() -> str:
+    """The card's name and power limit, and its SM clock, memory clock and
+    maximum SM clock when read: printed beside every number kept."""
+    return smi("name,power.limit,clocks.sm,clocks.mem,clocks.max.sm")
 
 
 def tie_rich_C(S, N, L, seed, inf_frac=0.15):
@@ -1698,6 +1734,543 @@ def phase_planner(card) -> dict:
     return {"launches": launches, "tiled": tiled, "by_path": by_path}
 
 
+# ---------------------------------------------------------------------------
+# The planner tier, online replanning and the fleet gateway (phase 15)
+# ---------------------------------------------------------------------------
+
+# one MobileNet-V2 cut's activation: the hop the gateway benchmark meters
+NBYTES = 5488
+# benchmarks/gateway_load.py's full mode: its surface axes, 10,000
+# sessions, 3 waves of observes, tokens on 2,000 sessions, a 10% storm at
+# 100x nominal (one EWMA step lands at 20.8x: off the 16x surface)
+GATEWAY_GRID = {"pt_scale": (1.0, 4.0, 16.0), "loss_p": (0.0, 0.1)}
+GATEWAY_SESSIONS = 10_000
+GATEWAY_SIZES = (2, 3, 4, 5)
+STEADY_WAVES = 3
+TOKEN_SESSIONS = 2_000
+TOKENS_PER_SESSION = 2
+STORM_FACTOR = 100.0
+ADOPTION_TIMEOUT_S = 120.0
+# the traced storm drifts another 10% of the fleet past the surfaces the
+# first storm built (re-centred up to about 83x)
+TRACED_STORM_FACTOR = 10_000.0
+# the replanning trace of (b): (factor x nominal hop latency, steps). The
+# default surface reaches 512x: 100x stays on it, 2000x leaves it
+REPLAN_TRACE = ((1.0, 3), (100.0, 6), (2000.0, 6), (2000.0, 6), (1.0, 30), (1.0, 4))
+
+
+def batched_equal(a, b) -> bool:
+    """Two ``BatchedSolverResult``s equal in every field but the wall time."""
+    arrays = ("splits", "cost_s", "feasible", "n_devices_s", "variant")
+    return (a.solver, a.backend, a.n_devices) == (b.solver, b.backend, b.n_devices) and all(
+        (getattr(a, k) is None and getattr(b, k) is None)
+        or np.array_equal(getattr(a, k), getattr(b, k)) for k in arrays)
+
+
+def phase_spec_tier(card) -> None:
+    """(a) The spec tier on phase 14's batches: ``PlannerService().plan``
+    on a ``models_spec`` (and on its JSON round trip) equal to the kwargs
+    call on the card; ``solve_from_json`` on a ``tensor_spec`` over the
+    MobileNet-V2 batch's stacked ``C`` equal to ``PlannerService().solve``;
+    a spec naming ``backend="pallas"`` refused. Each wall beside its
+    ``backend="numpy"`` twin."""
+    from repro_torch.core import profiles as PP
+    from repro_torch.core import sweep as SW
+    from repro_torch.core.planner import plan_split_batch
+    from repro_torch.core.spec import (PlannerService, PlanSpec, models_spec,
+                                       solve_from_json, tensor_spec)
+
+    for name, prof in (("mobilenet_v2", PP.mobilenet_cost_profile()),
+                       ("resnet50", PP.resnet50_cost_profile())):
+        models, ns = planner_fleet(prof)
+        kwargs, t_kw = timed_call(lambda: plan_split_batch(models, ns))
+        spec = models_spec(models, n_devices=ns)
+        via_spec, t_spec = timed_call(lambda: PlannerService().plan(spec, models))
+        again, t_json = timed_call(
+            lambda: PlannerService().plan(PlanSpec.from_json(spec.to_json()), models))
+        _, t_np = timed_call(lambda: plan_split_batch(models, ns, backend="numpy"))
+        if not (plans_equal(via_spec, kwargs) and plans_equal(again, kwargs)):
+            raise AssertionError(f"spec tier {name}: PlannerService().plan != kwargs call")
+        print(f"  {name}: PlannerService().plan(models_spec) == plan_split_batch (kwargs) "
+              f"== the spec's JSON round trip, {len(models)} cost models; wall kwargs "
+              f"{t_kw:.3f} s, spec {t_spec:.3f} s, JSON spec {t_json:.3f} s, numpy twin "
+              f"{t_np:.3f} s [{card}]")
+    models, ns = planner_fleet(PP.mobilenet_cost_profile())
+    C = SW.stack_cost_tensors(models, ns)
+    spec = tensor_spec(C, n_devices=ns)
+    in_proc, t_in = timed_call(lambda: PlannerService().solve(spec, C))
+    via_json, t_json = timed_call(lambda: solve_from_json(spec.to_json(), C))
+    if not batched_equal(via_json, in_proc):
+        raise AssertionError("solve_from_json != PlannerService().solve")
+    _, t_np = timed_call(lambda: SW.solve_batched(C, backend="numpy", n_devices=ns))
+    print(f"  tensor_spec over the stacked C {C.shape} ({C.nbytes / 1e6:.1f} MB float64): "
+          f"solve_from_json == PlannerService().solve; wall {t_json:.3f} s, in process "
+          f"{t_in:.3f} s, numpy twin {t_np:.3f} s [{card}]")
+    refused = None
+    try:
+        PlannerService().solve(tensor_spec(C[:8], backend="pallas"), C[:8])
+    except ValueError as e:
+        refused = str(e)
+    if refused is None or "not ported" not in refused:
+        raise AssertionError(f"a backend='pallas' spec was not refused by name ({refused})")
+    print(f"  a spec naming backend='pallas' is refused: {refused}")
+
+
+def replan_fleet(**kw):
+    """MobileNet-V2 managers (``solver="optimal_dp"``) for fleets of 2-5 on
+    the default surface axes, sharing one rebuilder on a ``ManualExecutor``."""
+    from repro_torch.core import profiles as PP
+    from repro_torch.core.adaptive import fleet_managers
+    from repro_torch.core.async_replan import ManualExecutor
+
+    ex = ManualExecutor()
+    fleet = fleet_managers(PP.paper_cost_model("mobilenet_v2", "esp_now"),
+                           dict(PP.PROTOCOLS), (2, 3, 4, 5), solver="optimal_dp",
+                           async_rebuild=ex, **kw)
+    return fleet, ex, next(iter(fleet.values())).rebuilder
+
+
+def drive_replans(fleet, ex, rebuilder) -> list:
+    """Each manager's hops on its current protocol along ``REPLAN_TRACE``,
+    the queued rebuilds run after each stage. Returns each completed
+    build's request and family, taken as the build publishes it."""
+    from repro_torch.core import profiles as PP
+
+    built = []
+    for factor, steps in REPLAN_TRACE:
+        for _ in range(steps):
+            for m in fleet.values():
+                p = m.current.protocol
+                m.observe(p, NBYTES, factor * PP.PROTOCOLS[p].transmission_latency_s(NBYTES))
+        req = rebuilder.inflight()
+        ex.run_all()
+        if req is not None:
+            built.append((req, {n: s for n, (g, s) in rebuilder._results.items()
+                                if g == req.generation}))
+    return built
+
+
+def phase_replanning(card) -> None:
+    """(b) ``fleet_managers(solver="optimal_dp")`` with a ``ManualExecutor``
+    on the card (float32) and on ``device="cpu"``, one drift trace through
+    both: equal decision histories and rebuilt and adopted families, each
+    rebuilt family equal to ``build_sync`` of its request; the card's
+    launches equal to the exact re-solves (dense) and the builds (fused)."""
+    import torch
+
+    from repro_torch.core import cuda_dp as CD
+
+    runs = {}
+    for label, kw in (("card", {}), ("cpu", dict(device="cpu")),
+                      ("numpy", dict(backend="numpy"))):
+        before = (CD.DENSE_LAUNCHES, CD.FUSED_LAUNCHES)
+        t0 = time.perf_counter()
+        fleet, ex, rb = replan_fleet(dtype=torch.float32, **kw)
+        built = drive_replans(fleet, ex, rb)
+        runs[label] = dict(fleet=fleet, rb=rb, built=built, wall=time.perf_counter() - t0,
+                           launched=(CD.DENSE_LAUNCHES - before[0],
+                                     CD.FUSED_LAUNCHES - before[1]))
+    on_card, cpu = runs["card"], runs["cpu"]
+
+    def history(fleet):
+        return {n: [d.__dict__ for d in m.history] for n, m in fleet.items()}
+
+    if history(on_card["fleet"]) != history(cpu["fleet"]):
+        raise AssertionError("replanning: card decision histories != device='cpu'")
+    if [r.generation for r, _ in on_card["built"]] != [r.generation for r, _ in cpu["built"]] \
+            or not all(families_equal(a, b)
+                       for (_, a), (_, b) in zip(on_card["built"], cpu["built"])):
+        raise AssertionError("replanning: card rebuilt families != device='cpu'")
+    if not families_equal({n: m.surface for n, m in on_card["fleet"].items()},
+                          {n: m.surface for n, m in cpu["fleet"].items()}):
+        raise AssertionError("replanning: card adopted surfaces != device='cpu'")
+    rb = on_card["rb"]
+    counters = {n: m.counters() for n, m in on_card["fleet"].items()}
+    resolves = sum(c["exact_fallbacks"] for c in counters.values()) + len(counters)
+    expected = (resolves, 1 + rb.builds_completed)
+    if on_card["launched"] != expected:
+        raise AssertionError(f"replanning: launches (dense, fused) {on_card['launched']}, "
+                             f"expected {expected} (re-solves; family + rebuilds)")
+    swaps = sum(c["surface_swaps"] for c in counters.values())
+    if not on_card["built"] or not swaps or resolves == len(counters):
+        raise AssertionError("replanning: the trace made no rebuild, swap or re-solve")
+    for req, fam in on_card["built"]:
+        if not families_equal(fam, rb.build_sync(req)):
+            raise AssertionError(f"replanning: generation {req.generation} != build_sync")
+    decisions = sum(len(m.history) for m in on_card["fleet"].values())
+    nodes = sum(m.surface.n_nodes for m in on_card["fleet"].values())
+    print(f"  fleets 2-5 on the default axes: {decisions} decisions, {resolves} exact "
+          f"re-solves (dense, the 4 initial ones included), {rb.builds_completed} rebuilds "
+          f"(fused; sizes {[r.sizes for r, _ in on_card['built']]}), {swaps} swaps, "
+          f"{nodes} adopted nodes at the end: card == device='cpu' decision "
+          f"for decision, field by field, and node for node; every rebuilt family == "
+          f"build_sync of its request; launches (dense, fused) {on_card['launched']}")
+    print(f"  wall card {on_card['wall']:.3f} s, cpu {cpu['wall']:.3f} s, numpy twin "
+          f"{runs['numpy']['wall']:.3f} s [{card}]")
+    for n, m in on_card["fleet"].items():
+        print(f"    n={n}: " + "; ".join(f"{d.protocol} {d.splits} @{d.step}"
+                                         for d in m.history))
+
+
+def surface_ties(manager) -> tuple[int, int, float]:
+    """Every node of a float32 manager's surface against the exact re-solve
+    at its state, as ``surface_parity_report`` forces it: the nodes whose
+    plans differ must be float32 near-ties, both plans repriced in float64
+    at the node's link within 4 * N * eps32. Returns (differing nodes,
+    nodes, the largest relative gap)."""
+    tol = 4 * manager.n_devices * F32_EPS
+    solver = manager._batched_solver_name()
+    differ = total = 0
+    worst = 0.0
+    for name, ps in manager.surface.protocols.items():
+        est = manager.estimators[name]
+        saved = (est._packet_time_s, est._loss)
+        for i, pt in enumerate(ps.packet_time_s):
+            for j, lp in enumerate(ps.loss_p):
+                total += 1
+                est._packet_time_s, est._loss = pt, lp
+                link = est.current_profile()
+                plan = manager._batched_plans([link], solver)[0]
+                node = ps.node(i, j)
+                if plan.splits == node.splits:
+                    continue
+                differ += 1
+                model = manager._model_for(link)
+                a = model.end_to_end_s(plan.splits, with_overheads=False)
+                b = model.end_to_end_s(node.splits, with_overheads=False)
+                gap = abs(a - b) / b
+                worst = max(worst, gap)
+                if not gap <= tol:
+                    raise AssertionError(f"surface parity n={manager.n_devices} {name} "
+                                         f"({pt}, {lp}): {plan.splits} vs {node.splits}, "
+                                         f"not a float32 tie ({gap})")
+        est._packet_time_s, est._loss = saved
+    return differ, total, worst
+
+
+def phase_surface_parity(card) -> None:
+    """(c) ``surface_parity_report`` on the card in float64 is empty for
+    every fleet size (fused surface, dense re-solves); in float32 the
+    differing nodes are counted and each is a float64 tie."""
+    import torch
+
+    from repro_torch.core.adaptive import surface_parity_report
+
+    walls = {}
+    for label, kw in (("card", dict(dtype=torch.float64)), ("numpy", dict(backend="numpy"))):
+        fleet, _, rb = replan_fleet(**kw)
+        t0 = time.perf_counter()
+        bad = {n: surface_parity_report(m) for n, m in fleet.items()}
+        walls[label] = time.perf_counter() - t0
+        rb.shutdown()
+        if any(bad.values()):
+            raise AssertionError(f"surface parity ({label}): "
+                                 f"{ {n: b[:3] for n, b in bad.items() if b} }")
+        nodes = sum(m.surface.n_nodes for m in fleet.values())
+    fleet, _, rb = replan_fleet(dtype=torch.float32)
+    t0 = time.perf_counter()
+    ties = {n: surface_ties(m) for n, m in fleet.items()}
+    walls["card float32"] = time.perf_counter() - t0
+    rb.shutdown()
+    differ = sum(d for d, _, _ in ties.values())
+    total = sum(t for _, t, _ in ties.values())
+    worst = max(w for _, _, w in ties.values())
+    print(f"  float64 on the card: surface_parity_report empty for fleets 2-5 ({nodes} "
+          f"nodes); float32: {differ} of {total} nodes differ, each a float64 tie (largest "
+          f"relative gap {worst:.3g}); wall float64 report {walls['card']:.3f} s, float32 "
+          f"{walls['card float32']:.3f} s, numpy twin {walls['numpy']:.3f} s [{card}]")
+
+
+def gateway_storm(gw, sids, factor) -> dict:
+    """Drift ``sids`` at ``factor`` x nominal on the real background thread
+    until each has adopted a surface built after the storm began (at most
+    ``ADOPTION_TIMEOUT_S``); as ``gateway_load.py``'s storm phase."""
+    gen0 = gw.rebuilder.generation
+    req0, started0 = gw.rebuilder.requests, gw.rebuilder.builds_started
+    t0 = time.perf_counter()
+    rounds, remaining = 0, list(sids)
+    while remaining and time.perf_counter() - t0 < ADOPTION_TIMEOUT_S:
+        rounds += 1
+        for sid in remaining:
+            sess = gw.sessions[sid]
+            gw.submit_observe(sid, NBYTES,
+                              sess.meter.link.transmission_latency_s(NBYTES) * factor)
+        gw.pump()
+        remaining = [s for s in remaining
+                     if not any(g > gen0 for _, g in gw.sessions[s].handle.adoptions)]
+        if remaining:
+            time.sleep(0.005)  # a build in flight on the worker thread
+    wall = time.perf_counter() - t0
+    if remaining:
+        raise AssertionError(f"gateway storm: {len(remaining)} of {len(sids)} sessions "
+                             f"never adopted within {ADOPTION_TIMEOUT_S} s")
+    requests = gw.rebuilder.requests - req0
+    started = gw.rebuilder.builds_started - started0
+    return {"drifted": len(sids), "rounds": rounds, "adoption_wait_s": wall,
+            "rebuild_requests": requests, "builds_started": started,
+            "coalesce_x": requests / max(1, started)}
+
+
+def settle(gw):
+    """Snapshot until no rebuild is queued or in flight (a snapshot
+    publishes finished builds and launches queued ones). Returns the first
+    snapshot taken while the rebuilder was idle before and after it, which
+    therefore holds every finished build."""
+    t0 = time.perf_counter()
+    while True:
+        idle = gw.rebuilder.inflight() is None and not gw.rebuilder._queued
+        snap = gw.snapshot()
+        if idle and gw.rebuilder.inflight() is None and not gw.rebuilder._queued:
+            return snap
+        if time.perf_counter() - t0 > ADOPTION_TIMEOUT_S:
+            raise AssertionError("gateway: the rebuilds never settled")
+        time.sleep(0.005)
+
+
+def make_gateway(backend=None):
+    """``gateway_load.py``'s gateway with ``solver="optimal_dp"`` over
+    fleets 2-5."""
+    from repro_torch.core import profiles as PP
+    from repro_torch.runtime.gateway import FleetGateway
+
+    return FleetGateway(PP.paper_cost_model("mobilenet_v2", "esp_now"), dict(PP.PROTOCOLS),
+                        GATEWAY_SIZES, solver="optimal_dp", surface_grid=GATEWAY_GRID,
+                        max_pending=2 * GATEWAY_SESSIONS, backend=backend)
+
+
+def traced_storm(card) -> dict:
+    """In a fresh process (a trace late in a long process has come back
+    without device events on this machine): the gateway at full size, the
+    100x storm untraced (it starts the worker thread), then a storm on
+    another 10% of the fleet at ``TRACED_STORM_FACTOR`` under the
+    profiler. Returns the trace and the storm's report."""
+    gw = make_gateway()
+    try:
+        for i in range(GATEWAY_SESSIONS):
+            gw.register(f"s{i}", GATEWAY_SIZES[i % len(GATEWAY_SIZES)], bytes_per_token=NBYTES)
+        sids, tenth = list(gw.sessions), GATEWAY_SESSIONS // 10
+        gateway_storm(gw, sids[-tenth:], STORM_FACTOR)
+        settle(gw)
+        storm = {}
+        trace = traced_run("gateway storm (a fresh process)", lambda: storm.update(
+            gateway_storm(gw, sids[-2 * tenth:-tenth], TRACED_STORM_FACTOR)), card)
+        if settle(gw).counters["stale_adoption_violations"]:
+            raise AssertionError("gateway: a stale adoption in the traced storm")
+        return {"trace": trace, "storm": storm}
+    finally:
+        gw.close()
+
+
+def gateway_run(card, backend=None) -> dict:
+    """``gateway_load.py``'s full mode on a ``FleetGateway`` with
+    ``solver="optimal_dp"`` over fleets 2-5: registration, 3 waves of
+    in-envelope observes, a token loop over 2,000 sessions, a 10% drift
+    storm on the real background thread, the audits."""
+    from repro_torch.core import cuda_dp as CD
+    from repro_torch.runtime.stats import percentile
+
+    before = CD.FUSED_LAUNCHES
+    t0 = time.perf_counter()
+    gw = make_gateway(backend)
+    rep = {"family_s": time.perf_counter() - t0}
+    try:
+        samples = []
+        t0 = time.perf_counter()
+        for i in range(GATEWAY_SESSIONS):
+            t1 = time.perf_counter()
+            gw.register(f"s{i}", GATEWAY_SIZES[i % len(GATEWAY_SIZES)], bytes_per_token=NBYTES)
+            samples.append(time.perf_counter() - t1)
+        rep["register_s"] = time.perf_counter() - t0
+        rep["register_us_p50"] = percentile(samples, 50.0) * 1e6
+        rep["register_us_p99"] = percentile(samples, 99.0) * 1e6
+        sids = list(gw.sessions)
+        t0 = time.perf_counter()
+        for _ in range(STEADY_WAVES):
+            for sid in sids:
+                gw.submit_observe(sid, NBYTES,
+                                  gw.sessions[sid].meter.link.transmission_latency_s(NBYTES))
+            gw.pump()
+        rep["steady_s"] = time.perf_counter() - t0
+        p50, p99 = gw.qos.fleet_percentiles()
+        rep["observe_us_p50"], rep["observe_us_p99"] = p50 * 1e6, p99 * 1e6
+        t0 = time.perf_counter()
+        for _ in range(TOKENS_PER_SESSION):
+            for sid in sids[:TOKEN_SESSIONS]:
+                gw.submit_token(sid)
+            gw.pump()
+        rep["tokens_s"] = time.perf_counter() - t0
+        p50, p99 = gw.token_window.percentiles((50.0, 99.0))
+        rep["token_us_p50"], rep["token_us_p99"] = p50 * 1e6, p99 * 1e6
+        tenth = GATEWAY_SESSIONS // 10
+        rep["storm"] = gateway_storm(gw, sids[-tenth:], STORM_FACTOR)
+        snap = settle(gw)
+        req = gw.rebuilder.last_request
+        thread_built = {n: gw.fanout.latest(n)[1] for n in req.sizes}
+        if any(gw.fanout.latest(n)[0] != req.generation for n in req.sizes):
+            raise AssertionError("gateway: the last build was not published")
+        oracle = np.asarray(gw.qos.global_window.values())
+        if not (snap.p50_s == float(np.percentile(oracle, 50.0))
+                and snap.p99_s == float(np.percentile(oracle, 99.0))):
+            raise AssertionError("gateway: QoS percentiles != the numpy oracle")
+        if snap.counters["stale_adoption_violations"]:
+            raise AssertionError(f"gateway: {snap.counters['stale_adoption_violations']} "
+                                 "stale adoptions")
+        if {id(s.handle._fanout.rebuilder) for s in gw.sessions.values()} != {id(gw.rebuilder)}:
+            raise AssertionError("gateway: the sessions do not share one rebuilder")
+        if gw.rebuild_errors or snap.counters.get("events_shed", 0):
+            raise AssertionError(f"gateway: {gw.rebuild_errors} rebuild errors, "
+                                 f"{snap.counters.get('events_shed', 0)} events shed")
+        rep["builds"] = gw.rebuilder.builds_completed
+        rep["fused"] = CD.FUSED_LAUNCHES - before
+        if not families_equal(thread_built, gw.rebuilder.build_sync(req)):
+            raise AssertionError("gateway: a thread-built family != build_sync")
+    finally:
+        gw.close()
+    return rep
+
+
+def phase_gateway(card) -> None:
+    """(d) The gateway at full size on the card, beside its numpy twin; the
+    fused launches equal the family build plus the rebuilds the worker
+    thread ran; a traced storm in a fresh ``spawn`` process."""
+    import multiprocessing as mp
+    from concurrent.futures import ProcessPoolExecutor
+
+    card_rep = gateway_run(card)
+    twin = gateway_run(card, backend="numpy")
+    with ProcessPoolExecutor(max_workers=1, mp_context=mp.get_context("spawn")) as pool:
+        traced = pool.submit(traced_storm, card).result()
+    if card_rep["fused"] != 1 + card_rep["builds"]:
+        raise AssertionError(f"gateway: {card_rep['fused']} fused launches, expected 1 + "
+                             f"{card_rep['builds']} builds (family + rebuilds)")
+    for label, rep in (("card", card_rep), ("numpy twin", twin)):
+        st = rep["storm"]
+        print(f"  {label}: family {rep['family_s']:.3f} s; registration "
+              f"{GATEWAY_SESSIONS} sessions in {rep['register_s']:.3f} s "
+              f"({GATEWAY_SESSIONS / rep['register_s']:.1f}/s, p50 "
+              f"{rep['register_us_p50']:.2f} us, p99 {rep['register_us_p99']:.2f} us); "
+              f"steady {STEADY_WAVES * GATEWAY_SESSIONS} observes in {rep['steady_s']:.3f} s, "
+              f"p50 {rep['observe_us_p50']:.2f} us, p99 {rep['observe_us_p99']:.2f} us; "
+              f"tokens {TOKENS_PER_SESSION * TOKEN_SESSIONS} in {rep['tokens_s']:.3f} s (p50 "
+              f"{rep['token_us_p50']:.2f} us, p99 {rep['token_us_p99']:.2f} us); storm "
+              f"{st['drifted']} sessions at {STORM_FACTOR:g}x: {st['rebuild_requests']} "
+              f"requests -> {st['builds_started']} builds (coalesce_x "
+              f"{st['coalesce_x']:.1f}), all adopted in {st['rounds']} rounds, "
+              f"{st['adoption_wait_s']:.4f} s [{card}]")
+    print(f"  audits (card and twin): zero stale adoptions, one shared rebuilder, QoS "
+          f"p50/p99 == np.percentile, the storm's last thread-built family == build_sync "
+          f"of its request; fused launches {card_rep['fused']} = 1 family + "
+          f"{card_rep['builds']} rebuilds on the worker thread")
+    trace, st = traced["trace"], traced["storm"]
+    if trace is None:
+        print("  traced storm: device busy time not measured (the trace held no device events)")
+    else:
+        kernel_ms = sum(ms for k, ms in trace["ops"].items() if "fused_dp" in k)
+        print(f"  traced storm ({st['drifted']} sessions at {TRACED_STORM_FACTOR:g}x, "
+              f"{st['builds_started']} builds, {st['adoption_wait_s']:.4f} s): device busy "
+              f"{trace['busy_ms']:.4f} ms, idle share "
+              f"{1 - trace['busy_ms'] / trace['wall_ms']:.6f}, the fused kernel "
+              f"{kernel_ms:.4f} ms [{card}]")
+
+
+def phase_pool_rebuild(card) -> None:
+    """(e) One rebuild on a ``spawn`` process pool with ``device="cuda"``
+    (the spec's JSON and the device name cross the boundary; the child
+    launches the fused kernel): node for node the family the worker thread
+    builds for the same request. The numpy twin goes through the same
+    pool."""
+    import multiprocessing as mp
+    from concurrent.futures import ProcessPoolExecutor
+
+    from repro_torch.core import profiles as PP
+    from repro_torch.core.async_replan import SurfaceRebuilder
+
+    model = PP.paper_cost_model("mobilenet_v2", "esp_now")
+    states = {"esp_now": (PP.ESP_NOW.packet_time_s() * 2000.0, 0.05),
+              "ble": (PP.BLE.packet_time_s() * 700.0, 0.2)}
+    sizes = (2, 3, 4, 5)
+    pool = ProcessPoolExecutor(max_workers=1, mp_context=mp.get_context("spawn"))
+    families, walls, requests = {}, {}, {}
+    try:
+        for label, executor, kw in (("thread", None, dict(device="cuda")),
+                                    ("spawn", pool, dict(device="cuda")),
+                                    ("spawn numpy", pool, dict(backend="numpy"))):
+            rb = SurfaceRebuilder(model, dict(PP.PROTOCOLS), solver="batched_dp",
+                                  executor=executor, **kw)
+            t0 = time.perf_counter()
+            for n in sizes:
+                rb.request(n, states)
+            got = None
+            while got is None and time.perf_counter() - t0 < ADOPTION_TIMEOUT_S:
+                got = rb.poll(2)  # the first poll launches the build
+                if got is None:
+                    time.sleep(0.005)
+            walls[label] = time.perf_counter() - t0
+            if got is None:
+                raise AssertionError(f"{label} rebuild never adopted")
+            families[label] = {2: got, **{n: rb.poll(n) for n in sizes[1:]}}
+            requests[label] = rb.last_request
+            rb.shutdown()
+            if label == "thread" and not families_equal(families[label],
+                                                        rb.build_sync(rb.last_request)):
+                raise AssertionError("thread-built family != build_sync")
+    finally:
+        pool.shutdown(wait=True)
+    if requests["spawn"].sizes != sizes or not families_equal(families["spawn"],
+                                                              families["thread"]):
+        raise AssertionError("spawn-pool rebuild != the thread-built family")
+    nodes = sum(s.n_nodes for s in families["spawn"].values())
+    print(f"  spawn pool, device='cuda': fleets {sizes}, {nodes} nodes == the "
+          f"thread-built family (== build_sync) node for node; wall spawn {walls['spawn']:.3f} s (the "
+          f"worker's start included), thread {walls['thread']:.3f} s, numpy twin on the "
+          f"warm pool {walls['spawn numpy']:.3f} s [{card}]")
+
+
+def phase_replan_tier(card) -> dict:
+    """Phase 15 with the launch counters zeroed just before it and read
+    just after: both DP kernels must launch, and the counts by path add up
+    to the phase's totals."""
+    from repro_torch.core import cuda_dp as CD
+
+    CD.reset_launch_counts()
+    counts = {}
+
+    def mark(path):
+        counts[path] = (CD.DENSE_LAUNCHES, CD.FUSED_LAUNCHES, CD.FUSED_TILED_LAUNCHES)
+
+    t0 = time.perf_counter()
+    print("  (a) the spec tier")
+    phase_spec_tier(card)
+    mark("spec_tier")
+    print("  (b) online replanning, deterministic")
+    phase_replanning(card)
+    mark("replanning")
+    print("  (c) surface parity")
+    phase_surface_parity(card)
+    mark("surface_parity")
+    print("  (d) the gateway at full size")
+    phase_gateway(card)
+    mark("gateway")
+    print("  (e) a process-pool rebuild")
+    phase_pool_rebuild(card)
+    mark("pool_rebuild")
+    launches = {"dense_dp": CD.DENSE_LAUNCHES, "fused_dp": CD.FUSED_LAUNCHES}
+    tiled = CD.FUSED_TILED_LAUNCHES
+    by_path, prev = {}, (0, 0, 0)
+    for path, now in counts.items():
+        by_path[path] = {"dense_dp": now[0] - prev[0], "fused_dp": now[1] - prev[1]}
+        prev = now
+    summed = {k: sum(p[k] for p in by_path.values()) for k in launches}
+    print(f"  launches in this phase: {launches} (fused on the tiled kernel: {tiled}); by "
+          f"path {by_path}; wall {time.perf_counter() - t0:.1f} s")
+    if summed != launches:
+        raise AssertionError(f"phase 15: launches by path {summed} != totals {launches}")
+    if not launches["dense_dp"] or not launches["fused_dp"] or tiled != launches["fused_dp"]:
+        raise AssertionError("phase 15: a DP kernel was not launched (or a fused launch "
+                             "left the tiled kernel)")
+    return {"launches": launches, "tiled": tiled, "by_path": by_path}
+
+
 def main() -> int:
     import torch
 
@@ -1782,18 +2355,25 @@ def main() -> int:
     print("== 14 the paper's solvers, the planner and degradation surfaces on the card")
     planner = phase_planner(card)
 
+    card = card_line()  # the clocks after 14 phases of load
+    print(f"== 15 the planner tier, online replanning and the fleet gateway on the card [{card}]")
+    replan = phase_replan_tier(card)
+
     kernels = []
-    by_variant = {"tiled": path["by_variant"]["tiled"] + planner["tiled"],
+    by_variant = {"tiled": path["by_variant"]["tiled"] + planner["tiled"] + replan["tiled"],
                   "per_scenario": path["by_variant"]["per_scenario"]
-                  + planner["launches"]["fused_dp"] - planner["tiled"]}
+                  + planner["launches"]["fused_dp"] - planner["tiled"]
+                  + replan["launches"]["fused_dp"] - replan["tiled"]}
     for name, line in (("dense_dp", 150), ("fused_dp", 170)):
         kernels.append({
             "name": name, "route": "cuda",
             "source": "src/repro_torch/csrc/split_dp.cu",
             "replaces": f"src/repro/core/pallas_dp.py:{line}",
-            "launches": path["launches"][name] + planner["launches"][name],
+            "launches": (path["launches"][name] + planner["launches"][name]
+                         + replan["launches"][name]),
             "launches_by_path": {"sweep": path["launches"][name],
-                                 **{k: v[name] for k, v in planner["by_path"].items()}},
+                                 **{k: v[name] for k, v in planner["by_path"].items()},
+                                 **{k: v[name] for k, v in replan["by_path"].items()}},
             "max_abs_err": errs[name], **times[name], "library_ms": None,
             **({"launches_by_variant": by_variant} if name == "fused_dp" else {}),
         })
@@ -1820,9 +2400,9 @@ def main() -> int:
             # one launch = one call of the C entry, which runs three CUDA kernels
             **({"launch_is": "ssm_scan_fwd call (3 kernels)"} if name == "ssd_scan" else {}),
         })
-    print(f"  total {time.perf_counter() - t_start:.1f} s")
+    print(f"  total {time.perf_counter() - t_start:.1f} s; clocks now [{card_line()}]")
     print(json.dumps({"kernels": kernels}))
-    print(card)
+    print(smi("name,power.limit"))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

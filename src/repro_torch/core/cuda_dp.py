@@ -42,6 +42,7 @@ and rows with ``ns[s] < k`` are frozen (dp carried, args -1).
 
 from __future__ import annotations
 
+import threading
 import time
 from typing import Sequence
 
@@ -72,10 +73,13 @@ __all__ = [
 ]
 
 # Kernel launches since the last reset_launch_counts(); bumped only where
-# a wrapper launches its kernel, never by the plain versions.
+# a wrapper launches its kernel, never by the plain versions, and under
+# _COUNT_LOCK: surface rebuilds launch from a worker thread, and an
+# unguarded ``+= 1`` there could lose a count.
 DENSE_LAUNCHES = 0
 FUSED_LAUNCHES = 0
 FUSED_TILED_LAUNCHES = 0
+_COUNT_LOCK = threading.Lock()
 
 FUSED_VARIANTS = ("tiled", "per_scenario")
 
@@ -95,9 +99,10 @@ SMEM_LIMIT = 232_448
 
 def reset_launch_counts() -> None:
     global DENSE_LAUNCHES, FUSED_LAUNCHES, FUSED_TILED_LAUNCHES
-    DENSE_LAUNCHES = 0
-    FUSED_LAUNCHES = 0
-    FUSED_TILED_LAUNCHES = 0
+    with _COUNT_LOCK:
+        DENSE_LAUNCHES = 0
+        FUSED_LAUNCHES = 0
+        FUSED_TILED_LAUNCHES = 0
 
 
 def _tile_scenarios(L: int) -> int:
@@ -327,7 +332,8 @@ def dense_dp(C: torch.Tensor, ns: torch.Tensor, combine: str = "sum"):
             args.data_ptr(), S, N, L, int(C.dtype == torch.float64),
             int(combine == "max"), _stream_ptr(C.device))
     build.check_launch(built, code, "dense_dp")
-    DENSE_LAUNCHES += 1
+    with _COUNT_LOCK:
+        DENSE_LAUNCHES += 1
     return dp0, dps, args
 
 
@@ -383,8 +389,9 @@ def fused_dp(bank: torch.Tensor, tx: torch.Tensor, ns: torch.Tensor,
             args.data_ptr(), S, N, L, B, int(bank.dtype == torch.float64),
             int(combine == "max"), _stream_ptr(bank.device))
     build.check_launch(built, code, f"fused_dp ({chosen})")
-    FUSED_LAUNCHES += 1
-    FUSED_TILED_LAUNCHES += int(chosen == "tiled")
+    with _COUNT_LOCK:
+        FUSED_LAUNCHES += 1
+        FUSED_TILED_LAUNCHES += int(chosen == "tiled")
     return dp0, dps, args
 
 

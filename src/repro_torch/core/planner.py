@@ -11,9 +11,10 @@ The port's counterpart of ``repro.core.planner``, line for line:
 * :func:`compare_solvers` (Figs. 3-4), :func:`plan_surface`,
   :func:`plans_from_batched` and :func:`uniform_split`.
 
-The reference's ``plan_split_batch`` is a shim over its planner tier
-(``repro.core.spec.PlannerService``), which the port does not have yet:
-here it calls :func:`_plan_split_batch_impl` directly. The TPU pipeline
+``plan_split_batch`` is a shim over the planner tier, as in the
+reference: it builds a :func:`repro_torch.core.spec.models_spec` and
+resolves it through :class:`repro_torch.core.spec.PlannerService`, which
+calls :func:`_plan_split_batch_impl`. The TPU pipeline
 planner (``tpu_cost_profile``, ``plan_pipeline``) is not ported: it
 needs stage profiles of the card.
 """
@@ -205,21 +206,21 @@ def plan_split_batch(
     dtype: torch.dtype = torch.float32,
     **solver_kwargs,
 ) -> list[SplitPlan]:
-    """Plan many cost models in one batched pass (see
-    :func:`_plan_split_batch_impl`). In the reference a shim over the
-    planner tier; the port has none yet, so this calls the impl directly,
-    after the normalisation the reference's spec builder applies to
-    ``n_devices`` (a numpy integer becomes an ``int``, a sequence a
-    tuple of ``int``: the same values)."""
-    if isinstance(n_devices, (int, np.integer)):
-        n_devices = int(n_devices)
-    elif n_devices is not None:
-        n_devices = tuple(int(v) for v in np.asarray(n_devices).reshape(-1))
-    return _plan_split_batch_impl(
-        cost_models, n_devices, solver=solver, backend=backend,
+    """Kwarg shim over the planner tier for cost-model batches: builds a
+    :class:`repro_torch.core.spec.PlanSpec`
+    (:func:`repro_torch.core.spec.models_spec` — the cost models travel
+    alongside as the operand) and resolves it via
+    :class:`repro_torch.core.spec.PlannerService` on ``device`` /
+    ``dtype``, so kwarg and spec callers run the same implementation
+    (:func:`_plan_split_batch_impl`) with bit-identical plans. See the
+    impl for the planning semantics."""
+    from repro_torch.core.spec import PlannerService, models_spec  # lazy
+
+    spec = models_spec(
+        cost_models, n_devices=n_devices, solver=solver, backend=backend,
         energy_budget=energy_budget, variants=variants,
-        accuracy_floor=accuracy_floor, mesh_spec=mesh_spec, device=device,
-        dtype=dtype, **solver_kwargs)
+        accuracy_floor=accuracy_floor, mesh=mesh_spec, **solver_kwargs)
+    return PlannerService(device, dtype).plan(spec, cost_models)
 
 
 def _plan_split_batch_impl(

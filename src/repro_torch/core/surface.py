@@ -7,9 +7,8 @@ the device-local stack and the transmission vectors, so the stacked
 tensor ``C`` never goes to the card (the twin of the reference's
 ``pallas`` branch); a budgeted build takes the dense kernel on the masked
 ``C``; ``backend="torch"`` runs the dense plain version (the twin of the
-reference's ``jax``). The reference's ``build_surfaces`` is a shim over
-its planner tier, which the port does not have yet: here it calls
-:func:`_build_surfaces_impl` directly.
+reference's ``jax``). ``build_surfaces`` is a shim over the planner tier
+(:class:`repro_torch.core.spec.PlannerService`), as in the reference.
 
 The adaptive manager's ``observe()`` used to re-solve Beam Search over
 every protocol on every hop measurement — a fleet controller calls it on
@@ -603,18 +602,20 @@ def build_surfaces(
     device=None,
     dtype: torch.dtype = torch.float32,
 ) -> dict[int, DegradationSurface]:
-    """Surface families for several fleet sizes in one batched solve (see
-    :func:`_build_surfaces_impl`). In the reference a shim over the
-    planner tier; the port has none yet, so this calls the impl directly
-    with the fleet sizes as a tuple of ``int``, as the reference's spec
-    builder passes them."""
-    return _build_surfaces_impl(
-        cost_model, protocols, tuple(int(n) for n in n_devices),
-        pt_scale=pt_scale, loss_p=loss_p, solver=solver, backend=backend,
-        beam_width=beam_width, chunk_candidates=chunk_candidates,
-        energy_budget=energy_budget, variants=variants,
-        accuracy_floor=accuracy_floor, mesh_spec=mesh_spec, device=device,
-        dtype=dtype)
+    """Kwarg shim over the planner tier for surface families: builds a
+    self-contained :func:`repro_torch.core.spec.surfaces_spec` (which
+    turns the axes into Python floats and the fleet sizes into ``int``)
+    and resolves it via :class:`repro_torch.core.spec.PlannerService` on
+    ``device`` / ``dtype``, so kwarg and spec callers run the same
+    :func:`_build_surfaces_impl`. See the impl."""
+    from repro_torch.core.spec import PlannerService, surfaces_spec  # lazy
+
+    spec = surfaces_spec(
+        cost_model, protocols, n_devices, pt_scale=pt_scale, loss_p=loss_p,
+        solver=solver, backend=backend, beam_width=beam_width,
+        chunk_candidates=chunk_candidates, energy_budget=energy_budget,
+        variants=variants, accuracy_floor=accuracy_floor, mesh=mesh_spec)
+    return PlannerService(device, dtype).build_surfaces(spec)
 
 
 def _build_surfaces_impl(

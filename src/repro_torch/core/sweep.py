@@ -36,15 +36,16 @@ reference does. The DP's ``"cuda"`` and ``"torch"`` backends take
 the host and uses neither. The reference's ``"jax"``, ``"pallas"`` and
 ``"sharded"`` backends are refused by name (:data:`NOT_PORTED`).
 
-The reference's ``solve_batched``, ``solve_multi_channel`` and
-``solve_variant_bank`` are shims over its planner tier
-(``repro.core.spec.PlannerService``), which the port does not have yet:
-here each calls its ``_impl`` directly, under the reference's ``_impl``
-name and signature.
+``solve_batched``, ``solve_multi_channel`` and ``solve_variant_bank``
+are shims over the planner tier, as in the reference: each builds a
+:class:`repro_torch.core.spec.PlanSpec` and resolves it through
+:class:`repro_torch.core.spec.PlannerService`, which calls the retained
+``_impl`` (the reference's name and signature).
 
 Import invariant, as in the reference: ``repro_torch.core`` re-exports
-nothing, so ``repro_torch.core.sweep`` is this module; get the function
-with ``from repro_torch.core.sweep import sweep``.
+this module's names but never the function ``sweep``, so
+``repro_torch.core.sweep`` is this module; get the function with
+``from repro_torch.core.sweep import sweep``.
 """
 
 from __future__ import annotations
@@ -1003,12 +1004,15 @@ def solve_batched(
     threaded to every solver; ``device`` / ``dtype`` reach the DP's
     ``"cuda"`` and ``"torch"`` backends.
 
-    In the reference this is a shim over the planner tier; the port has no
-    planner tier yet, so it calls :func:`_solve_batched_impl` directly."""
-    return _solve_batched_impl(C, solver=solver, combine=combine,
-                               backend=backend, n_devices=n_devices,
-                               mesh_spec=mesh_spec, device=device,
-                               dtype=dtype, **solver_kwargs)
+    A thin shim over the planner tier: it builds a
+    :func:`repro_torch.core.spec.tensor_spec` and resolves it through
+    :class:`repro_torch.core.spec.PlannerService`, so kwarg and spec
+    callers run the same :func:`_solve_batched_impl`."""
+    from repro_torch.core.spec import PlannerService, tensor_spec  # lazy: tier below
+
+    spec = tensor_spec(C, solver=solver, combine=combine, backend=backend,
+                       n_devices=n_devices, mesh=mesh_spec, **solver_kwargs)
+    return PlannerService(device, dtype).solve(spec, C)
 
 
 def _solve_batched_impl(
@@ -1023,7 +1027,9 @@ def _solve_batched_impl(
     dtype: torch.dtype = torch.float32,
     **solver_kwargs,
 ) -> BatchedSolverResult:
-    """The dispatch body behind :func:`solve_batched`."""
+    """The retained dispatch body behind :func:`solve_batched` — called
+    only by :meth:`repro_torch.core.spec.PlannerService.solve`, so the
+    spec path and the kwargs path cannot diverge."""
     backend = _resolve_backend(solver, backend)
     _refuse_mesh(mesh_spec)
     if solver == "batched_dp":
@@ -1113,14 +1119,18 @@ def solve_multi_channel(
     dtype: torch.dtype = torch.float32,
     **solver_kwargs,
 ) -> BatchedSolverResult:
-    """Multi-objective batched solve over ``C[ch, s, k-1, a-1, b-1]``. In
-    the reference a shim over the planner tier; here it calls
-    :func:`_solve_multi_channel_impl` directly. See the impl."""
-    return _solve_multi_channel_impl(
+    """Multi-objective batched solve over ``C[ch, s, k-1, a-1, b-1]``: a
+    shim that builds a :func:`repro_torch.core.spec.channels_spec` and
+    resolves it through :class:`repro_torch.core.spec.PlannerService`.
+    See :func:`_solve_multi_channel_impl`."""
+    from repro_torch.core.spec import PlannerService, channels_spec  # lazy
+
+    spec = channels_spec(
         C, channels=channels, solver=solver, combine=combine,
         backend=backend, n_devices=n_devices, energy_budget=energy_budget,
         channel_weights=channel_weights, channel_combines=channel_combines,
-        mesh_spec=mesh_spec, device=device, dtype=dtype, **solver_kwargs)
+        mesh=mesh_spec, **solver_kwargs)
+    return PlannerService(device, dtype).solve_multi_channel(spec, C)
 
 
 def _solve_multi_channel_impl(
@@ -1291,14 +1301,17 @@ def solve_variant_bank(
     **solver_kwargs,
 ) -> BatchedSolverResult:
     """Joint (split point, bottleneck variant) solve over
-    ``C[v, s, k-1, a-1, b-1]``. In the reference a shim over the planner
-    tier; here it calls :func:`_solve_variant_bank_impl` directly. See the
-    impl."""
-    return _solve_variant_bank_impl(
+    ``C[v, s, k-1, a-1, b-1]``: a shim that builds a
+    :func:`repro_torch.core.spec.variant_bank_spec` and resolves it
+    through :class:`repro_torch.core.spec.PlannerService`. See
+    :func:`_solve_variant_bank_impl`."""
+    from repro_torch.core.spec import PlannerService, variant_bank_spec  # lazy
+
+    spec = variant_bank_spec(
         C, solver=solver, combine=combine, backend=backend,
         n_devices=n_devices, accuracy_proxy=accuracy_proxy,
-        accuracy_floor=accuracy_floor, mesh_spec=mesh_spec, device=device,
-        dtype=dtype, **solver_kwargs)
+        accuracy_floor=accuracy_floor, mesh=mesh_spec, **solver_kwargs)
+    return PlannerService(device, dtype).solve_variant_bank(spec, C)
 
 
 def _solve_variant_bank_impl(

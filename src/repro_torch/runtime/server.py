@@ -10,14 +10,15 @@ The port of the reference's ``repro.runtime.server``:
   The server never runs a batched prefill, so with ``use_flash_kernel``
   it still launches no flash kernel: every step has one query position.
 * :class:`SplitLatencyMeter`: prices every generated token's hops between
-  plan segments on a link profile (the paper's Eq. 7/8 cost model).
-  The reference's replanning hook (an ``AdaptiveSplitManager``) is not
-  ported.
+  plan segments on a link profile (the paper's Eq. 7/8 cost model), and
+  with a :class:`~repro_torch.core.adaptive.AdaptiveSplitManager` feeds
+  every hop to it and follows its replans (the reference's meter, line
+  for line).
 """
 
 from __future__ import annotations
 
-from dataclasses import dataclass, field
+from dataclasses import dataclass, field, replace
 
 import numpy as np
 import torch
@@ -66,32 +67,102 @@ class Request:
 class SplitLatencyMeter:
     """Accumulates modeled transmission latency for inter-segment hops.
 
-    Each generated token crosses every cut of ``plan`` once. A hop is
-    priced at ``bytes_per_token`` (one (B, 1, d_model) activation row) or,
-    when that is 0, at the segment's ``tx_bytes`` (the full-sequence
-    prefill activation), on ``link``. The plan is read duck-typed
-    (``plan.segments[i].tx_bytes``)."""
+    ``bytes_per_token``: the RAW bytes a decode step produces at a cut —
+    one (B, 1, d_model) activation row (the plan's ``tx_bytes`` is the
+    full-sequence prefill activation). What is actually PRICED per hop
+    is single-sourced from the adopted plan: when the plan carries a
+    bottleneck variant (``plan.variant`` into the manager's bank), the
+    per-token payload is the variant-compressed byte count, and a
+    mid-stream replan onto a different variant reprices the remaining
+    hops immediately (the plan swap carries the new compression). The
+    plan is read duck-typed (``plan.segments[i].tx_bytes``).
+
+    Replan hook: when ``manager`` (an
+    :class:`~repro_torch.core.adaptive.AdaptiveSplitManager`) and
+    ``protocol`` are set, every metered hop is fed to
+    ``manager.observe()`` — with a precomputed degradation surface that
+    is an O(1) lookup, cheap enough to run on every token; with the
+    manager's ``async_rebuild`` on, out-of-envelope drift enqueues a
+    background surface rebuild, so the token loop never blocks on one —
+    and when the manager adopts a new decision the meter swaps in the
+    re-materialized plan (``replans`` counts the swaps). If the adopted
+    decision switched protocol, the meter's ``protocol`` AND pricing
+    ``link`` follow it (the new protocol's base profile at the adopted
+    chunk size)."""
 
     plan: SplitPlan | None = None
     link: LinkProfile | None = None
     bytes_per_token: int = 0
     hop_seconds: float = 0.0
     hops: int = 0
-    manager: object | None = None  # the reference's replanning hook: refused
+    manager: object | None = None  # AdaptiveSplitManager (duck-typed)
+    protocol: str | None = None
+    replans: int = 0
 
-    def __post_init__(self):
-        if self.manager is not None:
-            raise NotImplementedError(
-                "SplitLatencyMeter(manager=...): the replanning hook needs "
-                "the reference's core/adaptive.py, which is not ported")
+    def observe_hop(self, nbytes: int, latency_s: float,
+                    retries: int = 0) -> bool:
+        """Feed one externally measured hop (a device-reported transfer)
+        to the manager through the same adoption-following logic the
+        token loop uses: if the observation triggers a replan the meter
+        swaps in the re-materialized plan, and on a cross-protocol
+        adoption follows the new protocol's pricing link. Returns True
+        when a replan was adopted. No-op without a manager/protocol."""
+        if self.manager is None or self.protocol is None:
+            return False
+        decisions = len(self.manager.history)
+        self.manager.observe(self.protocol, nbytes, latency_s, retries)
+        if len(self.manager.history) == decisions:
+            return False
+        self.plan = self.manager.current_plan()
+        adopted = self.manager.current
+        if adopted is not None and adopted.protocol != self.protocol:
+            # cross-protocol replan: hops now ride the NEW protocol's
+            # link (at the adopted chunk size)
+            self.protocol = adopted.protocol
+            base = self.manager.protocols[adopted.protocol]
+            self.link = replace(base, mtu_bytes=adopted.chunk_bytes)
+        self.replans += 1
+        return True
+
+    def _plan_variant(self):
+        """The adopted plan's bottleneck variant, resolved through the
+        manager's bank (None for plain plans or meters without a
+        banked manager)."""
+        vi = getattr(self.plan, "variant", None)  # plans are duck-typed
+        if vi is None or vi < 0:
+            return None
+        bank = getattr(self.manager, "variants", None)
+        if bank is None:
+            return None
+        return bank[vi]
+
+    def _hop_bytes(self, seg) -> int:
+        """Bytes priced for one hop, single-sourced from the adopted
+        plan: prefill pricing reads ``seg.tx_bytes`` (already
+        variant-compressed by the planner); per-token pricing compresses
+        ``bytes_per_token`` with the plan's adopted variant. A replan
+        that switches variants changes this on the very next hop."""
+        if not self.bytes_per_token:
+            return seg.tx_bytes
+        v = self._plan_variant()
+        if v is None:
+            return self.bytes_per_token
+        return v.compressed_bytes(self.bytes_per_token)
 
     def on_token(self) -> None:
         if self.plan is None or self.link is None:
             return
-        for seg in self.plan.segments[:-1]:
-            nbytes = self.bytes_per_token or seg.tx_bytes
-            self.hop_seconds += self.link.transmission_latency_s(nbytes)
+        # while-loop (not for) so a mid-token replan adoption reprices the
+        # REMAINING hops on the newly adopted plan/link
+        hop = 0
+        while self.plan is not None and hop < len(self.plan.segments) - 1:
+            seg = self.plan.segments[hop]
+            hop += 1
+            nbytes = self._hop_bytes(seg)
+            hop_s = self.link.transmission_latency_s(nbytes)
+            self.hop_seconds += hop_s
             self.hops += 1
+            self.observe_hop(nbytes, hop_s)
 
 
 class Server:

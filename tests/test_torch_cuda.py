@@ -522,3 +522,26 @@ def test_ssd_op_mixed_types_launch_in_float32(card):
     want = SK.ssm_scan_plain(fold(x).float(), b, c, fold(dA), fold(dt))
     torch.testing.assert_close(fold(got).float(), want.to(torch.bfloat16).float(),
                                **SSD_TOL[torch.bfloat16])
+
+
+def test_launch_counts_are_exact_across_threads(card):
+    """Eight threads launch both DP kernels at once (rebuilds launch from a
+    worker thread): the counters lose no launch."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    C, ns = tie_rich(65, 4, 54, seed=3)
+    Ct = torch.tensor(C, dtype=torch.float32, device=card)
+    nst = torch.tensor(ns, dtype=torch.int32, device=card)
+    bank, tx = Ct[0], Ct[:, 0, 0].contiguous()
+
+    def launch(_):
+        for _ in range(25):
+            CD.dense_dp(Ct, nst)
+            CD.fused_dp(bank, tx, nst)
+        torch.cuda.synchronize()
+
+    before = CD.DENSE_LAUNCHES, CD.FUSED_LAUNCHES, CD.FUSED_TILED_LAUNCHES
+    with ThreadPoolExecutor(max_workers=8) as pool:
+        list(pool.map(launch, range(8)))
+    assert (CD.DENSE_LAUNCHES, CD.FUSED_LAUNCHES, CD.FUSED_TILED_LAUNCHES) == \
+        (before[0] + 200, before[1] + 200, before[2] + 200)

@@ -21,11 +21,15 @@ import repro_torch
 from repro.core import profiles as RP
 from repro.core import sweep as RS
 from repro_torch import convert
+from repro_torch.core import adaptive as PA
+from repro_torch.core import async_replan as PAR
 from repro_torch.core import cuda_dp as CD
 from repro_torch.core import planner as PPL
 from repro_torch.core import surface as PSF
+from repro_torch.core import spec as PSP
 from repro_torch.core import sweep as PS
 from repro_torch.device import resolve_device, resolve_dtype
+from repro_torch.runtime import gateway as PG
 
 ROOT = Path(__file__).resolve().parent.parent
 PORT = ROOT / "src" / "repro_torch"
@@ -105,7 +109,31 @@ def default_entry_calls():
             small_model(), links, (2,), solver="batched_dp", energy_budget=1.0),
         "degradation_surfaces": lambda: small_grid().degradation_surfaces(
             solver="batched_dp"),
+        "PlannerService.solve": lambda: PSP.PlannerService().solve(PSP.tensor_spec(C), C),
+        "solve_from_json": lambda: PSP.solve_from_json(PSP.tensor_spec(C).to_json(), C),
+        "build_surfaces_from_spec": lambda: PSP.build_surfaces_from_spec(
+            PSP.surfaces_spec(small_model(), links, (2,), solver="batched_dp",
+                              **GRID).to_json()),
+        "AdaptiveSplitManager": lambda: PA.AdaptiveSplitManager(
+            cost_model=small_model(), protocols=links, n_devices=2, solver="optimal_dp",
+            surface_grid=GRID),
+        "fleet_managers": lambda: PA.fleet_managers(small_model(), links, (2, 3),
+                                                    solver="optimal_dp", surface_grid=GRID),
+        "SurfaceRebuilder.build_sync": lambda: rebuild_sync(small_model(), links),
+        "FleetGateway": lambda: PG.FleetGateway(small_model(), links, (2,),
+                                                solver="optimal_dp", surface_grid=GRID),
     }
+
+
+GRID = {"pt_scale": (1.0, 4.0), "loss_p": (0.0,)}
+
+
+def rebuild_sync(model, links):
+    ex = PAR.ManualExecutor()
+    rb = PAR.SurfaceRebuilder(model, links, solver="batched_dp", executor=ex, **GRID)
+    rb.request(2, {"udp": (links["udp"].packet_time_s() * 30, 0.0)})
+    rb.poll(2)
+    return rb.build_sync(rb.inflight())
 
 
 @pytest.mark.parametrize("entry", sorted(default_entry_calls()))

@@ -6,7 +6,11 @@ requests served by the reference ``Server`` and the port's must give the
 same greedy tokens; within the port, a request's tokens under staggered
 admission must equal serving it alone (exact), and the meter's hop
 accounting on a plan converted from the reference planner must equal the
-reference meter's.
+reference meter's. With an adaptive manager behind it (``backend="numpy"``
+on the port), the meter must follow the reference meter's replans hop for
+hop: ``hop_seconds``, ``hops``, ``replans``, the protocol and link it
+follows after a protocol switch, and per-token bytes priced at the
+adopted variant.
 
 The reference ``Server`` is driven through :class:`SyncedRefServer`: its
 ``_token_inputs`` hands ``jnp.asarray`` the server's own numpy buffers,
@@ -18,12 +22,15 @@ The subclass passes copies; it changes nothing else."""
 
 import dataclasses
 import types
+from dataclasses import replace
 
 import jax
 import numpy as np
 import pytest
 
 from repro.configs import get_config as ref_get_config
+from repro.core import adaptive as RA
+from repro.core import profiles as RP
 from repro.core.planner import plan_pipeline
 from repro.core.profiles import ESP_NOW, ICI
 from repro.models import transformer as RT
@@ -31,6 +38,7 @@ from repro.models.graph import arch_layer_graph
 from repro.runtime import server as RS
 from repro_torch import convert
 from repro_torch.configs import get_config
+from repro_torch.core import adaptive as PA
 from repro_torch.models import transformer as PT
 from repro_torch.runtime import server as PS
 from repro_torch.runtime.server import (
@@ -137,9 +145,96 @@ def test_meter_hops_equal_the_reference_meter(ref_params, params, n_devices,
     assert got.hop_seconds == want.hop_seconds > 0
 
 
-def test_meter_with_a_manager_is_refused():
-    with pytest.raises(NotImplementedError, match="adaptive"):
-        SplitLatencyMeter(manager=object())
+def managed_meter(port, n_devices, variants):
+    """A meter on a 400x-collapsed ESP-NOW link behind an adaptive manager
+    (the reference's meter tests' setup), in either package."""
+    ref_model = RP.paper_cost_model("mobilenet_v2", "esp_now")
+    links = dict(RP.PROTOCOLS)
+    bank = RP.esp32_variant_bank() if variants else None
+    dead = replace(ESP_NOW, rate_bytes_per_s=ESP_NOW.rate_bytes_per_s / 400)
+    kw = dict(n_devices=n_devices, variants=bank,
+              surface_grid={"pt_scale": (1.0, 16.0, 256.0), "loss_p": (0.0, 0.1)})
+    if port:
+        mgr = PA.AdaptiveSplitManager(
+            cost_model=convert.cost_model_from_reference(ref_model),
+            protocols={k: convert.link_from_reference(v) for k, v in links.items()},
+            backend="numpy", **{**kw, "variants": None if bank is None else tuple(
+                convert.variant_from_reference(v) for v in bank)})
+        return SplitLatencyMeter(plan=mgr.current_plan(), link=convert.link_from_reference(dead),
+                                 bytes_per_token=5488, manager=mgr, protocol="esp_now")
+    mgr = RA.AdaptiveSplitManager(cost_model=ref_model, protocols=links, **kw)
+    return RS.SplitLatencyMeter(plan=mgr.current_plan(), link=dead, bytes_per_token=5488,
+                                manager=mgr, protocol="esp_now")
+
+
+def meter_state(meter):
+    segs = meter.plan.segments
+    return dict(hop_seconds=meter.hop_seconds, hops=meter.hops, replans=meter.replans,
+                protocol=meter.protocol, link=convert.link_from_reference(meter.link),
+                plan=convert.plan_from_reference(meter.plan).to_dict() | {"planner_time_s": 0},
+                hop_bytes=[meter._hop_bytes(s) for s in segs[:-1]],
+                history=[dataclasses.asdict(d) for d in meter.manager.history])
+
+
+@pytest.mark.parametrize("variants", [False, True], ids=["plain", "variant bank"])
+@pytest.mark.parametrize("n_devices", [2, 3])
+def test_meter_with_a_manager_follows_the_reference(n_devices, variants):
+    """Tokens on a collapsed link until the manager switches protocol (at
+    most 300; with the bank at N 2 the compressed cut keeps ESP-NOW), then
+    more tokens and a few device-reported hops: at every stage the port's
+    meter equals the reference's."""
+    want, got = managed_meter(False, n_devices, variants), managed_meter(True, n_devices, variants)
+    stages = []
+    for _ in range(300):
+        want.on_token()
+        got.on_token()
+        stages.append(meter_state(got) == meter_state(want))
+        if want.manager.current.protocol != "esp_now":
+            break
+    assert all(stages)
+    if got.protocol != "esp_now":  # the switch (every case but the bank at N 2)
+        assert got.replans >= 1 and got.link.name == got.protocol
+        assert got.link.mtu_bytes == got.manager.current.chunk_bytes
+    else:
+        assert variants and n_devices == 2 and len(stages) == 300
+    for nbytes, factor in ((5488, 1.0), (200, 30.0), (5488, 0.5)):
+        lat = factor * got.link.transmission_latency_s(nbytes)
+        assert got.observe_hop(nbytes, lat) == want.observe_hop(nbytes, lat)
+        got.on_token()
+        want.on_token()
+        assert meter_state(got) == meter_state(want)
+    assert got.hops == (n_devices - 1) * len(stages) + 3 * (n_devices - 1)
+    if variants:
+        assert got._plan_variant() is not None
+        assert meter_state(got)["hop_bytes"][0] == got._plan_variant().compressed_bytes(5488)
+
+
+def test_meter_prices_remaining_hops_across_a_replan():
+    """An adoption on the first hop of a token reprices the token's
+    remaining hop on the new plan; every token prices two hops."""
+    plan3 = types.SimpleNamespace(segments=[types.SimpleNamespace(tx_bytes=512)] * 3)
+
+    class AdoptOnThirdObserve:
+        def __init__(self):
+            self.history, self.n, self.current = [], 0, None
+
+        def observe(self, protocol, nbytes, latency_s, retries=0):
+            self.n += 1
+            if self.n == 3:
+                self.history.append("adopted")
+
+        def current_plan(self):
+            return plan3
+
+    link = convert.link_from_reference(ESP_NOW)
+    meter = SplitLatencyMeter(plan=plan3, link=link, bytes_per_token=5488,
+                              manager=AdoptOnThirdObserve(), protocol="esp_now")
+    for _ in range(5):
+        meter.on_token()
+    assert meter.replans == 1 and meter.hops == 10
+    assert meter.hop_seconds == pytest.approx(link.transmission_latency_s(5488) * 10)
+    assert meter._plan_variant() is None  # a stub without a bank
+    assert not SplitLatencyMeter(plan=plan3, link=link).observe_hop(100, 1.0)
 
 
 def test_plan_conversion_keeps_every_field():

@@ -8,7 +8,7 @@ two outputs with ``==``. Timing fields (``wall_time_s``,
 
 from __future__ import annotations
 
-from dataclasses import fields
+from dataclasses import asdict, fields
 
 import numpy as np
 
@@ -79,3 +79,15 @@ def row_fields(row) -> dict:
     d = row.to_dict()
     d.pop("solver_wall_s")
     return d
+
+
+def decisions(history) -> list[dict]:
+    """An adaptive manager's ``PlanDecision`` history as plain dicts."""
+    return [asdict(d) for d in history]
+
+
+def protocols(ref_protocols: dict, port: bool) -> dict:
+    """A ``{name: LinkProfile}`` map, converted for the port."""
+    if not port:
+        return dict(ref_protocols)
+    return {k: convert.link_from_reference(v) for k, v in ref_protocols.items()}
