@@ -153,7 +153,25 @@ reference package ``repro``) on the card and fails on any fault:
    a ``spawn`` process pool with ``device="cuda"``, node-identical to the
    thread-built family. Every step's wall time beside its
    ``backend="numpy"`` twin;
-16. a JSON line of per-kernel results, the card line, and the last line
+16. split execution of the paper's CNNs on the card, with the launch
+   counters read around this phase only (the dense DP kernel must
+   launch, the fused one must not): (a) ``plan_split(solver="batched_dp")``
+   for MobileNet-V2 and ResNet50 over ESP-NOW at N 2-5, each plan equal
+   to the same call on ``device="cpu"`` (float32), and the quickstart's
+   beam plan; (b) MobileNet-V2 0.35 and ResNet50 at 224 px with seeded
+   weights and inputs, at batch 1 and 64: ``run_split`` without the wire
+   at every feasible plan's splits, the beam plan's and MobileNet-V2's
+   paper cuts (7, 48, 51) ``torch.equal`` to ``run_unsplit``; the card
+   within 1e-4 x rms of the CPU on the same weights and input (the share
+   of the limit used); with the int8 wire every hop record (boundary,
+   bytes, packets, modeled seconds) equal to the CPU run's, at batch 1
+   the paper cuts' bytes 175,616 / 2,744 / 5,488, and top-1 agreement
+   with the unsplit output; (c) medians of CUDA-event-timed calls:
+   unsplit ms, images/s and TFLOP/s at both batches, the wire-split run
+   and its encode + decode per hop, and a traced batch-1 forward with
+   the wire in a fresh ``spawn`` process (idle share, device ms by class:
+   convolutions, GEMM, quantization, the rest);
+17. a JSON line of per-kernel results, the card line, and the last line
    ``{"ok": true, "device": {...}}``.
 
 Exits non-zero, printing no result, when no card is present.
@@ -852,8 +870,9 @@ def phase_server(params, cfg) -> dict:
 def traced_run(label, fn, card) -> dict | None:
     """One traced run of ``fn``: wall time, device busy time and idle
     share, kernel launches, and the device time of the largest ops.
-    Returns the wall and busy ms and the device ms by op (``None`` when
-    the trace holds no device events)."""
+    Returns the wall and busy ms, the device ms by kernel, and by host op
+    with the ops inside it (``None`` when the trace holds no device
+    events)."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -865,7 +884,10 @@ def traced_run(label, fn, card) -> dict | None:
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     events = prof.key_averages()
-    ops = sorted((e for e in events if e.device_type == DeviceType.CUDA),
+    # kernels only: a ``record_function`` range also comes back as a device
+    # event (a user annotation) spanning the kernels inside it
+    ops = sorted((e for e in events if e.device_type == DeviceType.CUDA
+                  and not getattr(e, "is_user_annotation", False)),
                  key=lambda e: -e.self_device_time_total)
     busy_ms = sum(e.self_device_time_total for e in ops) / 1e3
     launches = sum(e.count for e in events if e.key == "cudaLaunchKernel")
@@ -879,7 +901,11 @@ def traced_run(label, fn, card) -> dict | None:
           f"[{card}]")
     print(f"  device time by op: {top}")
     return {"wall_ms": wall * 1e3, "busy_ms": busy_ms,
-            "ops": {e.key: e.self_device_time_total / 1e3 for e in ops}}
+            "ops": {e.key: e.self_device_time_total / 1e3 for e in ops},
+            # each host op or annotated range: the device time of the
+            # kernels it and the ops inside it launched
+            "by_cpu_op": {e.key: e.device_time_total / 1e3 for e in events
+                          if e.device_type == DeviceType.CPU}}
 
 
 def phase_serving_times(dev, cfg, params, cache, server, card) -> dict:
@@ -2271,6 +2297,251 @@ def phase_replan_tier(card) -> dict:
     return {"launches": launches, "tiled": tiled, "by_path": by_path}
 
 
+# ---------------------------------------------------------------------------
+# Split execution of the paper's CNNs with the int8 wire (phase 16)
+# ---------------------------------------------------------------------------
+
+# MobileNet-V2 0.35 at 224 px, batch 1, its paper cuts: (boundary, int8
+# bytes shipped); block_2_expand ships 56x56x48 main plus a 56x56x8 skip
+PAPER_HOPS = (("block_2_expand", 175_616), ("block_15_project_BN", 2_744),
+              ("block_16_project_BN", 5_488))
+# card vs CPU on the same weights and input: max |diff| <= this x rms.
+# float32 sums in another order give ~1e-6; TF32 would give ~1e-3
+CNN_TOL = 1e-4
+CNN_BATCHES = (1, 64)
+
+
+def cnn_models() -> dict:
+    """The paper's two CNNs at full width: MobileNet-V2 at the width and
+    image size of ``paper_cost_model("mobilenet_v2")`` and ResNet50, 224 px."""
+    from repro_torch.models.mobilenetv2 import MobileNetV2
+    from repro_torch.models.resnet50 import ResNet50
+
+    return {"mobilenet_v2": MobileNetV2(width=0.35, image_size=224),
+            "resnet50": ResNet50(image_size=224)}
+
+
+def median_ms(fn, reps) -> float:
+    """The median of ``reps`` calls, each timed alone with CUDA events
+    (the end event waited for), after one warm-up call."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    return float(np.median(times))
+
+
+def hop_records(trace) -> list:
+    return [(h.boundary_layer, h.nbytes, h.n_packets, h.sim_latency_s) for h in trace.hops]
+
+
+def phase_cnn_plans(card) -> dict:
+    """(a) ``plan_split(solver="batched_dp")`` on the card (the dense
+    kernel) for both CNNs over ESP-NOW at N 2-5, each plan equal to the
+    same call on ``device="cpu"`` (float32); the quickstart's beam plan.
+    Returns each model's split sets to execute."""
+    from repro_torch.core import profiles as PP
+    from repro_torch.core.planner import plan_split
+
+    cuts = {}
+    for name in cnn_models():
+        model = PP.paper_cost_model(name, "esp_now")
+        cuts[name] = []
+        for n in (2, 3, 4, 5):
+            got = plan_split(model, n, solver="batched_dp")
+            want = plan_split(model, n, solver="batched_dp", device="cpu")
+            if not plans_equal([got], [want]):
+                raise AssertionError(f"{name} N={n}: card plan {got.splits} != cpu "
+                                     f"{want.splits}")
+            feasible = got.total_latency_s < float("inf")
+            if feasible:
+                cuts[name].append(got.splits)
+            print(f"  {name} N={n}: card == cpu, splits {got.splits}, latency "
+                  f"{got.total_latency_s:.4f} s" + ("" if feasible else
+                                                   " (infeasible: nothing to execute)"))
+    beam = plan_split(PP.paper_cost_model("mobilenet_v2", "esp_now"), 3, solver="beam",
+                      beam_width=8)
+    print(f"  quickstart beam (mobilenet_v2, N=3, width 8): splits {beam.splits}, latency "
+          f"{beam.total_latency_s:.4f} s")
+    cuts["mobilenet_v2"] += [beam.splits, paper_cuts(cnn_models()["mobilenet_v2"])]
+    return {name: list(dict.fromkeys(c)) for name, c in cuts.items()}
+
+
+def paper_cuts(model) -> tuple:
+    """MobileNet-V2's paper split points as chain indices; () elsewhere."""
+    names = model.layer_names
+    return tuple(names.index(b) + 1 for b, _ in PAPER_HOPS if b in names)
+
+
+def boundary_carries(model, params, x, splits) -> dict:
+    """The carry after each split layer of one forward pass."""
+    out, carry = {}, x
+    for i, name in enumerate(model.layer_names, start=1):
+        carry = model.apply_layer(name, params[name], carry)
+        if i in splits:
+            out[name] = carry
+    return out
+
+
+def cnn_model_phase(name, model, cuts, card) -> dict:
+    """(b) and (c) for one CNN at batches 1 and 64, seeded weights and
+    inputs on the card and the CPU: split == unsplit bit for bit on the
+    card; the card within ``CNN_TOL`` x rms of the CPU; int8-wire hop
+    records == the CPU run's (and ``PAPER_HOPS`` at batch 1); then unsplit
+    and wire-split times, images/s and the wire's cost per hop."""
+    import torch
+
+    from repro_torch.core import executor as EX
+    from repro_torch.core import profiles as PP
+    from repro_torch.models.graph import mobilenet_v2_graph, resnet50_graph
+
+    dev = torch.device("cuda")
+    params = {d: model.init(torch.Generator().manual_seed(0), device=d) for d in (dev, "cpu")}
+    graph = (mobilenet_v2_graph(model.width, model.image_size) if name == "mobilenet_v2"
+             else resnet50_graph(model.image_size))
+    timed_cut = cuts[-1]  # the paper cuts (MobileNet-V2), the N=5 plan (ResNet50)
+    out = {}
+    for batch in CNN_BATCHES:
+        x = torch.randn(model.input_shape(batch), generator=torch.Generator().manual_seed(batch))
+        xd = x.to(dev)
+        ref = EX.run_unsplit(model, params[dev], xd)["h"]
+        for splits in cuts:
+            got, _ = EX.run_split(model, params[dev], xd, splits)
+            if not torch.equal(got["h"], ref):
+                raise AssertionError(f"{name} batch {batch}: split at {splits} != unsplit")
+        t0 = time.perf_counter()
+        cpu = EX.run_unsplit(model, params["cpu"], x)["h"]
+        cpu_s = time.perf_counter() - t0
+        want = cpu.double()
+        err = float((ref.cpu().double() - want).abs().max() / want.square().mean().sqrt())
+        if not err <= CNN_TOL:
+            raise AssertionError(f"{name} batch {batch}: card vs cpu {err:.3g} x rms > {CNN_TOL}")
+        same_top1 = float((ref.argmax(-1).cpu() == cpu.argmax(-1)).float().mean())
+        print(f"  (b) {name} batch {batch}: split == unsplit bit for bit at {len(cuts)} split "
+              f"sets {cuts}; card vs cpu max |diff| {err:.3g} x rms ({err / CNN_TOL:.4f} of "
+              f"the {CNN_TOL:g} limit), top-1 equal on {same_top1:.0%} (cpu forward "
+              f"{cpu_s:.2f} s)")
+        for splits in cuts:
+            wire, trace = EX.run_split(model, params[dev], xd, splits, link=PP.ESP_NOW,
+                                       quantize_wire=True)
+            _, cpu_trace = EX.run_split(model, params["cpu"], x, splits, link=PP.ESP_NOW,
+                                        quantize_wire=True)
+            if hop_records(trace) != hop_records(cpu_trace):
+                raise AssertionError(f"{name} batch {batch} at {splits}: hop records "
+                                     f"{hop_records(trace)} != cpu {hop_records(cpu_trace)}")
+            top1 = float((wire["h"].argmax(-1) == ref.argmax(-1)).float().mean())
+            print(f"      int8 wire at {splits}: hops == cpu "
+                  + ", ".join(f"{b} {nb:,} B / {pk} packets / {s * 1e3:.2f} ms"
+                              for b, nb, pk, s in hop_records(trace))
+                  + f"; top-1 agreement with unsplit {top1:.0%}")
+            if batch == 1 and splits == paper_cuts(model):
+                if [h[:2] for h in hop_records(trace)] != list(PAPER_HOPS):
+                    raise AssertionError(f"paper cuts: {hop_records(trace)} != {PAPER_HOPS}")
+                out["paper_hops_checked"] = True
+        # (c) times
+        reps = 30 if batch == 1 else 10
+        unsplit_ms = median_ms(lambda: EX.run_unsplit(model, params[dev], xd), reps)
+        split_ms = median_ms(lambda: EX.run_split(model, params[dev], xd, timed_cut,
+                                                  link=PP.ESP_NOW, quantize_wire=True), reps)
+        hops = {b: median_ms(lambda c=c: EX._wire_encode(c), reps)
+                for b, c in boundary_carries(model, params[dev], xd, timed_cut).items()}
+        tflops = graph.total_flops * batch / (unsplit_ms / 1e3) / 1e12
+        out[batch] = {"unsplit_ms": unsplit_ms, "split_ms": split_ms, "hops_ms": hops}
+        print(f"  (c) {name} batch {batch}: unsplit {unsplit_ms:.4f} ms "
+              f"({batch / unsplit_ms * 1e3:.1f} images/s, {tflops:.3f} TFLOP/s of the graph's "
+              f"{graph.total_flops * batch / 1e9:.2f} GFLOP, {tflops / (FP32_FLOPS_PER_S / 1e12):.4f}"
+              f" of the fp32 peak); int8-wire split at {timed_cut} {split_ms:.4f} ms "
+              f"(+{split_ms - unsplit_ms:.4f}); encode + decode per hop "
+              + ", ".join(f"{b} {ms:.4f} ms" for b, ms in hops.items())
+              + f"; medians of {reps} calls (CUDA events) [{card}]")
+    return out
+
+
+def traced_cnn_forward(card, reps=5) -> dict | None:
+    """In a fresh process (a trace late in a long process has come back
+    without device events on this machine): MobileNet-V2 at 224 px, batch
+    1, through its paper cuts with the int8 wire, warmed up, then traced:
+    the card's idle share and its device time by class (convolutions, the
+    Logits GEMM, the wire's quantization, the other elementwise, pooling
+    and reduction ops)."""
+    import torch
+
+    from repro_torch.core import executor as EX
+    from repro_torch.core import profiles as PP
+
+    model = cnn_models()["mobilenet_v2"]
+    params = model.init(torch.Generator().manual_seed(0), device="cuda")
+    x = torch.randn(model.input_shape(1), generator=torch.Generator().manual_seed(1)).cuda()
+    def run():
+        for _ in range(reps):
+            EX.run_split(model, params, x, paper_cuts(model), link=PP.ESP_NOW, quantize_wire=True)
+
+    run()
+    trace = traced_run(f"{reps} batch-1 MobileNet-V2 forwards with the int8 wire "
+                       "(a fresh process)", run, card)
+    if trace is None:
+        return None
+    by_op = trace["by_cpu_op"]
+    classes = {"conv": by_op.get("aten::conv2d", 0.0), "gemm": by_op.get("aten::matmul", 0.0),
+               "quantization": by_op.get("wire_encode", 0.0)}
+    classes["elementwise"] = trace["busy_ms"] - sum(classes.values())
+    return {"wall_ms": trace["wall_ms"], "busy_ms": trace["busy_ms"], "classes": classes,
+            "reps": reps}
+
+
+def phase_cnn(card) -> dict:
+    """Phase 16 with the DP launch counters zeroed just before it and read
+    just after: the dense kernel must launch (the plans of (a))."""
+    import multiprocessing as mp
+    from concurrent.futures import ProcessPoolExecutor
+
+    import torch
+
+    from repro_torch.core import cuda_dp as CD
+
+    CD.reset_launch_counts()
+    t0 = time.perf_counter()
+    print("  (a) plans on the card")
+    cuts = phase_cnn_plans(card)
+    launches = {"dense_dp": CD.DENSE_LAUNCHES, "fused_dp": CD.FUSED_LAUNCHES}
+    if not launches["dense_dp"] or launches["fused_dp"]:
+        raise AssertionError(f"phase 16: the plans launched {launches}; expected the "
+                             "dense DP kernel only")
+    print(f"  dense DP launches in (a): {launches['dense_dp']}")
+    times = {}
+    for name, model in cnn_models().items():
+        times[name] = cnn_model_phase(name, model, cuts[name], card)
+        torch.cuda.empty_cache()
+    if not times["mobilenet_v2"].get("paper_hops_checked"):
+        raise AssertionError("phase 16: the paper cuts' hop bytes were not checked")
+    print(f"  paper cuts at batch 1: {', '.join(f'{b} {nb:,} B' for b, nb in PAPER_HOPS)} "
+          f"(== the reference's)")
+    with ProcessPoolExecutor(max_workers=1, mp_context=mp.get_context("spawn")) as pool:
+        traced = pool.submit(traced_cnn_forward, card).result()
+    if traced is None:
+        print("  traced forward: device time by class not measured (no device events)")
+    else:
+        n = traced["reps"]
+        print(f"  traced forward, per forward: wall {traced['wall_ms'] / n:.4f} ms, device busy "
+              f"{traced['busy_ms'] / n:.4f} ms, idle share "
+              f"{1 - traced['busy_ms'] / traced['wall_ms']:.4f}; device ms by class "
+              + ", ".join(f"{k} {v / n:.4f}" for k, v in traced["classes"].items())
+              + f" [{card}]")
+    if (CD.DENSE_LAUNCHES, CD.FUSED_LAUNCHES) != (launches["dense_dp"], launches["fused_dp"]):
+        raise AssertionError("phase 16: a DP kernel launched outside the plans of (a)")
+    print(f"  launches in this phase: {launches}; wall {time.perf_counter() - t0:.1f} s")
+    return {"launches": launches}
+
+
 def main() -> int:
     import torch
 
@@ -2359,6 +2630,10 @@ def main() -> int:
     print(f"== 15 the planner tier, online replanning and the fleet gateway on the card [{card}]")
     replan = phase_replan_tier(card)
 
+    card = card_line()
+    print(f"== 16 split execution of the paper's CNNs with the int8 wire on the card [{card}]")
+    cnn = phase_cnn(card)
+
     kernels = []
     by_variant = {"tiled": path["by_variant"]["tiled"] + planner["tiled"] + replan["tiled"],
                   "per_scenario": path["by_variant"]["per_scenario"]
@@ -2370,10 +2645,11 @@ def main() -> int:
             "source": "src/repro_torch/csrc/split_dp.cu",
             "replaces": f"src/repro/core/pallas_dp.py:{line}",
             "launches": (path["launches"][name] + planner["launches"][name]
-                         + replan["launches"][name]),
+                         + replan["launches"][name] + cnn["launches"][name]),
             "launches_by_path": {"sweep": path["launches"][name],
                                  **{k: v[name] for k, v in planner["by_path"].items()},
-                                 **{k: v[name] for k, v in replan["by_path"].items()}},
+                                 **{k: v[name] for k, v in replan["by_path"].items()},
+                                 "cnn_plans": cnn["launches"][name]},
             "max_abs_err": errs[name], **times[name], "library_ms": None,
             **({"launches_by_variant": by_variant} if name == "fused_dp" else {}),
         })

@@ -8,7 +8,9 @@ imported, so any object with the same fields converts. The LM's weights
 arrive as the reference's parameter pytree of numpy arrays and leave as
 the port's state dict (:func:`lm_params_from_reference`). Int8 tensors
 and quantized parameter trees leave as the port's ``QTensor``s
-(:func:`qtensor_from_reference`, :func:`quantized_params_from_reference`)."""
+(:func:`qtensor_from_reference`, :func:`quantized_params_from_reference`).
+The CNNs' parameter trees leave in the port's layout
+(:func:`cnn_params_from_reference`)."""
 
 from __future__ import annotations
 
@@ -29,9 +31,11 @@ from repro_torch.core.latency import (
 from repro_torch.core.planner import SegmentPlan, SplitPlan
 from repro_torch.core.quantization import QTensor
 from repro_torch.core.sweep import ScenarioGrid
+from repro_torch.models.cnn_common import conv_weight
 from repro_torch.models.config import ModelConfig
 
 __all__ = [
+    "cnn_params_from_reference",
     "cost_model_from_reference",
     "device_from_reference",
     "grid_from_reference",
@@ -176,3 +180,16 @@ def quantized_params_from_reference(tree):
     if hasattr(tree, "shape") and hasattr(tree, "dtype"):
         return _tensor(tree)
     return tree
+
+
+def cnn_params_from_reference(params):
+    """The port's parameter tree of ``MobileNetV2`` / ``ResNet50`` from
+    the reference's ``init`` tree (nested dicts of arrays, read as numpy),
+    as CPU tensors: every 4-D conv kernel ``w`` from HWIO to the port's
+    layout (:func:`repro_torch.models.cnn_common.conv_weight`), every
+    other leaf (scales, biases, dense ``w`` and ``b``) as it is."""
+    if isinstance(params, dict):
+        return {k: (conv_weight(_tensor(v)) if k == "w" and np.ndim(v) == 4
+                    else cnn_params_from_reference(v))
+                for k, v in params.items()}
+    return _tensor(params)

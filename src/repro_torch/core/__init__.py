@@ -20,6 +20,8 @@ wherever the port has them:
   async_replan — stale-while-revalidate surface rebuilds
   adaptive     — LinkEstimator + AdaptiveSplitManager runtime replanning;
                  fleet_managers for mixed-fleet-size deployments
+  executor     — run_split / run_unsplit segment execution with the
+                 int8 wire simulated at every hop
   profiles     — paper-calibrated ESP32 + protocol tables
   quantization — int8 PTQ + activation wire format
 

@@ -545,3 +545,59 @@ def test_launch_counts_are_exact_across_threads(card):
         list(pool.map(launch, range(8)))
     assert (CD.DENSE_LAUNCHES, CD.FUSED_LAUNCHES, CD.FUSED_TILED_LAUNCHES) == \
         (before[0] + 200, before[1] + 200, before[2] + 200)
+
+
+# ---------------------------------------------------------------------------
+# Split execution of the CNNs: cuDNN convolutions, no kernel of the port's
+# ---------------------------------------------------------------------------
+
+def cnn_case(card, name):
+    """A CNN at a small size with the same seeded weights and input on the
+    card and on the CPU."""
+    from repro_torch.models.mobilenetv2 import MobileNetV2
+    from repro_torch.models.resnet50 import ResNet50
+
+    model = (MobileNetV2(width=0.35, image_size=96) if name == "mobilenet_v2"
+             else ResNet50(image_size=64))
+    x = torch.randn(model.input_shape(2), generator=torch.Generator().manual_seed(1))
+    return model, {dev: (model.init(torch.Generator().manual_seed(0), device=dev), x.to(dev))
+                   for dev in (card, "cpu")}
+
+
+@pytest.mark.parametrize("name", ["mobilenet_v2", "resnet50"])
+def test_cnn_on_card_matches_cpu(card, name):
+    """Card within 1e-4 x rms of the CPU on the same weights and input:
+    TF32 convolutions (~1e-3 relative) would fail this, even with the
+    caller's process-wide TF32 flags on."""
+    from repro_torch.core.executor import run_unsplit
+
+    model, runs = cnn_case(card, name)
+    tf32 = torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        got = run_unsplit(model, *runs[card])["h"].cpu().double()
+    finally:
+        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = tf32
+    want = run_unsplit(model, *runs["cpu"])["h"].double()
+    assert (got - want).abs().max() <= 1e-4 * want.square().mean().sqrt()
+    assert torch.equal(got.argmax(-1), want.argmax(-1))
+
+
+@pytest.mark.parametrize("name,splits", [("mobilenet_v2", (7, 48, 51)),
+                                         ("mobilenet_v2", (1, 2, 30, 53)),
+                                         ("resnet50", (5, 20, 35, 50))])
+def test_split_equals_unsplit_on_card(card, name, splits):
+    """Bit for bit on the card without the wire; with it, every hop
+    record equals the CPU run's."""
+    from repro_torch.core.executor import run_split, run_unsplit
+
+    model, runs = cnn_case(card, name)
+    ref = run_unsplit(model, *runs[card])
+    out, _ = run_split(model, *runs[card], splits)
+    assert torch.equal(out["h"], ref["h"])
+    hops = {}
+    for dev in (card, "cpu"):
+        _, trace = run_split(model, *runs[dev], splits, link=PP.ESP_NOW, quantize_wire=True)
+        hops[dev] = [(h.boundary_layer, h.nbytes, h.n_packets, h.sim_latency_s)
+                     for h in trace.hops]
+    assert hops[card] == hops["cpu"] and len(hops["cpu"]) == len(splits)

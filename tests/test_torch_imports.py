@@ -1,12 +1,14 @@
 """What the port may import, where it runs, and what it refuses.
 
-* ``repro_torch`` and ``chip_smoke.py`` import neither ``jax`` nor any
-  module of the reference package ``repro``.
+* ``repro_torch``, ``chip_smoke.py`` and the example twins
+  (``examples/torch_*.py``) import neither ``jax`` nor any module of the
+  reference package ``repro``.
 * Entry points default to the card and raise without one; the CPU runs
   only when named, and then no kernel launches.
 * Wrappers check their tensors; unported solvers and backends raise."""
 
 import ast
+import importlib.util
 import os
 import pkgutil
 import subprocess
@@ -29,6 +31,8 @@ from repro_torch.core import surface as PSF
 from repro_torch.core import spec as PSP
 from repro_torch.core import sweep as PS
 from repro_torch.device import resolve_device, resolve_dtype
+from repro_torch.models.mobilenetv2 import MobileNetV2
+from repro_torch.models.resnet50 import ResNet50
 from repro_torch.runtime import gateway as PG
 
 ROOT = Path(__file__).resolve().parent.parent
@@ -69,7 +73,8 @@ def imported_names(path):
             yield node.module
 
 
-@pytest.mark.parametrize("path", sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"],
+@pytest.mark.parametrize("path", sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+                         + sorted((ROOT / "examples").glob("torch_*.py")),
                          ids=lambda p: str(p.relative_to(ROOT)))
 def test_no_jax_or_reference_import(path):
     for name in imported_names(path):
@@ -134,6 +139,33 @@ def rebuild_sync(model, links):
     rb.request(2, {"udp": (links["udp"].packet_time_s() * 30, 0.0)})
     rb.poll(2)
     return rb.build_sync(rb.inflight())
+
+
+def example_main(name):
+    spec = importlib.util.spec_from_file_location(name, ROOT / "examples" / f"{name}.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod.main
+
+
+CNN_ENTRIES = {
+    "MobileNetV2.init": lambda: MobileNetV2(width=0.35, image_size=32).init(),
+    "ResNet50.init": lambda: ResNet50(image_size=32).init(),
+    "torch_quickstart.main": lambda: example_main("torch_quickstart")(),
+    "torch_split_mobilenet_inference.main":
+        lambda: example_main("torch_split_mobilenet_inference")(),
+}
+
+
+@pytest.mark.parametrize("entry", sorted(CNN_ENTRIES))
+def test_cnn_entries_default_to_the_card(monkeypatch, capsys, entry):
+    """The CNNs' ``init`` and the example twins' ``main`` name no device
+    by default: that is the card, and without one they raise before any
+    work."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA card"):
+        CNN_ENTRIES[entry]()
+    assert capsys.readouterr().out == ""
 
 
 @pytest.mark.parametrize("entry", sorted(default_entry_calls()))
