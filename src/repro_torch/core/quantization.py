@@ -56,12 +56,20 @@ class QTensor:
         return (self.values.float() - zp.float()) * scale
 
 
+def true_divide(x: torch.Tensor, d: float) -> torch.Tensor:
+    """``x / d`` correctly rounded on every device, as the reference
+    divides. On a CUDA tensor, ``x / <Python number>`` multiplies by the
+    number's reciprocal, which can differ from the quotient in the last
+    bit; a divisor held in a tensor on x's device is divided by."""
+    return x / torch.full((), d, dtype=x.dtype, device=x.device)
+
+
 def _affine_params(x_min: torch.Tensor, x_max: torch.Tensor
                    ) -> tuple[torch.Tensor, torch.Tensor]:
     """Scale/zero-point for asymmetric int8 covering [x_min, x_max]."""
     x_min = torch.clamp(x_min, max=0.0)
     x_max = torch.clamp(x_max, min=0.0)
-    scale = (x_max - x_min) / float(INT8_MAX - INT8_MIN)
+    scale = true_divide(x_max - x_min, float(INT8_MAX - INT8_MIN))
     scale = torch.where(scale <= 0, 1.0, scale)
     zp = torch.clamp(torch.round(INT8_MIN - x_min / scale), INT8_MIN,
                      INT8_MAX).to(torch.int32)
@@ -83,7 +91,7 @@ def quantize(x: torch.Tensor, axis: int | None = None,
             x_min, x_max = x, x
     if symmetric:
         amax = torch.maximum(x_min.abs(), x_max.abs())
-        scale = torch.where(amax <= 0, 1.0, amax / INT8_MAX).float()
+        scale = torch.where(amax <= 0, 1.0, true_divide(amax, INT8_MAX)).float()
         zp = torch.zeros_like(scale, dtype=torch.int32)
     else:
         scale, zp = _affine_params(x_min, x_max)

@@ -601,3 +601,23 @@ def test_split_equals_unsplit_on_card(card, name, splits):
         hops[dev] = [(h.boundary_layer, h.nbytes, h.n_packets, h.sim_latency_s)
                      for h in trace.hops]
     assert hops[card] == hops["cpu"] and len(hops["cpu"]) == len(splits)
+
+
+# ---------------------------------------------------------------------------
+# Quantizers on the card against the CPU, bit for bit
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("axis,symmetric", [(None, False), (None, True), (1, True), (0, False)])
+def test_quantize_on_card_equals_cpu(card, axis, symmetric):
+    """Scales, zero points and codes equal the CPU's on the same input:
+    the scales divide by 255 or 127 correctly rounded, as the reference
+    does (a CUDA tensor divided by a Python number multiplies by its
+    reciprocal instead, one ulp off on some inputs)."""
+    from repro_torch.core.quantization import quantize
+
+    g = torch.Generator().manual_seed(11)
+    for trial in range(20):
+        x = torch.randn((64, 96), generator=g) * (0.01 + trial)
+        got, want = quantize(x.to(card), axis, symmetric), quantize(x, axis, symmetric)
+        for name in ("values", "scale", "zero_point"):
+            assert torch.equal(getattr(got, name).cpu(), getattr(want, name)), (trial, name)
