@@ -171,7 +171,34 @@ reference package ``repro``) on the card and fails on any fault:
    and its encode + decode per hop, and a traced batch-1 forward with
    the wire in a fresh ``spawn`` process (idle share, device ms by class:
    convolutions, GEMM, quantization, the rest);
-17. a JSON line of per-kernel results, the card line, and the last line
+17. the rest of LM serving at full width, bf16, seeded random weights
+   made on the card, one config at a time: stablelm-12b (parallel
+   residual), granite-moe-1b-a400m and qwen3-moe-235b-a22b (MoE; the
+   latter cut to 4 of 94 layers), minicpm3-4b (MLA), musicgen-medium
+   (audio codes), qwen2-vl-72b (vision embeds, M-RoPE, the int8 KV cache;
+   cut to 8 of 80 layers), each with ``use_flash_kernel=True`` beside its
+   plain-attention twin (``False``): (a) ``make_prefill_step`` on 2 x 1024
+   with the flash launches counted (one wgmma launch a layer, 0 for MLA,
+   which runs the chunked core directly as the reference does) and every
+   layer's attention output held to ``plain_attention`` on its q, k, v
+   within the flash contract's full-width bf16 limit; (b) the
+   last-position logits against the twin's within 0.25 x std (MoE: the
+   twin takes the kernel run's expert picks, hence its keep mask,
+   computes its own gates, and the tolerance is the larger of 0.25 and
+   the root-sum-square of the per-layer relative attention errors of (a);
+   the picks the twin's own router would have changed are printed);
+   (c) ``prefill`` into a 1024 + 16 cache and 16 greedy ``serve_step``s,
+   the twin fed the same inputs (greedy picks equal wherever its top-two
+   gap is decisive); qwen2-vl's int8 codes and scales written by the card
+   equal the CPU quantizer's on the same k and v, bit for bit; minicpm3's
+   absorbed decode against the unabsorbed path each step; (d) ``Server``
+   on the four token-frontend configs, 5 staggered requests, each equal
+   to serving it alone (MoE: at a capacity factor of E / top_k, where no
+   expert drops); (e) peak memory, prefill s and tokens/s, ms per
+   ``serve_step``, flash / plain / SDPA ms at each prefill shape beside the
+   bound, and one traced ``serve_step`` per config in a fresh ``spawn``
+   process (idle share);
+18. a JSON line of per-kernel results, the card line, and the last line
    ``{"ok": true, "device": {...}}``.
 
 Exits non-zero, printing no result, when no card is present.
@@ -2542,6 +2569,531 @@ def phase_cnn(card) -> dict:
     return {"launches": launches}
 
 
+# ---------------------------------------------------------------------------
+# The rest of LM serving at full width (phase 17)
+# ---------------------------------------------------------------------------
+
+# (config, layers run; None: all): full width everywhere; the two largest
+# configs cut in depth to fit one 80 GB card with their caches and twins
+FAMILIES = (("stablelm-12b", None), ("granite-moe-1b-a400m", None),
+            ("qwen3-moe-235b-a22b", 4), ("minicpm3-4b", None),
+            ("musicgen-medium", None), ("qwen2-vl-72b", 8))
+FAMILY_B, FAMILY_P, FAMILY_DECODE = 2, 1024, 16
+# the reference's Server sends "tokens" only: the token-frontend configs
+SERVER_FAMILIES = ("stablelm-12b", "granite-moe-1b-a400m", "qwen3-moe-235b-a22b",
+                   "minicpm3-4b")
+
+
+class AttentionProbe:
+    """While entered, every ``attention_core`` call of a flash-kernel run
+    (Sq > 8) is checked on its own q, k and v: the kernel output against
+    the kernel's plain version (``attention_ref``, float32 probabilities:
+    the flash contract, within its full-width bf16 limit), and against
+    ``plain_attention`` (the twin's arithmetic: probabilities rounded to
+    bf16 before PV, outside the contract), as max abs error, share of the
+    limit and error over the plain output's std."""
+
+    def __enter__(self):
+        from repro_torch.kernels.flash_attention.ref import attention_ref
+        from repro_torch.models import layers as L
+
+        self.L, self.ref, self.core, self.layers = L, attention_ref, L.attention_core, []
+        L.attention_core = self._core
+        return self
+
+    def __exit__(self, *exc):
+        self.L.attention_core = self.core
+
+    def _core(self, cfg, q, k, v, q_positions, kv_positions):
+        import math
+
+        out = self.core(cfg, q, k, v, q_positions, kv_positions)
+        if cfg.use_flash_kernel and q.shape[1] > 8:
+            B, Sq, H, D = q.shape
+            k, v = k.to(q.dtype), v.to(q.dtype)
+            scale = 1.0 / math.sqrt(D)
+            ref = self.ref(fold(q), fold(k), fold(v), q_positions[0], kv_positions, scale)
+            err, used = within(out, ref.reshape(B, H, Sq, D).transpose(1, 2),
+                               *FLASH_TOL_FULL_BF16)
+            del ref
+            plain = self.L.plain_attention(q, k, v, q_positions=q_positions,
+                                           kv_positions=kv_positions, scale=scale)
+            plain_err, plain_used = within(out, plain, *FLASH_TOL_FULL_BF16)
+            self.layers.append({"err": err, "used": used, "plain_err": plain_err,
+                                "plain_used": plain_used,
+                                "rel": plain_err / float(plain.float().std())})
+        return out
+
+
+class QuantProbe:
+    """While entered, keeps every ``quantize_kv`` call's input and
+    outputs (the int8 cache's k and v of each layer)."""
+
+    def __enter__(self):
+        from repro_torch.models import layers as L
+
+        self.L, self.quantize, self.calls = L, L.quantize_kv, []
+        L.quantize_kv = self._quantize
+        return self
+
+    def __exit__(self, *exc):
+        self.L.quantize_kv = self.quantize
+
+    def _quantize(self, t):
+        vals, scale = self.quantize(t)
+        self.calls.append((t, vals, scale))
+        return vals, scale
+
+
+class RoutingTape:
+    """Each MoE layer's expert choice (``MoE.select``), recorded in the
+    kernel run and replayed in the twin's: the twin takes the kernel
+    run's (token, slot) picks, hence its keep mask, and computes its own
+    router probabilities and gates. ``changed`` counts, per replayed
+    call, the picks the twin's own router would not have made."""
+
+    def __init__(self, model):
+        from repro_torch.models import layers as L
+
+        self.top_k, self.moes = L.top_k_lower_index, [b.ff for b in model.blocks]
+        self.tape, self.pos, self.replaying, self.changed = [], 0, False, []
+        for moe in self.moes:
+            moe.select = self._select
+
+    def record(self):
+        self.tape, self.replaying = [], False
+
+    def replay(self):
+        self.pos, self.replaying, self.changed = 0, True, []
+
+    def close(self):
+        for moe in self.moes:
+            del moe.select
+
+    def _select(self, probs, k):
+        own = self.top_k(probs, k)
+        if not self.replaying:
+            self.tape.append(own)
+            return own
+        forced = self.tape[self.pos]
+        self.pos += 1
+        self.changed.append(int((forced[..., :, None] != own[..., None, :]).all(-1).sum()))
+        return forced
+
+
+def family_setup(dev, arch, n_layers):
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import transformer as T
+
+    full = get_config(arch)
+    cfg = replace(full, use_flash_kernel=True, n_layers=n_layers or full.n_layers)
+    if n_layers:
+        print(f"  {arch}: depth cut to {n_layers} of {full.n_layers} layers at full width "
+              f"(all {full.n_layers} take {full.n_params * 2 / 1e9:.1f} GB of bf16 weights; "
+              f"the card holds 80 GB)")
+    t0 = time.perf_counter()
+    params = T.init_params(cfg, generator=torch.Generator(device=dev).manual_seed(0),
+                           device=dev)
+    torch.cuda.synchronize()
+    feats = [n for n, on in (("parallel residual", cfg.parallel_residual),
+                             (f"MoE {cfg.n_experts} experts top-{cfg.top_k}", cfg.is_moe),
+                             (f"MLA (q_lora {cfg.q_lora_rank}, kv_lora {cfg.kv_lora_rank}, "
+                              f"qk {cfg.qk_nope_head_dim}+{cfg.qk_rope_head_dim}, v "
+                              f"{cfg.v_head_dim})", cfg.use_mla),
+                             (f"{cfg.n_codebooks} codebooks", cfg.n_codebooks),
+                             (f"M-RoPE {cfg.mrope_sections}", cfg.mrope_sections),
+                             ("int8 KV cache", cfg.kv_cache_dtype == "int8"),
+                             (f"frontend {cfg.frontend}", cfg.frontend != "none")) if on]
+    print(f"  {arch}: {cfg.n_layers} layers, d {cfg.d_model}, heads {cfg.n_heads}/"
+          f"{cfg.n_kv_heads} of {cfg.head_dim}, d_ff {cfg.d_ff}, vocab {cfg.vocab}, "
+          f"{cfg.dtype}; {'; '.join(feats)}; "
+          f"{sum(p.numel() for p in params.parameters()) / 1e9:.3f} G parameters made "
+          f"on the card in {time.perf_counter() - t0:.1f} s")
+    return cfg, replace(cfg, use_flash_kernel=False), params
+
+
+def family_batch(dev, cfg, S, seed=1) -> dict:
+    """Seeded inputs for the config's frontend: tokens, codes, or embeds
+    of the embedding table's scale in the compute type."""
+    import torch
+
+    g = torch.Generator(device=dev).manual_seed(seed)
+    if cfg.frontend == "vision_embeds":
+        x = torch.randn((FAMILY_B, S, cfg.d_model), generator=g, device=dev) * 0.02
+        return {"embeds": x.to(torch.bfloat16)}
+    shape = (FAMILY_B, S) + ((cfg.n_codebooks,) if cfg.n_codebooks else ())
+    key = "codes" if cfg.frontend == "audio_codes" else "tokens"
+    return {key: torch.randint(0, cfg.vocab, shape, generator=g, device=dev)}
+
+
+def family_feed(cfg, params, last) -> dict:
+    """The next step's input from the last position's logits (B, [K,] Vp):
+    the greedy token or codes; on the vision path the greedy token's
+    embedding (a text token's embeds)."""
+    tok = last[..., :cfg.vocab].argmax(-1)
+    if cfg.frontend == "vision_embeds":
+        return {"embeds": params.embed.table[tok][:, None]}
+    return {"codes" if cfg.frontend == "audio_codes" else "tokens": tok[:, None]}
+
+
+def logits_err(got, want, cfg) -> tuple[float, float]:
+    """(max abs error, the twin's std) over the real vocab slots."""
+    g, w = got[..., :cfg.vocab].float(), want[..., :cfg.vocab].float()
+    return float((g - w).abs().max()), float(w.std())
+
+
+def family_prefill_step(dev, cfg, twin, params, tape) -> dict:
+    """(a) the prefill step with every layer's attention held to
+    ``plain_attention``; (b) its last-position logits against the
+    plain-attention twin's (MoE: on the kernel run's expert picks)."""
+    import torch
+
+    from repro_torch.kernels.flash_attention import ops as FA
+    from repro_torch.launch.steps import make_prefill_step
+
+    batch = family_batch(dev, cfg, FAMILY_P)
+    if tape:
+        tape.record()
+    FA.reset_launch_count()
+    with AttentionProbe() as probe:
+        got = make_prefill_step(cfg)(params, batch)
+        torch.cuda.synchronize()
+    launches, wgmma = FA.FLASH_LAUNCHES, FA.FLASH_WGMMA_LAUNCHES
+    expect = 0 if cfg.use_mla else cfg.n_layers
+    if launches != expect or wgmma != expect or len(probe.layers) != expect:
+        raise AssertionError(f"{cfg.name} prefill step: {launches} flash launches ({wgmma} "
+                             f"wgmma, {len(probe.layers)} probed); expected {expect}")
+    worst = max(probe.layers, key=lambda e: e["used"], default=None)
+    if worst is not None and worst["used"] > 1.0:
+        raise AssertionError(f"{cfg.name}: a layer's flash output beyond the contract "
+                             f"(max abs err {worst['err']}, {worst['used']:.3f} of the limit)")
+    rel = [e["rel"] for e in probe.layers]  # vs plain_attention, over its std
+    # MoE: independent per-layer attention errors of relative size rel_l
+    # reach the logits in quadrature (root-sum-square), never tighter than
+    # the dense rule; the twin takes the kernel run's expert picks
+    rss = float(np.sqrt(np.sum(np.square(rel)))) if rel else 0.0
+    tol = max(LOGITS_TOL, rss) if cfg.is_moe else LOGITS_TOL
+    if tape:
+        tape.replay()
+    want = make_prefill_step(twin)(params, batch)
+    if tape and tape.pos != len(tape.tape):
+        raise AssertionError(f"{cfg.name}: the twin replayed {tape.pos} of "
+                             f"{len(tape.tape)} expert choices")
+    shape = (FAMILY_B,) + ((cfg.n_codebooks,) if cfg.n_codebooks else ()) + (cfg.vocab_padded,)
+    if tuple(got.shape) != shape or not bool(torch.isfinite(got[..., :cfg.vocab]).all()):
+        raise AssertionError(f"{cfg.name} prefill step: bad logits {tuple(got.shape)}")
+    err, std = logits_err(got, want, cfg)
+    same = float((got[..., :cfg.vocab].argmax(-1) == want[..., :cfg.vocab].argmax(-1))
+                 .float().mean())
+    if probe.layers:
+        check = (f"each layer's flash output on its own q, k, v: vs the kernel's plain "
+                 f"version (the contract: rtol {FLASH_TOL_FULL_BF16[0]}, atol "
+                 f"{FLASH_TOL_FULL_BF16[1]}) share of the limit by layer "
+                 f"{[round(e['used'], 3) for e in probe.layers]}, worst {worst['used']:.3f}, "
+                 f"max abs err {max(e['err'] for e in probe.layers):.4g}; vs "
+                 f"plain_attention (bf16 probabilities) worst "
+                 f"{max(e['plain_used'] for e in probe.layers):.3f} of "
+                 f"it, max abs err {max(e['plain_err'] for e in probe.layers):.4g}, over its "
+                 f"std by layer {[round(r, 4) for r in rel]}")
+    else:
+        check = "MLA runs the chunked attention core directly, as the reference: no flash call"
+    print(f"  (a) prefill step {FAMILY_B} x {FAMILY_P}: {launches} flash launches ({wgmma} "
+          f"wgmma); {check}")
+    rule = (f"max(0.25, root-sum-square of the per-layer errors {rss:.4f})" if cfg.is_moe
+            else "0.25")
+    print(f"  (b) last-position logits {tuple(got.shape)} vs the plain-attention twin: max "
+          f"abs err {err:.4g} = {err / std:.4f} x std {std:.4g} (tolerance {tol:.4f} x std: "
+          f"{rule}); argmax equal on {same:.0%}")
+    if tape:
+        print(f"      MoE: the twin took the kernel run's expert picks (and so its keep "
+              f"mask); picks its own router would have changed, by layer: {tape.changed} "
+              f"of {tape.tape[0].numel()}")
+    if err > tol * std:
+        raise AssertionError(f"{cfg.name} prefill step: kernel logits beyond tolerance")
+    return {"launches": launches, "wgmma": wgmma, "tol": tol, "batch": batch}
+
+
+def check_int8_cache(cfg, calls, cache):
+    """Each layer's int8 codes and scales written by the card equal
+    ``quantize_kv`` of the same k and v on the CPU, bit for bit, and
+    the cache rows hold them."""
+    import torch
+
+    from repro_torch.models import layers as L
+
+    if len(calls) != 2 * cfg.n_layers:
+        raise AssertionError(f"int8 cache: {len(calls)} quantizer calls")
+    for i, (t, vals, scale) in enumerate(calls):
+        layer, name = divmod(i, 2)
+        want_vals, want_scale = L.quantize_kv(t.cpu())
+        kv = "kv"[name]
+        rows = slice(0, t.shape[1])
+        if not (torch.equal(vals.cpu(), want_vals) and torch.equal(scale.cpu(), want_scale)
+                and torch.equal(cache[kv][layer, :, rows].cpu(), want_vals)
+                and torch.equal(cache[kv + "_scale"][layer, :, rows].cpu(), want_scale)):
+            raise AssertionError(f"int8 cache layer {layer} {kv}: card != CPU quantizer")
+    print(f"      int8 cache: the codes and scales of all {cfg.n_layers} layers' k and v "
+          f"written by the card == quantize_kv on the CPU on the same input (bit for bit)")
+
+
+def family_cached(dev, cfg, twin, params, tape, tol) -> dict:
+    """(c) ``prefill`` into a 1024 + 16 cache, then greedy ``serve_step``s;
+    the twin decodes the same inputs. MLA: each step also on the
+    unabsorbed path (on a copy of the cache) against the absorbed one."""
+    import torch
+
+    from repro_torch.kernels.flash_attention import ops as FA
+    from repro_torch.models import transformer as T
+
+    max_seq = FAMILY_P + FAMILY_DECODE
+    ours = T.init_cache(cfg, FAMILY_B, max_seq, device=dev)
+    theirs = T.init_cache(cfg, FAMILY_B, max_seq, device=dev)
+    counts = {"prefill": 0, "serve_step": 0}
+    wgmma = dict(counts)
+    agree = decisive = total = 0
+    mla_err = 0.0
+    feed = family_batch(dev, cfg, FAMILY_P)
+    changed = []
+    for i in range(FAMILY_DECODE + 1):
+        step = feed if i == 0 else {**feed, "cur_index": FAMILY_P + i - 1}
+        run = T.prefill if i == 0 else T.serve_step
+        if cfg.use_mla and i:
+            before = {k: v.clone() for k, v in ours.items()}
+        if tape:
+            tape.record()
+        FA.reset_launch_count()
+        with QuantProbe() as quant:
+            logits, ours = run(cfg, params, step, ours)
+            torch.cuda.synchronize()
+        counts[run.__name__] += FA.FLASH_LAUNCHES
+        wgmma[run.__name__] += FA.FLASH_WGMMA_LAUNCHES
+        if tape:
+            tape.replay()
+        twin_logits, theirs = run(twin, params, step, theirs)
+        if tape:
+            changed.append(sum(tape.changed))
+        last, twin_last = logits[:, -1], twin_logits[:, -1]
+        if cfg.use_mla and i:
+            flat, _ = run(replace(cfg, mla_absorbed_decode=False), params, step, before)
+            err, std = logits_err(last, flat[:, -1], cfg)
+            mla_err = max(mla_err, err / std)
+            del before
+        if i == 0:
+            err, std = logits_err(last, twin_last, cfg)
+            print(f"  (c) prefill into the {max_seq}-row cache ("
+                  + ", ".join(f"{k} {tuple(v.shape)} {str(v.dtype)[6:]}" for k, v in ours.items())
+                  + f"): last-position logits vs the twin: max abs err {err:.4g} = "
+                  f"{err / std:.4f} x std (tolerance {tol:.4f} x std)")
+            if err > tol * std:
+                raise AssertionError(f"{cfg.name} prefill into the cache: beyond tolerance")
+            tol_abs = tol * std
+            if cfg.kv_cache_dtype == "int8":
+                check_int8_cache(cfg, quant.calls, ours)
+        real = slice(0, cfg.vocab)
+        tok = last[..., real].argmax(-1)
+        top2 = twin_last[..., real].topk(2, dim=-1).values
+        clear = (top2[..., 0] - top2[..., 1]) > 2 * tol_abs
+        same = tok == twin_last[..., real].argmax(-1)
+        if bool((clear & ~same).any()) or not bool(torch.isfinite(last[..., real]).all()):
+            raise AssertionError(f"{cfg.name} step {i}: picks differ from the twin's where "
+                                 f"its top-two gap exceeds {2 * tol_abs:.4g}")
+        agree, decisive, total = agree + int(same.sum()), decisive + int(clear.sum()), \
+            total + same.numel()
+        feed = family_feed(cfg, params, last)
+    expect = {"prefill": 0 if cfg.use_mla else cfg.n_layers, "serve_step": 0}
+    if counts != expect or wgmma != counts:
+        raise AssertionError(f"{cfg.name} cached serving: flash launches {counts} "
+                             f"(wgmma {wgmma}), expected {expect}")
+    print(f"      + {FAMILY_DECODE} greedy serve_steps: flash launches {counts} (wgmma "
+          f"{wgmma}); greedy picks equal to the twin's in {agree} of {total}; {decisive} had "
+          f"a top-two gap > {2 * tol_abs:.4g}, all of those agree"
+          + (f"; the twin took the kernel run's expert picks at every step (its own router "
+             f"would have changed {sum(changed)})" if tape else ""))
+    if cfg.use_mla:
+        print(f"      MLA: absorbed (latent-space) decode vs the unabsorbed path on the same "
+              f"cache, every step: max abs err over std {mla_err:.4f} (tolerance {LOGITS_TOL})")
+        if mla_err > LOGITS_TOL:
+            raise AssertionError(f"{cfg.name}: absorbed decode beyond tolerance")
+    return {"launches": counts, "wgmma": wgmma, "cache": ours}
+
+
+def family_server(cfg, params) -> None:
+    """(d) ``Server``, 4 slots, 5 staggered requests: drained, in-vocab,
+    no flash launch; each request's tokens == serving it alone. MoE slots
+    share expert capacity (idle slots route too), so that equality holds
+    at a capacity factor of E / top_k (no drop); at the config's own
+    factor the run must drain."""
+    from repro_torch.kernels.flash_attention import ops as FA
+
+    rng = np.random.RandomState(7)
+    reqs = [(rid, rng.randint(0, cfg.vocab, size=n).astype(np.int32), 4)
+            for rid, n in enumerate((5, 3, 7, 4, 6))]
+    runs = [(cfg, not cfg.is_moe)]
+    if cfg.is_moe:
+        runs.append((replace(cfg, moe_capacity_factor=cfg.n_experts / cfg.top_k), True))
+    notes = []
+    for c, alone_check in runs:
+        FA.reset_launch_count()
+        got = serve_requests(params, c, reqs, max_seq=64)
+        if FA.FLASH_LAUNCHES:
+            raise AssertionError(f"{cfg.name} Server: {FA.FLASH_LAUNCHES} flash launches")
+        if any(len(t) != 4 or not all(0 <= x < cfg.vocab for x in t) for t in got.values()):
+            raise AssertionError(f"{cfg.name} Server: a request did not drain")
+        note = f"capacity factor {c.moe_capacity_factor}: drained" if cfg.is_moe else "drained"
+        if alone_check:
+            for rid, prompt, max_new in reqs:
+                if serve_requests(params, c, [(rid, prompt, max_new)], stagger=False,
+                                  max_seq=64)[rid] != got[rid]:
+                    raise AssertionError(f"{cfg.name} Server: request {rid} != alone")
+            note += ", each request's tokens == serving it alone (exact)"
+        notes.append(note)
+    print(f"  (d) Server 4 slots, 5 staggered requests (prompts 3-7 tokens), 4 new tokens "
+          f"each, 0 flash launches: {'; '.join(notes)}")
+
+
+def flash_at(dev, cfg, card) -> dict:
+    """The wgmma flash kernel, its plain version and SDPA at the config's
+    prefill shape, beside the kernel's bound."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.flash_attention import ops as FA
+    from repro_torch.kernels.flash_attention.ref import attention_ref
+
+    B, S, H, Hkv, D = FAMILY_B, FAMILY_P, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    q, k, v, qpos, kpos = flash_case(dev, B, S, S, H, Hkv, D, torch.bfloat16, 77)
+    qf, kf, vf = fold(q), fold(k), fold(v)
+    scale = D ** -0.5
+    pairs = B * H * int((kpos[None, :] <= qpos[:, None]).sum())
+    flops, nbytes = 4 * D * pairs, 2 * (2 * B * H * S * D + 2 * B * Hkv * S * D)
+    flops_ms, bytes_ms = flops / BF16_FLOPS_PER_S * 1e3, nbytes / HBM_BYTES_PER_S * 1e3
+    rep = H // Hkv
+    qs, ks, vs = (t.transpose(1, 2) for t in (q, k.repeat_interleave(rep, 2),
+                                               v.repeat_interleave(rep, 2)))
+    ms = timed_ms(lambda: FA.flash_attention_kernel(qf, kf, vf, qpos, kpos, scale=scale), 10)
+    plain_ms = timed_ms(lambda: attention_ref(qf, kf, vf, qpos, kpos, scale), 3)
+    lib_ms = timed_ms(lambda: F.scaled_dot_product_attention(qs, ks, vs, is_causal=True,
+                                                             scale=scale), 10)
+    bound = max(flops_ms, bytes_ms)
+    by = "operations" if flops_ms >= bytes_ms else "bytes"
+    print(f"      flash at the prefill shape (B {B} S {S} H {H} Hkv {Hkv} D {D} bf16 causal): "
+          f"wgmma kernel {ms:.4f} ms; plain {plain_ms:.3f} ms; scaled_dot_product_attention "
+          f"{lib_ms:.4f} ms; bound {bound:.4f} ms by {by} ({flops / 1e9:.2f} G flops, "
+          f"{nbytes / 1e6:.1f} MB); {ms / bound:.1f}x the bound [{card}]")
+    return {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound, "bound_by": by,
+            "library_ms": lib_ms, "shape": f"B {B} S {S} H {H} Hkv {Hkv} D {D}"}
+
+
+def family_times(dev, cfg, params, cache, card) -> dict:
+    """(e) the prefill step's wall and tokens/s, ms per serve_step."""
+    import torch
+
+    from repro_torch.launch.steps import make_prefill_step
+    from repro_torch.models import transformer as T
+
+    step, batch = make_prefill_step(cfg), family_batch(dev, cfg, FAMILY_P)
+    walls = []
+    for _ in range(2):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        step(params, batch)
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+    feed = family_feed(cfg, params, step(params, batch))
+    decode = lambda i: T.serve_step(cfg, params, {**feed, "cur_index": FAMILY_P + i % 16},
+                                    cache)
+    decode(0)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for i in range(10):
+        decode(i)
+    torch.cuda.synchronize()
+    step_ms = (time.perf_counter() - t0) / 10 * 1e3
+    n = FAMILY_B * FAMILY_P
+    print(f"  (e) prefill step {FAMILY_B} x {FAMILY_P}: {min(walls):.4f} s ({n / min(walls):.1f} "
+          f"tokens/s; runs {', '.join(f'{w:.4f}' for w in walls)} s); serve_step "
+          f"{step_ms:.3f} ms per step over 10 ({FAMILY_B * 1e3 / step_ms:.1f} tokens/s at "
+          f"{FAMILY_B} rows) [{card}]")
+    return {"prefill_s": min(walls), "step_ms": step_ms}
+
+
+def traced_family_steps(card) -> dict:
+    """In a fresh process (a trace late in a long process has come back
+    without device events): each config built as in
+    phase 17, a 1024-token prefill into its 1040-row cache, two warm-up
+    ``serve_step``s, then one traced: wall, device busy and idle share."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import transformer as T
+
+    dev = torch.device("cuda")
+    out = {}
+    for arch, n_layers in FAMILIES:
+        full = get_config(arch)
+        cfg = replace(full, use_flash_kernel=True, n_layers=n_layers or full.n_layers)
+        params = T.init_params(cfg, generator=torch.Generator(device=dev).manual_seed(0),
+                               device=dev)
+        cache = T.init_cache(cfg, FAMILY_B, FAMILY_P + FAMILY_DECODE, device=dev)
+        logits, cache = T.prefill(cfg, params, family_batch(dev, cfg, FAMILY_P), cache)
+        feed = family_feed(cfg, params, logits[:, -1])
+        step = lambda: T.serve_step(cfg, params, {**feed, "cur_index": FAMILY_P}, cache)
+        step()
+        step()
+        trace = traced_run(f"{arch} serve_step, {FAMILY_B} rows (a fresh process)", step, card)
+        out[arch] = None if trace is None else {"wall_ms": trace["wall_ms"],
+                                                "busy_ms": trace["busy_ms"]}
+        del params, cache, logits
+        torch.cuda.empty_cache()
+    return out
+
+
+def phase_lm_families(dev, card) -> dict:
+    """Phase 17: the six configs one at a time, each freed before the
+    next; flash launches counted per config around its runs only."""
+    import multiprocessing as mp
+    from concurrent.futures import ProcessPoolExecutor
+
+    import torch
+
+    t_phase = time.perf_counter()
+    launches, wgmma, by_config = {}, 0, {}
+    for arch, n_layers in FAMILIES:
+        t0 = time.perf_counter()
+        torch.cuda.reset_peak_memory_stats()
+        cfg, twin, params = family_setup(dev, arch, n_layers)
+        tape = RoutingTape(params) if cfg.is_moe else None
+        pre = family_prefill_step(dev, cfg, twin, params, tape)
+        cached = family_cached(dev, cfg, twin, params, tape, pre["tol"])
+        if tape:
+            tape.close()
+        if arch in SERVER_FAMILIES:
+            family_server(cfg, params)
+        launches[arch] = pre["launches"] + sum(cached["launches"].values())
+        wgmma += pre["wgmma"] + sum(cached["wgmma"].values())
+        family_times(dev, cfg, params, cached["cache"], card)
+        if not cfg.use_mla:
+            by_config[arch] = flash_at(dev, cfg, card)
+        print(f"  {arch}: {launches[arch]} flash launches on its paths; peak "
+              f"{torch.cuda.max_memory_allocated() / 1e9:.1f} GB allocated; "
+              f"{time.perf_counter() - t0:.1f} s [{card}]")
+        del params, cached, pre, tape  # the tape holds the MoE modules too
+        torch.cuda.empty_cache()
+    with ProcessPoolExecutor(max_workers=1, mp_context=mp.get_context("spawn")) as pool:
+        traced = pool.submit(traced_family_steps, card).result()
+    print("  traced serve_step idle share by config: " + ", ".join(
+        f"{a} " + ("not measured" if t is None else
+                   f"{1 - t['busy_ms'] / t['wall_ms']:.4f} (wall {t['wall_ms']:.2f} ms, busy "
+                   f"{t['busy_ms']:.2f} ms)") for a, t in traced.items()) + f" [{card}]")
+    print(f"  phase 17: flash launches by config {launches} (all wgmma: "
+          f"{wgmma == sum(launches.values())}); {time.perf_counter() - t_phase:.1f} s")
+    if wgmma != sum(launches.values()):
+        raise AssertionError("phase 17: a flash launch took the CUDA-core kernel")
+    return {"launches": launches, "wgmma": wgmma, "by_config": by_config}
+
+
 def main() -> int:
     import torch
 
@@ -2598,7 +3150,7 @@ def main() -> int:
 
     print("== 9 serving path: Server at full width")
     server = phase_server(params, cfg)
-    flash_launches = pre["launches"] + sum(cached["counts"].values())
+    flash_launches = deepseek_launches = pre["launches"] + sum(cached["counts"].values())
     wgmma_launches = pre["wgmma"] + sum(cached["wgmma"].values())
 
     print("== 10 serving times")
@@ -2634,6 +3186,13 @@ def main() -> int:
     print(f"== 16 split execution of the paper's CNNs with the int8 wire on the card [{card}]")
     cnn = phase_cnn(card)
 
+    card = card_line()
+    print("== 17 the rest of LM serving at full width: parallel residual, MoE, MLA, audio "
+          f"codes, M-RoPE with vision embeds and the int8 KV cache [{card}]")
+    families = phase_lm_families(dev, card)
+    flash_launches += sum(families["launches"].values())
+    wgmma_launches += families["wgmma"]
+
     kernels = []
     by_variant = {"tiled": path["by_variant"]["tiled"] + planner["tiled"] + replan["tiled"],
                   "per_scenario": path["by_variant"]["per_scenario"]
@@ -2660,7 +3219,8 @@ def main() -> int:
         "launches": flash_launches, "max_abs_err": errs["flash_attention"],
         "launches_by_variant": {"wgmma": wgmma_launches,
                                 "simt": flash_launches - wgmma_launches},
-        **times["flash_attention"],
+        "launches_by_path": {"deepseek-7b": deepseek_launches, **families["launches"]},
+        **times["flash_attention"], "by_config": families["by_config"],
     })
     for name, source, replaces, launches in (
             ("w8a8_matmul", "quant_matmul.cu", "quant_matmul/kernel.py:31",

@@ -125,38 +125,28 @@ def _tensor(a) -> torch.Tensor:
     return torch.from_numpy(np.array(a))
 
 
-# port name -> path in the reference's block pytree
-_BLOCK_LEAVES = {
-    "norm1.scale": ("norm1", "scale"),
-    "attn.wq": ("attn", "wq"),
-    "attn.wk": ("attn", "wk"),
-    "attn.wv": ("attn", "wv"),
-    "attn.wo": ("attn", "wo"),
-    "norm2.scale": ("norm2", "scale"),
-    "ff.w_in": ("ff", "w_in"),
-    "ff.w_out": ("ff", "w_out"),
-    "ff.w_gate": ("ff", "w_gate"),
-}
-
-
 def lm_params_from_reference(cfg: ModelConfig, params) -> dict[str, torch.Tensor]:
     """The port's ``Transformer`` state dict from the reference's
-    ``init_params`` pytree of a homogeneous dense config: its per-layer
-    stacks (leading axis ``n_layers``) become ``blocks.<i>.*``. Load it
-    with ``Transformer(cfg, device=...).load_state_dict(...)``."""
-    blocks = params["blocks"]
+    ``init_params`` pytree of a homogeneous attention stack: every
+    per-layer stack (leading axis ``n_layers``) under ``blocks`` becomes
+    ``blocks.<i>.<group>.<leaf>`` (the port's modules keep the
+    reference's leaf names: ``attn.wq`` or MLA's ``attn.q_down``, the
+    MoE's ``ff.router`` and stacked ``ff.w_in``, ...). The embedding (one
+    table per codebook, stacked) and the head come across as they are;
+    a tied head has no weight. Load it with
+    ``Transformer(cfg, device=...).load_state_dict(...)``."""
     sd = {"embed.table": _tensor(params["embed"]["table"]),
-          "final_norm.scale": _tensor(params["final_norm"]["scale"]),
-          "lm_head.w": _tensor(params["lm_head"]["w"])}
-    for name, (group, leaf) in _BLOCK_LEAVES.items():
-        if leaf not in blocks[group]:
-            continue  # w_gate of a non-gated MLP
-        stack = np.asarray(blocks[group][leaf])
-        if stack.shape[0] != cfg.n_layers:
-            raise ValueError(f"{group}.{leaf}: {stack.shape[0]} layers, "
-                             f"config has {cfg.n_layers}")
-        for i in range(cfg.n_layers):
-            sd[f"blocks.{i}.{name}"] = _tensor(stack[i])
+          "final_norm.scale": _tensor(params["final_norm"]["scale"])}
+    if "w" in params["lm_head"]:
+        sd["lm_head.w"] = _tensor(params["lm_head"]["w"])
+    for group, leaves in params["blocks"].items():
+        for leaf, stack in leaves.items():
+            stack = np.asarray(stack)
+            if stack.shape[0] != cfg.n_layers:
+                raise ValueError(f"{group}.{leaf}: {stack.shape[0]} layers, "
+                                 f"config has {cfg.n_layers}")
+            for i in range(cfg.n_layers):
+                sd[f"blocks.{i}.{group}.{leaf}"] = _tensor(stack[i])
     return sd
 
 

@@ -14,7 +14,10 @@ from repro_torch.models.config import ModelConfig
 
 
 def make_prefill_step(cfg: ModelConfig):
-    """``prefill_step(params, batch)`` -> the last position's logits (B, V).
+    """``prefill_step(params, batch)`` -> the last position's logits (B, V),
+    or (B, n_codebooks, V) for audio codes. ``batch`` holds ``tokens``,
+    ``codes`` or ``embeds`` as the config's frontend takes, and optional
+    ``positions`` ((3, B, S) for M-RoPE).
 
     Serving prefill has no backward pass, so causal block skipping is on
     (``causal_skip=True``), as in the reference."""

@@ -1,9 +1,11 @@
-"""Neural-net primitives of the dense decoder stack, in PyTorch.
+"""Neural-net primitives of the decoder stack, in PyTorch.
 
-The port's counterpart of the dense subset of ``repro.models.layers``:
-RMSNorm, standard RoPE, the three attention cores and their dispatch,
-the GQA attention layer with its KV-cache writer, the MLP, the embedding
-and the LM head. Conventions follow the reference:
+The port's counterpart of ``repro.models.layers``: RMSNorm, RoPE and
+M-RoPE, the three attention cores and their dispatch, the GQA attention
+layer with its KV-cache writer and the int8 KV cache, MLA latent
+attention, the MLP, the top-k routed MoE, the embedding (one table per
+audio codebook) and the LM head (per codebook, or tied to the
+embedding). Conventions follow the reference:
 
 * activations are (B, S, d_model) and attention heads (B, S, H, Dh); the
   weights keep the reference's layouts (``wq`` is (d, H, Dh), ``wo``
@@ -14,7 +16,9 @@ and the LM head. Conventions follow the reference:
 * attention scores and the LM head's logits are float32: products of the
   stored values are formed in float32 (exact for bfloat16 inputs), as
   the reference's ``preferred_element_type=float32`` does;
-* the probabilities are rounded to V's type before the PV product.
+* the probabilities are rounded to V's type before the PV product;
+* a product of two types (a float32 cache read by a bfloat16 layer)
+  computes in the wider one, as the reference's mixed einsums do.
 """
 
 from __future__ import annotations
@@ -25,6 +29,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from repro_torch.core.quantization import true_divide
 from repro_torch.kernels.flash_attention.ops import flash_attention
 from repro_torch.models.config import ModelConfig
 
@@ -84,11 +89,26 @@ def rope_freqs(head_dim: int, theta: float, device=None) -> torch.Tensor:
                                          device=device) / head_dim))
 
 
-def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.Tensor:
-    """Rotate (B, S, H, Dh) by (B, S) positions. Pairs are interleaved
-    (``x[..., 0::2]``, ``x[..., 1::2]``), as in the reference."""
+def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float,
+               mrope_sections: tuple[int, int, int] | None = None) -> torch.Tensor:
+    """Rotate (B, S, H, Dh) by (B, S) positions, or for M-RoPE (Qwen2-VL)
+    by (3, B, S) position streams: the Dh/2 frequency slots split into
+    (t, h, w) sections of ``mrope_sections`` slots, each section driven by
+    its own stream. Pairs are interleaved (``x[..., 0::2]``,
+    ``x[..., 1::2]``), as in the reference."""
+    half = x.shape[-1] // 2
     inv = rope_freqs(x.shape[-1], theta, x.device)
-    angles = positions.float()[..., None] * inv  # (B, S, dh/2)
+    if mrope_sections is None:
+        angles = positions.float()[..., None] * inv  # (B, S, dh/2)
+    else:
+        if positions.dim() != 3 or sum(mrope_sections) != half:
+            raise ValueError(f"M-RoPE needs positions (3, B, S) and sections "
+                             f"summing to {half}, got {tuple(positions.shape)} "
+                             f"and {mrope_sections}")
+        section = torch.repeat_interleave(
+            torch.arange(3, device=x.device),
+            torch.tensor(mrope_sections, device=x.device))  # stream of each slot
+        angles = positions.float()[section].permute(1, 2, 0) * inv
     cos = torch.cos(angles)[:, :, None, :]
     sin = torch.sin(angles)[:, :, None, :]
     xf = x.float()
@@ -198,14 +218,14 @@ def attention_core(cfg: ModelConfig, q, k, v, q_positions, kv_positions) -> torc
 
 
 # ---------------------------------------------------------------------------
-# GQA attention layer (with optional KV cache)
+# GQA attention layer (with optional KV cache, bf16 or int8)
 # ---------------------------------------------------------------------------
 
 
 def cache_write(c: torch.Tensor, u: torch.Tensor, pos_ids: torch.Tensor,
                 offset: int) -> None:
-    """Write ``u`` (B, S, Hkv, Dh) into the cache ``c`` (B, Smax, Hkv, Dh)
-    in place (the reference's ``_cache_writer`` returns a new array).
+    """Write ``u`` (B, S, ...) into the cache ``c`` (B, Smax, ...) in place
+    (the reference's ``_cache_writer`` returns a new array).
 
     Decode (S == 1) writes per row: row ``b`` lands at ``pos_ids[b, 0]``,
     and a position outside [0, Smax) (an idle slot at -1) writes nothing.
@@ -220,11 +240,43 @@ def cache_write(c: torch.Tensor, u: torch.Tensor, pos_ids: torch.Tensor,
         hit = (pos >= 0) & (pos < s_max)
         rows = torch.arange(B, device=c.device)
         at = torch.where(hit, pos, 0)
+        hit = hit.reshape(B, *([1] * (u.dim() - 2)))
         # rows that write nothing store back what they hold: no host sync
-        c[rows, at] = torch.where(hit[:, None, None], u[:, 0].to(c.dtype), c[rows, at])
+        c[rows, at] = torch.where(hit, u[:, 0].to(c.dtype), c[rows, at])
     else:
         start = min(max(offset, 0), s_max - S)
         c[:, start:start + S] = u.to(c.dtype)
+
+
+def quantize_kv(t: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """The int8 KV cache's quantizer: symmetric int8 per (token, head).
+    ``t`` (B, S, Hkv, Dh) -> values (B, S, Hkv, Dh) int8 and float32
+    scales (B, S, Hkv): ``scale = amax / 127`` (1 for a row of zeros),
+    values rounded half to even, then clipped to [-127, 127]."""
+    tf = t.float()
+    amax = tf.abs().amax(dim=-1)
+    scale = torch.where(amax > 0, true_divide(amax, 127.0), 1.0)
+    vals = torch.clamp(torch.round(tf / scale[..., None]), -127, 127)
+    return vals.to(torch.int8), scale
+
+
+def dequantize_kv(vals: torch.Tensor, scale: torch.Tensor, dtype) -> torch.Tensor:
+    """Values times scales, both cast to ``dtype`` first (the reference's
+    order: the product rounds once in ``dtype``)."""
+    return vals.to(dtype) * scale[..., None].to(dtype)
+
+
+def _promoted(*ts: torch.Tensor) -> torch.dtype:
+    dt = ts[0].dtype
+    for t in ts[1:]:
+        dt = torch.promote_types(dt, t.dtype)
+    return dt
+
+
+def _head_proj(x, w):  # (B, S, d) x (d, H, Dh) -> (B, S, H, Dh)
+    dt = _promoted(x, w)
+    return torch.matmul(x.to(dt), w.to(dt).reshape(w.shape[0], -1)).reshape(
+        *x.shape[:2], *w.shape[1:])
 
 
 class Attention(nn.Module):
@@ -241,30 +293,129 @@ class Attention(nn.Module):
             dense_init_(w, generator)
         dense_init_(self.wo, generator, scale=1.0 / math.sqrt(self.wo.shape[0]))
 
-    @staticmethod
-    def _proj(x, w):  # (B, S, d) x (d, H, Dh) -> (B, S, H, Dh)
-        return torch.matmul(x, w.reshape(w.shape[0], -1)).reshape(
-            *x.shape[:2], *w.shape[1:])
-
     def forward(self, cfg: ModelConfig, x, positions, cache=None, offset: int = 0):
-        """x: (B, S, D); positions (B, S); ``cache``: {"k", "v": (B, Smax,
-        Hkv, Dh)}, written in place at ``positions``. Returns (B, S, D)."""
+        """x: (B, S, D); positions (B, S), or (3, B, S) for M-RoPE (masks
+        take the t stream). ``cache``: {"k", "v": (B, Smax, Hkv, Dh)},
+        plus {"k_scale", "v_scale": (B, Smax, Hkv)} float32 for the int8
+        cache, written in place at ``positions``. The int8 cache is
+        dequantized into x's type before the attention core. Returns
+        (B, S, D)."""
         B, S, _ = x.shape
-        q = apply_rope(self._proj(x, self.wq), positions, cfg.rope_theta)
-        k = apply_rope(self._proj(x, self.wk), positions, cfg.rope_theta)
-        v = self._proj(x, self.wv)
-        if cache is not None:
-            cache_write(cache["k"], k, positions, offset)
-            cache_write(cache["v"], v, positions, offset)
+        rope = (cfg.rope_theta, cfg.mrope_sections)
+        q = apply_rope(_head_proj(x, self.wq), positions, *rope)
+        k = apply_rope(_head_proj(x, self.wk), positions, *rope)
+        v = _head_proj(x, self.wv)
+        pos_ids = positions[0] if positions.dim() == 3 else positions
+        if cache is not None and "k_scale" in cache:
+            for name, t in (("k", k), ("v", v)):
+                vals, scale = quantize_kv(t)
+                cache_write(cache[name], vals, pos_ids, offset)
+                cache_write(cache[name + "_scale"], scale, pos_ids, offset)
+            k = dequantize_kv(cache["k"], cache["k_scale"], x.dtype)
+            v = dequantize_kv(cache["v"], cache["v_scale"], x.dtype)
+        elif cache is not None:
+            cache_write(cache["k"], k, pos_ids, offset)
+            cache_write(cache["v"], v, pos_ids, offset)
             k, v = cache["k"], cache["v"]
         kv_positions = torch.arange(k.shape[1], dtype=torch.int32, device=x.device)
-        out = attention_core(cfg, q, k, v, positions, kv_positions)
+        out = attention_core(cfg, q, k, v, pos_ids, kv_positions)
         return torch.matmul(out.reshape(B, S, -1), self.wo)
 
 
 # ---------------------------------------------------------------------------
-# MLP, embedding, head
+# MLA: multi-head latent attention (MiniCPM3 / DeepSeek-V2 style)
 # ---------------------------------------------------------------------------
+
+
+class MLA(nn.Module):
+    """Latent attention. The cache holds only the compressed latent
+    ``c_kv`` (B, Smax, kv_lora_rank) and the shared rope key ``k_rope``
+    (B, Smax, rope_dim). Prefill expands per-head K and V and runs the
+    chunked (Sq > 8) or plain attention core directly, never the flash
+    kernel, as the reference does; ``absorbed=True`` (decode) scores in
+    latent space and never expands K or V."""
+
+    def __init__(self, cfg: ModelConfig, *, device, dtype):
+        super().__init__()
+        d, H = cfg.d_model, cfg.n_heads
+        qlr, kvlr = cfg.q_lora_rank, cfg.kv_lora_rank
+        dn, dr, dv = cfg.qk_nope_head_dim, cfg.qk_rope_head_dim, cfg.v_head_dim
+        kw = dict(device=device, dtype=dtype)
+        self.q_down = _weight(d, qlr, **kw)
+        self.q_up = _weight(qlr, H, dn + dr, **kw)
+        self.kv_down = _weight(d, kvlr + dr, **kw)
+        self.kv_up_k = _weight(kvlr, H, dn, **kw)
+        self.kv_up_v = _weight(kvlr, H, dv, **kw)
+        self.wo = _weight(H * dv, d, **kw)
+
+    def init_weights(self, generator) -> None:
+        for w in (self.q_down, self.q_up, self.kv_down, self.kv_up_k, self.kv_up_v,
+                  self.wo):
+            dense_init_(w, generator)
+
+    def forward(self, cfg: ModelConfig, x, positions, cache=None, offset: int = 0,
+                absorbed: bool = False):
+        B, S, _ = x.shape
+        dn, dr = cfg.qk_nope_head_dim, cfg.qk_rope_head_dim
+        pos_ids = positions[0] if positions.dim() == 3 else positions
+        q = _head_proj(torch.matmul(x, self.q_down), self.q_up)
+        q_nope, q_rope = q[..., :dn], apply_rope(q[..., dn:], positions, cfg.rope_theta)
+        kv = torch.matmul(x, self.kv_down)
+        c_kv, k_rope = kv[..., :cfg.kv_lora_rank], kv[..., cfg.kv_lora_rank:]
+        k_rope = apply_rope(k_rope[:, :, None, :], positions, cfg.rope_theta)[:, :, 0, :]
+        if cache is not None:
+            cache_write(cache["c_kv"], c_kv, pos_ids, offset)
+            cache_write(cache["k_rope"], k_rope, pos_ids, offset)
+            c_kv, k_rope = cache["c_kv"], cache["k_rope"]
+        kv_positions = torch.arange(c_kv.shape[1], dtype=torch.int32, device=x.device)
+        scale = 1.0 / math.sqrt(dn + dr)
+
+        if absorbed:
+            # score = (q_nope W_uk) . c + q_rope . k_rope, all in latent space
+            dt = _promoted(q_nope, self.kv_up_k)
+            q_abs = torch.einsum("bshe,rhe->bshr", q_nope.to(dt),
+                                 self.kv_up_k.to(dt)).to(x.dtype)
+            s = torch.einsum("bshr,bkr->bshk", q_abs.float(), c_kv.float())
+            s = s + torch.einsum("bshe,bke->bshk", q_rope.float(), k_rope.float())
+            s = s * scale
+            mask = kv_positions[None, None, :] <= pos_ids[:, :, None]
+            s = torch.where(mask[:, :, None, :], s, NEG_INF)
+            prob = torch.softmax(s, dim=-1)
+            o_lat = torch.einsum("bshk,bkr->bshr", prob.to(x.dtype).float(),
+                                 c_kv.float()).to(x.dtype)
+            dt = _promoted(o_lat, self.kv_up_v)
+            out = torch.einsum("bshr,rhe->bshe", o_lat.to(dt),
+                               self.kv_up_v.to(dt)).to(x.dtype)
+        else:
+            k_nope = _head_proj(c_kv, self.kv_up_k).to(x.dtype)
+            v = _head_proj(c_kv, self.kv_up_v).to(x.dtype)
+            H = self.kv_up_k.shape[1]
+            dt = _promoted(k_nope, k_rope)
+            k_full = torch.cat([k_nope.to(dt), k_rope[:, :, None, :].to(dt).expand(
+                *k_rope.shape[:2], H, dr)], dim=-1)
+            q_full = torch.cat([q_nope, q_rope], dim=-1)
+            if S > 8:
+                out = chunked_attention(q_full, k_full, v, q_positions=pos_ids,
+                                        kv_positions=kv_positions, scale=scale,
+                                        kv_chunk=cfg.kv_chunk, q_chunk=cfg.q_chunk)
+            else:
+                out = plain_attention(q_full, k_full, v, q_positions=pos_ids,
+                                      kv_positions=kv_positions, scale=scale)
+        return torch.matmul(out.reshape(B, S, -1), self.wo)
+
+
+# ---------------------------------------------------------------------------
+# MLP and MoE
+# ---------------------------------------------------------------------------
+
+
+def _ffn(x, w_in, w_out, w_gate):
+    h = torch.matmul(x, w_in)
+    if w_gate is not None:
+        h = F.silu(torch.matmul(x, w_gate)) * h
+    else:
+        h = F.gelu(h, approximate="tanh")  # jax.nn.gelu's default
+    return torch.matmul(h, w_out)
 
 
 class MLP(nn.Module):
@@ -284,41 +435,152 @@ class MLP(nn.Module):
             dense_init_(self.w_gate, generator)
 
     def forward(self, x):
-        h = torch.matmul(x, self.w_in)
+        return _ffn(x, self.w_in, self.w_out, self.w_gate if self.gated else None)
+
+
+def top_k_lower_index(probs: torch.Tensor, k: int) -> torch.Tensor:
+    """Indices of the ``k`` largest entries of the last dim, largest
+    first, ties to the lower index (``jax.lax.top_k``'s order; a stable
+    descending sort keeps equal entries in index order)."""
+    return torch.sort(probs, dim=-1, descending=True, stable=True).indices[..., :k]
+
+
+def queue_positions(top_i: torch.Tensor, n_experts: int) -> torch.Tensor:
+    """Each (token, slot) pair's place in its expert's queue, (n, g, K).
+    Slot-major, as the reference's: every token's first choice queues
+    before any token's second choice, tokens in order within a slot, so
+    an expert's overflow drops later slots first."""
+    n, g, K = top_i.shape
+    flat = top_i.transpose(1, 2).reshape(n, K * g)
+    seen = F.one_hot(flat, n_experts).cumsum(dim=1)  # (n, K*g, E)
+    pos = seen.gather(-1, flat[..., None])[..., 0] - 1
+    return pos.reshape(n, K, g).transpose(1, 2)
+
+
+class MoE(nn.Module):
+    """Top-k routed experts with capacity-bounded grouped dispatch
+    (GShard semantics; the reference's ``apply_moe``).
+
+    Tokens go in groups of ``moe_group_size`` (the last zero-padded; its
+    pad rows are routed and queue like tokens). Per group the float32
+    router's softmax picks ``top_k`` experts per token
+    (:meth:`select`), their probabilities renormalised by their sum
+    (floored at 1e-9) are the gates, and each expert takes at most
+    ``C = ceil(g * top_k / E * moe_capacity_factor)`` pairs in
+    :func:`queue_positions` order; the rest are dropped. Kept tokens are
+    gathered into an (E, groups x (C + 1), d) buffer (row C of each
+    group collects the dropped pairs and is never read), the experts run
+    as batched products over the stacked (E, d, f) weights, and each
+    token sums its kept experts' outputs times its gates, cast to the
+    activation type first, in float32."""
+
+    def __init__(self, cfg: ModelConfig, *, device, dtype):
+        super().__init__()
+        d, f, E = cfg.d_model, cfg.d_ff, cfg.n_experts
+        self.gated = cfg.gated_mlp
+        self.router = _weight(d, E, device=device, dtype=torch.float32)
+        self.w_in = _weight(E, d, f, device=device, dtype=dtype)
+        self.w_out = _weight(E, f, d, device=device, dtype=dtype)
         if self.gated:
-            h = F.silu(torch.matmul(x, self.w_gate)) * h
-        else:
-            h = F.gelu(h, approximate="tanh")  # jax.nn.gelu's default
-        return torch.matmul(h, self.w_out)
+            self.w_gate = _weight(E, d, f, device=device, dtype=dtype)
+
+    def init_weights(self, generator) -> None:
+        # fan_in is the first dim: E for the stacked experts, as in the reference
+        for w in (self.router, self.w_in, self.w_out) + ((self.w_gate,) if self.gated else ()):
+            dense_init_(w, generator)
+
+    def select(self, probs: torch.Tensor, k: int) -> torch.Tensor:
+        """The experts each token of each group takes, (n, g, k)."""
+        return top_k_lower_index(probs, k)
+
+    def forward(self, cfg: ModelConfig, x):
+        B, S, D = x.shape
+        E, K = cfg.n_experts, cfg.top_k
+        T = B * S
+        g = min(cfg.moe_group_size, T)
+        n = -(-T // g)
+        xg = F.pad(x.reshape(T, D), (0, 0, 0, n * g - T)).reshape(n, g, D)
+
+        probs = torch.softmax(torch.matmul(xg.float(), self.router), dim=-1)
+        top_i = self.select(probs, K)
+        top_p = probs.gather(-1, top_i)
+        top_p = top_p / torch.clamp_min(top_p.sum(-1, keepdim=True), 1e-9)
+        C = max(1, int(math.ceil(g * K / E * cfg.moe_capacity_factor)))
+        pos = queue_positions(top_i, E)
+        keep = pos < C
+        row = torch.where(keep, pos, C)
+        groups = torch.arange(n, device=x.device)[:, None, None]
+        at = ((top_i * n + groups) * (C + 1) + row).reshape(-1)  # (n*g*K,)
+
+        # expert-major rows, so each expert's products are one batched
+        # matmul over its (groups x (C + 1)) rows against its own weights
+        expert_in = xg.new_zeros((E * n * (C + 1), D))
+        expert_in[at] = xg[:, :, None, :].expand(n, g, K, D).reshape(-1, D)
+        expert_in = expert_in.reshape(E, n * (C + 1), D)
+        out = _ffn(expert_in, self.w_in, self.w_out, self.w_gate if self.gated else None)
+        picked = out.reshape(-1, D)[at].reshape(n, g, K, D)
+        gates = top_p.to(x.dtype).float()
+        y = torch.where(keep[..., None], gates[..., None] * picked.float(), 0.0).sum(dim=2)
+        return y.to(x.dtype).reshape(n * g, D)[:T].reshape(B, S, D)
+
+
+# ---------------------------------------------------------------------------
+# Embedding, head
+# ---------------------------------------------------------------------------
 
 
 class Embed(nn.Module):
+    """One table of ``vocab`` rows, or for audio codes one per codebook,
+    stacked (table k's rows start at ``k * vocab``)."""
+
     def __init__(self, cfg: ModelConfig, *, device, dtype):
         super().__init__()
-        self.table = _weight(cfg.vocab, cfg.d_model, device=device, dtype=dtype)
+        self.vocab, self.n_codebooks = cfg.vocab, cfg.n_codebooks
+        self.table = _weight(max(1, cfg.n_codebooks) * cfg.vocab, cfg.d_model,
+                             device=device, dtype=dtype)
 
     def init_weights(self, generator) -> None:
         dense_init_(self.table, generator, scale=0.02)
 
     def forward(self, tokens):
+        """tokens (B, S), or codes (B, S, n_codebooks): a frame embeds as
+        the sum of its codebooks' embeddings (summed in float32, rounded
+        once)."""
+        if self.n_codebooks and tokens.dim() == 3:
+            offsets = torch.arange(self.n_codebooks, device=tokens.device) * self.vocab
+            return self.table[tokens + offsets].float().sum(dim=2).to(self.table.dtype)
         return self.table[tokens]
 
 
 class LMHead(nn.Module):
     """Float32 logits over the padded vocab (a multiple of
-    ``pad_vocab_to``); padded slots are set to -1e30 and never win."""
+    ``pad_vocab_to``); padded slots are set to -1e30 and never win. With
+    audio codebooks, one head per codebook: (B, S, n_codebooks, Vp).
+    ``tie_embeddings``: the head is the embedding table transposed and
+    holds no weight of its own."""
 
     def __init__(self, cfg: ModelConfig, *, device, dtype):
         super().__init__()
-        self.vocab = cfg.vocab
-        self.w = _weight(cfg.d_model, cfg.vocab_padded, device=device, dtype=dtype)
+        self.vocab, self.padded, self.n_codebooks = cfg.vocab, cfg.vocab_padded, cfg.n_codebooks
+        self.tied = cfg.tie_embeddings
+        if self.tied and self.padded != cfg.vocab:
+            # the reference's mask (Vp,) cannot broadcast over tied (vocab,) logits
+            raise ValueError(f"{cfg.name}: tie_embeddings needs vocab_padded "
+                             f"({self.padded}) == vocab ({cfg.vocab})")
+        if not self.tied:
+            self.w = _weight(cfg.d_model, max(1, cfg.n_codebooks) * self.padded,
+                             device=device, dtype=dtype)
 
     def init_weights(self, generator) -> None:
-        dense_init_(self.w, generator, scale=0.02)
+        if not self.tied:
+            dense_init_(self.w, generator, scale=0.02)
 
-    def forward(self, x):
-        logits = torch.matmul(x.float(), self.w.float())
-        if self.w.shape[1] > self.vocab:
-            slot = torch.arange(self.w.shape[1], device=x.device)
+    def forward(self, x, table=None):
+        w = table.T if self.tied else self.w
+        logits = torch.matmul(x.float(), w.float())
+        if self.n_codebooks:
+            logits = logits.reshape(*x.shape[:2], self.n_codebooks, self.padded)
+        if self.padded > self.vocab:
+            slot = torch.arange(self.padded, device=x.device)
             logits = torch.where(slot < self.vocab, logits, NEG_INF)
         return logits

@@ -1,24 +1,44 @@
-"""Decoder-only LM: the dense, homogeneous stack of the reference's
-``repro.models.transformer`` (deepseek-7b and the other dense-attention
-configs), in PyTorch.
+"""Decoder-only LM: the homogeneous attention stacks of the reference's
+``repro.models.transformer``, in PyTorch.
+
+One model, configured by :class:`ModelConfig`, covers every config whose
+blocks are all attention blocks:
+
+* dense / GQA / MQA attention (deepseek-7b, granite-34b), with the
+  parallel residual (stablelm-12b: attention and FFN both read the same
+  normed input, ``x + a + f``);
+* MLA latent attention (minicpm3-4b), with the absorbed decode;
+* the grouped top-k MoE FFN (granite-moe-1b-a400m, qwen3-moe-235b-a22b);
+* the audio-codes frontend (musicgen-medium: one embedding table per
+  codebook, one head per codebook) and the vision-embeds frontend with
+  M-RoPE and the int8 KV cache (qwen2-vl-72b);
+* the tied head (``tie_embeddings``).
 
 :class:`Transformer` holds the weights: an embedding, a ``ModuleList`` of
-pre-norm blocks (RMSNorm, GQA attention, RMSNorm, MLP, two residuals) and
-a final norm with the LM head. There is no ``lax.scan``: the blocks run in
-a Python loop. The reference's functional entry points keep their names
-and take the module as ``params``:
+pre-norm blocks and a final norm with the LM head. There is no
+``lax.scan``: the blocks run in a Python loop. The reference's
+functional entry points keep their names and take the module as
+``params``:
 
-* :func:`forward` ``(cfg, params, inputs, cache)`` -> ``(logits, cache)``;
-* :func:`prefill` and :func:`serve_step` run it with a cache;
+* :func:`forward` ``(cfg, params, inputs, cache, decode)`` ->
+  ``(logits, cache)``;
+* :func:`prefill` runs it with a cache, :func:`serve_step` with a cache
+  and ``decode=True`` (MLA's absorbed path);
 * :func:`init_params` makes a module of random weights from a seeded
-  ``torch.Generator``; :func:`init_cache` a dense ``{"k", "v"}`` cache of
-  shape (L, B, Smax, Hkv, Dh).
+  ``torch.Generator``; :func:`init_cache` the stacked cache of shape
+  (L, B, Smax, ...): ``{"k", "v"}``, ``{"c_kv", "k_rope"}`` for MLA, or
+  int8 ``{"k", "v"}`` with float32 ``{"k_scale", "v_scale"}``.
+
+Inputs: ``tokens`` (B, S) int, ``codes`` (B, S, n_codebooks) int for the
+audio frontend, or ``embeds`` (B, S, d_model) for the vision frontend
+(cast to the compute type); optional ``positions`` (B, S), or (3, B, S)
+for M-RoPE, and ``cur_index``.
 
 The cache is updated IN PLACE and returned (the reference returns a new
 one): a full-width cache is too large to copy per step.
 
-Features outside this slice raise ``NotImplementedError`` by name
-(:func:`check_supported`).
+Block patterns and shared attention (zamba2, xlstm) raise
+``NotImplementedError`` by name (:func:`check_supported`).
 """
 
 from __future__ import annotations
@@ -29,10 +49,12 @@ from torch import nn
 from repro_torch.device import resolve_device
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import (
+    MLA,
     MLP,
     Attention,
     Embed,
     LMHead,
+    MoE,
     RMSNorm,
     torch_dtype,
 )
@@ -45,21 +67,14 @@ def check_supported(cfg: ModelConfig) -> None:
     """Raise ``NotImplementedError`` naming the first feature of ``cfg``
     that the port's model does not run."""
     unported = [
-        ("use_mla", cfg.use_mla),
-        ("is_moe", cfg.is_moe),
         ("block_pattern", any(k != "attn" for k in cfg.pattern)),
         ("shared_attn", cfg.shared_attn),
-        ("mrope_sections", cfg.mrope_sections is not None),
-        ('kv_cache_dtype="int8"', cfg.kv_cache_dtype == "int8"),
-        ("parallel_residual", cfg.parallel_residual),
-        ("tie_embeddings", cfg.tie_embeddings),
-        (f"frontend={cfg.frontend!r}", cfg.frontend != "none"),
     ]
     for name, used in unported:
         if used:
             raise NotImplementedError(
                 f"{cfg.name}: {name} is not ported to repro_torch yet; the "
-                f"port runs the dense attention stack only")
+                f"port runs homogeneous attention stacks only")
 
 
 class Block(nn.Module):
@@ -67,17 +82,30 @@ class Block(nn.Module):
         super().__init__()
         kw = dict(device=device, dtype=dtype)
         self.norm1 = RMSNorm(cfg.d_model, **kw)
-        self.attn = Attention(cfg, **kw)
+        self.attn = MLA(cfg, **kw) if cfg.use_mla else Attention(cfg, **kw)
+        # norm2 is held (and unused) with the parallel residual, as in the reference
         self.norm2 = RMSNorm(cfg.d_model, **kw)
-        self.ff = MLP(cfg, **kw)
+        self.ff = MoE(cfg, **kw) if cfg.is_moe else MLP(cfg, **kw)
 
-    def forward(self, cfg: ModelConfig, x, positions, cache=None, offset: int = 0):
-        x = x + self.attn(cfg, self.norm1(x, cfg.norm_eps), positions, cache, offset)
-        return x + self.ff(self.norm2(x, cfg.norm_eps))
+    def _ff(self, cfg, h):
+        return self.ff(cfg, h) if cfg.is_moe else self.ff(h)
+
+    def forward(self, cfg: ModelConfig, x, positions, cache=None, offset: int = 0,
+                decode: bool = False):
+        h = self.norm1(x, cfg.norm_eps)
+        if cfg.use_mla:
+            a = self.attn(cfg, h, positions, cache, offset,
+                          absorbed=decode and cfg.mla_absorbed_decode)
+        else:
+            a = self.attn(cfg, h, positions, cache, offset)
+        if cfg.parallel_residual:
+            return x + a + self._ff(cfg, h)
+        x = x + a
+        return x + self._ff(cfg, self.norm2(x, cfg.norm_eps))
 
 
 class Transformer(nn.Module):
-    """The weights of one dense decoder. ``forward(cfg, inputs, cache)``
+    """The weights of one decoder. ``forward(cfg, inputs, cache, decode)``
     takes the config per call, so a step may run with its own settings
     (``make_prefill_step`` turns on ``causal_skip``)."""
 
@@ -100,36 +128,47 @@ class Transformer(nn.Module):
             if m is not self and hasattr(m, "init_weights"):
                 m.init_weights(generator)
 
-    @torch.no_grad()
-    def forward(self, cfg: ModelConfig, inputs: dict, cache: dict | None = None):
+    def _embed_inputs(self, cfg: ModelConfig, inputs: dict) -> torch.Tensor:
         dev = self.device
-        tokens = torch.as_tensor(inputs["tokens"], device=dev).long()
-        x = self.embed(tokens)
-        B, S = tokens.shape
+        if cfg.frontend == "vision_embeds":
+            # precomputed patch / text embeddings arrive directly
+            return torch.as_tensor(inputs["embeds"], device=dev).to(self.embed.table.dtype)
+        key = "codes" if cfg.frontend == "audio_codes" else "tokens"
+        return self.embed(torch.as_tensor(inputs[key], device=dev).long())
+
+    @torch.no_grad()
+    def forward(self, cfg: ModelConfig, inputs: dict, cache: dict | None = None,
+                decode: bool = False):
+        dev = self.device
+        x = self._embed_inputs(cfg, inputs)
+        B, S = x.shape[:2]
         positions = inputs.get("positions")
         if positions is None:
             offset = int(inputs.get("cur_index", 0))
             positions = (offset + torch.arange(S, dtype=torch.int32, device=dev)
                          ).expand(B, S)
+            if cfg.mrope_sections is not None:
+                positions = positions.expand(3, B, S)
         else:
             positions = torch.as_tensor(positions, device=dev).to(torch.int32)
+            pos_ids = positions[0] if positions.dim() == 3 else positions
             # the prefill cache write's offset (one host read per call)
-            offset = int(positions[0, 0]) if cache is not None and S > 1 else 0
+            offset = int(pos_ids[0, 0]) if cache is not None and S > 1 else 0
         for i, block in enumerate(self.blocks):
-            layer_cache = None if cache is None else {"k": cache["k"][i],
-                                                      "v": cache["v"][i]}
-            x = block(cfg, x, positions, layer_cache, offset)
+            layer_cache = None if cache is None else {k: t[i] for k, t in cache.items()}
+            x = block(cfg, x, positions, layer_cache, offset, decode)
         x = self.final_norm(x, cfg.norm_eps)
-        return self.lm_head(x), cache
+        return self.lm_head(x, self.embed.table), cache
 
 
 def init_params(cfg: ModelConfig, generator: torch.Generator | None = None,
                 device=None) -> Transformer:
     """A :class:`Transformer` on ``device`` (default: the card) with the
-    reference's init distribution: projections normal / sqrt(fan_in), the
-    attention output normal / sqrt(H*Dh), embedding and head normal *
-    0.02, norm scales one. ``generator`` must live on ``device``
-    (default: a fresh one seeded 0)."""
+    reference's init distribution: every projection normal / sqrt(fan_in)
+    with fan_in its first dim (the attention output normal / sqrt(H*Dh);
+    the stacked experts (E, d, f) / sqrt(E); the MoE router float32),
+    embedding and head normal * 0.02, norm scales one. ``generator`` must
+    live on ``device`` (default: a fresh one seeded 0)."""
     model = Transformer(cfg, device=device)
     if generator is None:
         generator = torch.Generator(device=model.device).manual_seed(0)
@@ -139,27 +178,42 @@ def init_params(cfg: ModelConfig, generator: torch.Generator | None = None,
 
 def init_cache(cfg: ModelConfig, batch: int, max_seq: int,
                dtype: torch.dtype | None = None, device=None) -> dict:
-    """Dense decode cache ``{"k", "v"}``, each (L, B, Smax, Hkv, Dh) zeros
-    of ``dtype`` (default: the config's activation type)."""
+    """Decode cache of zeros, each entry (L, B, Smax, ...): ``{"k", "v"}``
+    (Hkv, Dh) of ``dtype`` (default: the config's activation type); MLA's
+    latents ``{"c_kv": kv_lora_rank, "k_rope": rope_dim}``; and with
+    ``kv_cache_dtype="int8"`` and no ``dtype`` given, int8 ``{"k", "v"}``
+    with float32 ``{"k_scale", "v_scale"}`` (Hkv)."""
     check_supported(cfg)
-    shape = (cfg.n_layers, batch, max_seq, cfg.n_kv_heads, cfg.head_dim)
-    kw = dict(dtype=dtype or torch_dtype(cfg.dtype), device=resolve_device(device))
-    return {"k": torch.zeros(shape, **kw), "v": torch.zeros(shape, **kw)}
+    dt = dtype or torch_dtype(cfg.dtype)
+    dev = resolve_device(device)
+    lead = (cfg.n_layers, batch, max_seq)
+    if cfg.use_mla:
+        shapes = {"c_kv": ((cfg.kv_lora_rank,), dt), "k_rope": ((cfg.qk_rope_head_dim,), dt)}
+    elif dtype is None and cfg.kv_cache_dtype == "int8":
+        kv = ((cfg.n_kv_heads, cfg.head_dim), torch.int8)
+        scale = ((cfg.n_kv_heads,), torch.float32)
+        shapes = {"k": kv, "v": kv, "k_scale": scale, "v_scale": scale}
+    else:
+        kv = ((cfg.n_kv_heads, cfg.head_dim), dt)
+        shapes = {"k": kv, "v": kv}
+    return {name: torch.zeros(lead + shape, dtype=t, device=dev)
+            for name, (shape, t) in shapes.items()}
 
 
 def forward(cfg: ModelConfig, params: Transformer, inputs: dict,
-            cache: dict | None = None):
-    """``(logits, cache)``. ``inputs``: ``tokens`` (B, S) int, optional
-    ``positions`` (B, S) (default ``cur_index + arange(S)``) and
-    ``cur_index``. Logits are float32 over the padded vocab."""
-    return params(cfg, inputs, cache)
+            cache: dict | None = None, decode: bool = False):
+    """``(logits, cache)``; ``inputs`` as the module docstring says.
+    Logits are float32 over the padded vocab, (B, S, Vp) or (B, S,
+    n_codebooks, Vp). ``decode`` takes MLA's absorbed path where
+    ``cfg.mla_absorbed_decode``."""
+    return params(cfg, inputs, cache, decode)
 
 
 def serve_step(cfg: ModelConfig, params: Transformer, inputs: dict, cache: dict):
     """One decode step: new token(s) + cache -> next-token logits + cache."""
-    return forward(cfg, params, inputs, cache)
+    return forward(cfg, params, inputs, cache, decode=True)
 
 
 def prefill(cfg: ModelConfig, params: Transformer, inputs: dict, cache: dict):
     """Prefill a prompt into the cache; attention reads the whole cache."""
-    return forward(cfg, params, inputs, cache)
+    return forward(cfg, params, inputs, cache, decode=False)

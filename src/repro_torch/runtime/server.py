@@ -9,6 +9,9 @@ The port of the reference's ``repro.runtime.server``:
   its own position and retires finished requests. The cache is float32.
   The server never runs a batched prefill, so with ``use_flash_kernel``
   it still launches no flash kernel: every step has one query position.
+  Its steps are ``serve_step``s (``decode=True``: MLA's absorbed path).
+  Like the reference's, it sends ``"tokens"`` only, so it serves the
+  token-frontend configs (not musicgen's codes or qwen2-vl's embeds).
 * :class:`SplitLatencyMeter`: prices every generated token's hops between
   plan segments on a link profile (the paper's Eq. 7/8 cost model), and
   with a :class:`~repro_torch.core.adaptive.AdaptiveSplitManager` feeds
@@ -191,11 +194,18 @@ class Server:
                 return s
         return None
 
-    def _decode(self, tokens: np.ndarray, positions: np.ndarray) -> torch.Tensor:
+    def _token_inputs(self, tokens: np.ndarray, positions: np.ndarray) -> dict:
+        """One token per slot at its own position; M-RoPE configs get the
+        position broadcast to its three (t, h, w) streams, as text has."""
         dev = self.params.device
-        inputs = {"tokens": torch.from_numpy(tokens[:, None]).to(dev),
-                  "positions": torch.from_numpy(positions[:, None]).to(dev)}
-        logits, self.cache = T.serve_step(self.cfg, self.params, inputs, self.cache)
+        pos = torch.from_numpy(positions[:, None]).to(dev)
+        if self.cfg.mrope_sections is not None:
+            pos = pos.expand(3, *pos.shape)
+        return {"tokens": torch.from_numpy(tokens[:, None]).to(dev), "positions": pos}
+
+    def _decode(self, tokens: np.ndarray, positions: np.ndarray) -> torch.Tensor:
+        logits, self.cache = T.serve_step(self.cfg, self.params,
+                                          self._token_inputs(tokens, positions), self.cache)
         return logits
 
     def _prefill(self, slot: int, req: Request) -> None:
@@ -227,6 +237,8 @@ class Server:
             positions[s] = self.lengths[s]
         logits = self._decode(tokens, positions)
         nxt = torch.argmax(logits[:, 0], dim=-1).cpu().numpy()
+        if nxt.ndim > 1:  # multi-codebook heads: take stream 0
+            nxt = nxt[..., 0]
         for s in list(self.active):
             req = self.active[s]
             req.generated.append(int(nxt[s]))

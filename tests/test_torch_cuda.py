@@ -621,3 +621,118 @@ def test_quantize_on_card_equals_cpu(card, axis, symmetric):
         got, want = quantize(x.to(card), axis, symmetric), quantize(x, axis, symmetric)
         for name in ("values", "scale", "zero_point"):
             assert torch.equal(getattr(got, name).cpu(), getattr(want, name)), (trial, name)
+
+
+def test_int8_kv_quantizer_on_card_equals_cpu(card):
+    from repro_torch.models.layers import quantize_kv
+
+    g = torch.Generator().manual_seed(12)
+    t = torch.randn((2, 64, 8, 128), generator=g) * torch.rand((2, 64, 8, 1), generator=g) * 9
+    t[1, 3] = 0.0  # zero rows: scale 1
+    for dtype in (torch.float32, torch.bfloat16):
+        got, want = quantize_kv(t.to(dtype).to(card)), quantize_kv(t.to(dtype))
+        assert torch.equal(got[0].cpu(), want[0]) and torch.equal(got[1].cpu(), want[1])
+
+
+# ---------------------------------------------------------------------------
+# LM serving layers on the card against the CPU: MoE, MLA, the int8 cache
+# ---------------------------------------------------------------------------
+
+def lm_pair(card, arch, **kw):
+    """The reduced float32 config's model with the same seeded weights on
+    the card and on the CPU."""
+    from dataclasses import replace
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import transformer as T
+
+    cfg = replace(get_config(arch).reduced(), use_flash_kernel=True, **kw)
+    cpu = T.init_params(cfg, generator=torch.Generator().manual_seed(0), device="cpu")
+    gpu = T.Transformer(cfg, device=card)
+    gpu.load_state_dict(cpu.state_dict())
+    return cfg, {card: gpu, "cpu": cpu}
+
+
+def lm_steps(cfg, model, dev, n_decode=3):
+    """Prefill 24 tokens into a 32-row cache and ``n_decode`` greedy
+    ``serve_step``s: the logits of each and the final cache, on the CPU."""
+    from repro_torch.models import transformer as T
+
+    tokens = torch.randint(0, cfg.vocab, (2, 24), generator=torch.Generator().manual_seed(1))
+    cache = T.init_cache(cfg, 2, 32, device=dev)
+    logits, cache = T.prefill(cfg, model, {"tokens": tokens.to(dev)}, cache)
+    out = [logits.cpu()]
+    for i in range(n_decode):
+        tok = out[-1][:, -1, :cfg.vocab].argmax(-1)[:, None]
+        logits, cache = T.serve_step(cfg, model, {"tokens": tok.to(dev), "cur_index": 24 + i},
+                                     cache)
+        out.append(logits.cpu())
+    return out, {k: v.cpu() for k, v in cache.items()}
+
+
+@pytest.mark.parametrize("arch,kw", [("granite-moe-1b-a400m", {}),
+                                     ("granite-moe-1b-a400m", {"moe_group_size": 16,
+                                                               "moe_capacity_factor": 0.5}),
+                                     ("minicpm3-4b", {}),
+                                     ("minicpm3-4b", {"mla_absorbed_decode": False})],
+                         ids=["moe", "moe-overflow", "mla-absorbed", "mla-expanded"])
+def test_moe_and_mla_serving_on_card_match_cpu(card, arch, kw):
+    """Prefill (the flash kernel for GQA layers; MLA runs none) and
+    greedy decode on the card within rtol 1e-4 / atol 1e-5 of the CPU's
+    plain path, float32, with the same greedy picks; the MoE keeps the
+    same (token, slot) pairs."""
+    cfg, models = lm_pair(card, arch, **kw)
+    picks = {}
+    for dev, model in models.items():
+        if cfg.is_moe:
+            from repro_torch.models.layers import top_k_lower_index
+
+            picks[dev] = []
+            for block in model.blocks:
+                block.ff.select = lambda p, k, rec=picks[dev]: rec.append(
+                    top_k_lower_index(p, k).cpu()) or rec[-1].to(p.device)
+    got, got_cache = lm_steps(cfg, models[card], card)
+    want, want_cache = lm_steps(cfg, models["cpu"], "cpu")
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g, w, rtol=1e-4, atol=1e-5)
+    for k in want_cache:
+        torch.testing.assert_close(got_cache[k], want_cache[k], rtol=1e-4, atol=1e-5)
+    if cfg.is_moe:
+        assert all(torch.equal(a, b) for a, b in zip(picks[card], picks["cpu"]))
+
+
+def test_int8_cache_on_card_equals_cpu_quantizer(card):
+    """qwen2-vl reduced, bf16: the card's int8 codes and scales equal the
+    CPU quantizer's on the same k and v, bit for bit; a bf16 prefill
+    launches the wgmma flash kernel over the dequantized cache."""
+    from dataclasses import replace
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attention import ops as FA
+    from repro_torch.models import layers as L
+    from repro_torch.models import transformer as T
+
+    cfg = replace(get_config("qwen2-vl-72b").reduced(), use_flash_kernel=True,
+                  dtype="bfloat16")
+    model = T.init_params(cfg, generator=torch.Generator(device=card).manual_seed(0),
+                          device=card)
+    calls = []
+    quantize = L.quantize_kv
+    L.quantize_kv = lambda t: calls.append((t, *quantize(t))) or calls[-1][1:]
+    try:
+        g = torch.Generator(device=card).manual_seed(1)
+        x = (torch.randn((2, 40, cfg.d_model), generator=g, device=card) * 0.02).bfloat16()
+        cache = T.init_cache(cfg, 2, 48, device=card)
+        FA.reset_launch_count()
+        T.prefill(cfg, model, {"embeds": x}, cache)
+        torch.cuda.synchronize()
+    finally:
+        L.quantize_kv = quantize
+    assert FA.FLASH_WGMMA_LAUNCHES == cfg.n_layers
+    assert cache["k"].dtype == torch.int8 and len(calls) == 2 * cfg.n_layers
+    for i, (t, vals, scale) in enumerate(calls):
+        want_vals, want_scale = L.quantize_kv(t.cpu())
+        assert torch.equal(vals.cpu(), want_vals) and torch.equal(scale.cpu(), want_scale)
+        name = "kv"[i % 2]
+        assert torch.equal(cache[name][i // 2, :, :40].cpu(), want_vals)
+        assert torch.equal(cache[name + "_scale"][i // 2, :, :40].cpu(), want_scale)

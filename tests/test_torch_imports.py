@@ -63,6 +63,20 @@ def test_every_module_imports_with_jax_blocked():
     assert out.returncode == 0, out.stderr
     assert out.stdout.strip() == "ok"
     assert len(port_modules()) >= 10
+    assert "repro_torch.models.audio" in port_modules()
+
+
+def test_audio_helpers_follow_their_tensors_device(monkeypatch):
+    """``models/audio.py`` takes its tensors' device (the CPU here) and
+    needs no card: with CUDA reported missing it still runs on the CPU."""
+    from repro_torch.models import audio
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    codes = torch.arange(6, dtype=torch.int32).reshape(1, 3, 2)
+    delayed = audio.delay_pattern(codes, -1)
+    assert delayed.device.type == "cpu" and delayed[0, :, 1].tolist() == [-1, 1, 3, 5]
+    assert torch.equal(audio.undelay_pattern(delayed, 3), codes)
+    assert audio.delay_mask(3, 2).device.type == "cpu"
 
 
 def imported_names(path):

@@ -204,15 +204,8 @@ def test_init_params_follows_the_reference_distribution():
 
 
 UNPORTED = {
-    "use_mla": lambda c: dataclasses.replace(c, use_mla=True),
-    "is_moe": lambda c: dataclasses.replace(c, n_experts=4, top_k=2),
     "block_pattern": lambda c: dataclasses.replace(c, block_pattern=("mamba", "attn")),
     "shared_attn": lambda c: dataclasses.replace(c, shared_attn=True),
-    "mrope_sections": lambda c: dataclasses.replace(c, mrope_sections=(2, 3, 3)),
-    "kv_cache_dtype": lambda c: dataclasses.replace(c, kv_cache_dtype="int8"),
-    "parallel_residual": lambda c: dataclasses.replace(c, parallel_residual=True),
-    "frontend": lambda c: dataclasses.replace(c, frontend="audio_codes"),
-    "tie_embeddings": lambda c: dataclasses.replace(c, tie_embeddings=True),
 }
 
 
@@ -225,11 +218,61 @@ def test_unported_features_raise_by_name(feature):
         PT.init_cache(cfg, 1, 8, device="cpu")
 
 
-@pytest.mark.parametrize("arch", ["minicpm3-4b", "qwen3-moe-235b-a22b", "zamba2-1.2b",
-                                  "qwen2-vl-72b", "stablelm-12b", "musicgen-medium"])
+@pytest.mark.parametrize("arch", ["zamba2-1.2b", "xlstm-1.3b"])
 def test_unported_configs_raise(arch):
     with pytest.raises(NotImplementedError):
         PT.check_supported(get_config(arch))
+
+
+# The features and configs the port once refused, on deepseek-7b reduced
+# with the feature on (sized as ``reduced()`` sizes it) or on the config's
+# own ``reduced()``; a tied head needs vocab == its padded size.
+PORTED = {
+    "use_mla": dict(use_mla=True, q_lora_rank=32, kv_lora_rank=16, qk_nope_head_dim=16,
+                    qk_rope_head_dim=8, v_head_dim=16),
+    "is_moe": dict(n_experts=4, top_k=2),
+    "mrope_sections": dict(mrope_sections=(2, 3, 3)),
+    "kv_cache_dtype": dict(kv_cache_dtype="int8"),
+    "parallel_residual": dict(parallel_residual=True),
+    "frontend": dict(frontend="audio_codes", n_codebooks=4),
+    "tie_embeddings": dict(tie_embeddings=True, vocab=256),
+    "minicpm3-4b": None, "qwen3-moe-235b-a22b": None, "qwen2-vl-72b": None,
+    "stablelm-12b": None, "musicgen-medium": None,
+}
+
+
+@pytest.mark.parametrize("name", sorted(PORTED))
+def test_ported_feature_builds_and_matches_the_reference(name):
+    """The model builds with the feature (or config) and, on the
+    reference's weights, matches its uncached forward, prefill step,
+    cached prefill and 2 greedy ``serve_step``s and final cache
+    (``torch_parity.assert_lm_runs_match``: rtol 1e-4, atol 1e-5)."""
+    from torch_parity import assert_lm_runs_match, lm_port_model, lm_port_run, lm_reference_run
+
+    kw = PORTED[name]
+    arch = "deepseek-7b" if kw is not None else name
+    rcfg, cfg = (dataclasses.replace(c.reduced(**(kw or {})), use_flash_kernel=True)
+                 for c in (ref_get_config(arch), get_config(arch)))
+    PT.check_supported(cfg)
+    params = ref_init_params(jax.random.PRNGKey(0), rcfg)
+    ref = lm_reference_run(rcfg, params, n_decode=2)
+    model = lm_port_model(cfg, params)
+    if name == "tie_embeddings":
+        assert "lm_head.w" not in model.state_dict() and not params["lm_head"]
+    assert_lm_runs_match(lm_port_run(cfg, model, ref), ref)
+
+
+def test_tied_head_refuses_a_padded_vocab():
+    """The reference's tied head cannot mask padded slots (its logits
+    have ``vocab`` columns); the port refuses such a config when built."""
+    rcfg, cfg = (dataclasses.replace(c.reduced(), tie_embeddings=True)
+                 for c in (ref_get_config("deepseek-7b"), get_config("deepseek-7b")))
+    assert cfg.vocab_padded != cfg.vocab
+    params = ref_init_params(jax.random.PRNGKey(0), rcfg)
+    with pytest.raises((TypeError, ValueError)):
+        RT.forward(rcfg, params, {"tokens": jnp.zeros((1, 4), jnp.int32)})
+    with pytest.raises(ValueError, match="tie_embeddings"):
+        PT.Transformer(cfg, device="cpu")
 
 
 def test_default_device_is_the_card(monkeypatch):

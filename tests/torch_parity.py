@@ -91,3 +91,140 @@ def protocols(ref_protocols: dict, port: bool) -> dict:
     if not port:
         return dict(ref_protocols)
     return {k: convert.link_from_reference(v) for k, v in ref_protocols.items()}
+
+
+# ---------------------------------------------------------------------------
+# LM serving: one reduced config through both packages
+# ---------------------------------------------------------------------------
+
+# float32 logits of the reduced configs (std ~0.1): the same arithmetic
+# summed in another order differs by ~5e-7
+LM_F32_TOL = dict(rtol=1e-4, atol=1e-5)
+LM_B, LM_P, LM_MAX_SEQ, LM_N_DECODE = 2, 12, 24, 6
+
+
+def lm_inputs(cfg, S: int, seed: int) -> dict:
+    """Seeded numpy inputs for the config's frontend: ``tokens`` (B, S),
+    ``codes`` (B, S, n_codebooks) or ``embeds`` (B, S, d_model)."""
+    rng = np.random.RandomState(seed)
+    if cfg.frontend == "vision_embeds":
+        return {"embeds": rng.standard_normal((LM_B, S, cfg.d_model)).astype(np.float32)}
+    if cfg.frontend == "audio_codes":
+        return {"codes": rng.randint(0, cfg.vocab, (LM_B, S, cfg.n_codebooks)).astype(np.int32)}
+    return {"tokens": rng.randint(0, cfg.vocab, (LM_B, S)).astype(np.int32)}
+
+
+def lm_next_inputs(cfg, last_logits, step: int) -> dict:
+    """Greedy decode feed from the last position's logits (B, [K,] Vp):
+    the argmax token (or code per codebook); the vision frontend has no
+    token path, so it takes seeded embeds. ``cur_index`` is the write
+    offset."""
+    if cfg.frontend == "vision_embeds":
+        feed = lm_inputs(cfg, 1, 100 + step)
+    else:
+        nxt = np.asarray(last_logits).argmax(-1).astype(np.int32)[:, None]
+        feed = {"codes" if cfg.frontend == "audio_codes" else "tokens": nxt}
+    return {**feed, "cur_index": np.int32(LM_P + step)}
+
+
+def lm_reference_run(rcfg, params, n_decode: int = LM_N_DECODE) -> dict:
+    """The reference's uncached forward, prefill step, cached prefill and
+    ``n_decode`` greedy ``serve_step``s (all jitted) on ``lm_inputs``:
+    the logits of each, the decode feeds and the final cache, as numpy."""
+    import functools
+
+    import jax
+    import jax.numpy as jnp
+
+    from repro.launch.steps import make_prefill_step
+    from repro.models import transformer as RT
+
+    fwd = jax.jit(functools.partial(RT.forward, rcfg), static_argnames="decode")
+    inp = {k: jnp.asarray(v) for k, v in lm_inputs(rcfg, LM_P, 0).items()}
+    out = {"uncached": np.asarray(fwd(params, inp)[0]),
+           "step": np.asarray(jax.jit(make_prefill_step(rcfg))(params, inp))}
+    logits, cache = fwd(params, inp, RT.init_cache(rcfg, LM_B, LM_MAX_SEQ))
+    out["steps"], out["feeds"] = [np.asarray(logits)], []
+    for i in range(n_decode):
+        feed = lm_next_inputs(rcfg, logits[:, -1], i)
+        logits, cache = fwd(params, {k: jnp.asarray(v) for k, v in feed.items()}, cache,
+                            decode=True)
+        out["feeds"].append(feed)
+        out["steps"].append(np.asarray(logits))
+    out["cache"] = jax.tree.map(np.asarray, cache)
+    return out
+
+
+def lm_port_model(cfg, params):
+    """The port's ``Transformer`` on the CPU with the reference's weights."""
+    import jax
+
+    from repro_torch.models import transformer as PT
+
+    model = PT.Transformer(cfg, device="cpu")
+    model.load_state_dict(convert.lm_params_from_reference(
+        cfg, jax.tree.map(np.asarray, params)))
+    return model
+
+
+def as_torch(inputs: dict) -> dict:
+    import torch
+
+    return {k: torch.from_numpy(np.asarray(v)) if np.ndim(v) else int(v)
+            for k, v in inputs.items()}
+
+
+def lm_port_run(cfg, model, ref: dict) -> dict:
+    """The port's twin of :func:`lm_reference_run`, fed the reference's
+    inputs and decode feeds; asserts at each step that the port's greedy
+    pick equals the feed the reference's gave."""
+    from repro_torch.launch.steps import make_prefill_step
+    from repro_torch.models import transformer as PT
+
+    inp = as_torch(lm_inputs(cfg, LM_P, 0))
+    out = {"uncached": PT.forward(cfg, model, inp)[0].numpy(),
+           "step": make_prefill_step(cfg)(model, inp).numpy()}
+    cache = PT.init_cache(cfg, LM_B, LM_MAX_SEQ, device="cpu")
+    logits, cache = PT.prefill(cfg, model, inp, cache)
+    out["steps"] = [logits.numpy()]
+    for i, feed in enumerate(ref["feeds"]):
+        mine = lm_next_inputs(cfg, logits[:, -1].numpy(), i)
+        for k in mine:
+            np.testing.assert_array_equal(mine[k], feed[k], err_msg=f"decode step {i}: {k}")
+        logits, cache = PT.serve_step(cfg, model, as_torch(feed), cache)
+        out["steps"].append(logits.numpy())
+    out["cache"] = {k: v.numpy() for k, v in cache.items()}
+    return out
+
+
+def assert_logits_close(got, want, what):
+    assert got.shape == want.shape and got.dtype == np.float32, what
+    np.testing.assert_allclose(got, want, **LM_F32_TOL, err_msg=what)
+
+
+def assert_caches_close(got: dict, want: dict):
+    """Float caches within ``LM_F32_TOL``; int8 codes at most one apart,
+    on under 0.1% of entries (the two frameworks' float32 k can fall on
+    either side of a rounding boundary); scales within rtol 1e-5."""
+    assert set(got) == set(want)
+    for name, w in want.items():
+        g = got[name]
+        assert g.shape == w.shape and g.dtype == w.dtype, name
+        if w.dtype == np.int8:
+            diff = np.abs(g.astype(np.int32) - w.astype(np.int32))
+            assert diff.max() <= 1 and (diff > 0).mean() < 1e-3, (name, diff.max())
+        elif name.endswith("_scale"):
+            np.testing.assert_allclose(g, w, rtol=1e-5, atol=0, err_msg=name)
+        else:
+            np.testing.assert_allclose(g, w, **LM_F32_TOL, err_msg=name)
+
+
+def assert_lm_runs_match(port: dict, ref: dict):
+    """Every logits array of two :func:`lm_reference_run` /
+    :func:`lm_port_run` results, and their final caches."""
+    assert_logits_close(port["uncached"], ref["uncached"], "uncached forward")
+    assert_logits_close(port["step"], ref["step"], "prefill step")
+    assert len(port["steps"]) == len(ref["steps"])
+    for i, (got, want) in enumerate(zip(port["steps"], ref["steps"])):
+        assert_logits_close(got, want, f"cached step {i}")
+    assert_caches_close(port["cache"], ref["cache"])
