@@ -38,9 +38,10 @@ reference package ``repro``) on the card and fails on any fault:
    every head dim: float32 on the CUDA-core kernel, bfloat16 on the wgmma
    kernel (the path's) and on the CUDA-core kernel; MHA / GQA (group 4) /
    MQA, ragged 100/100, q a suffix of a longer kv, D 64 over a ragged
-   1,000-row kv, D 160 with ragged Sq, D 256, and both full-width shapes
+   1,000-row kv, D 160 with ragged Sq, D 256, both full-width shapes
    the serving path launches (4 x 2048 x 32 x 128 over 2,048 kv rows, and
-   over the 2,080-row cache), within the reference kernel test's
+   over the 2,080-row cache) and granite-34b's prefill (2 x 1024, 48 query
+   heads on one kv head: group 48), within the reference kernel test's
    tolerances (at full width in bf16, a tighter atol set from the
    measured error), each case printing the share of its limit used;
    cross-checked against ``scaled_dot_product_attention`` as a yardstick;
@@ -176,7 +177,9 @@ reference package ``repro``) on the card and fails on any fault:
    residual), granite-moe-1b-a400m and qwen3-moe-235b-a22b (MoE; the
    latter cut to 4 of 94 layers), minicpm3-4b (MLA), musicgen-medium
    (audio codes), qwen2-vl-72b (vision embeds, M-RoPE, the int8 KV cache;
-   cut to 8 of 80 layers), each with ``use_flash_kernel=True`` beside its
+   cut to 8 of 80 layers), granite-34b (MQA: 48 query heads on one kv
+   head, GELU MLP; cut to 16 of 88 layers), each with
+   ``use_flash_kernel=True`` beside its
    plain-attention twin (``False``): (a) ``make_prefill_step`` on 2 x 1024
    with the flash launches counted (one wgmma launch a layer, 0 for MLA,
    which runs the chunked core directly as the reference does) and every
@@ -192,14 +195,33 @@ reference package ``repro``) on the card and fails on any fault:
    gap is decisive); qwen2-vl's int8 codes and scales written by the card
    equal the CPU quantizer's on the same k and v, bit for bit; minicpm3's
    absorbed decode against the unabsorbed path each step; (d) ``Server``
-   on the four token-frontend configs, 5 staggered requests, each equal
+   on the five token-frontend configs, 5 staggered requests, each equal
    to serving it alone (MoE: at a capacity factor of E / top_k, where no
    expert drops); (e) peak memory, prefill s and tokens/s, ms per
    ``serve_step``, flash / plain / SDPA ms at each prefill shape beside the
    bound, and one traced ``serve_step`` per config in a fresh ``spawn``
    process (idle share);
-18. a JSON line of per-kernel results, the card line, and the last line
-   ``{"ok": true, "device": {...}}``.
+18. pipeline planning and the example twins on the card: (a)
+   ``plan_pipeline`` on every config's full-size ``arch_layer_graph``
+   (batch 8 x 1,024 tokens) over H100 stages at 2, 4 and 8 stages on
+   NVLink and InfiniBand, beam and the exact DP: the splits and the
+   bottleneck, both solvers infeasible together where the weights do not
+   fit (qwen3-moe at 2 and 4 stages, qwen2-vl at 2), the DP never above
+   the beam and the beam within 1.02 x the DP except on qwen2-vl's memory
+   cliff at 4 and 8 stages (printed with its ratio), the host walls; (b)
+   the four example twins (``torch_fleet_sweep``,
+   ``torch_adaptive_replanning``, ``torch_pareto_frontier``,
+   ``torch_serve_split_llm``) on ``cuda`` while a ``spawn`` worker runs
+   them on ``cpu``: every printed line equal (walls masked), the served
+   tokens, hops and hop seconds equal (else the first differing
+   ``serve_step`` and the CPU's top-two logit gap there), and the DP
+   launches around the card run, by twin (fused: the sweeps; dense: the
+   fleet twin's energy-budget grid; the adaptive twin's managers solve
+   with the beam on the host, as the reference example's do);
+19. a JSON line of per-kernel results (the DP rows' launches by path
+   with ``"examples"``; flash with granite-34b's launches and its prefill
+   shape's times), the card's memory size, the card line, and the last
+   line ``{"ok": true, "device": {...}}``.
 
 Exits non-zero, printing no result, when no card is present.
 """
@@ -679,6 +701,8 @@ def phase_flash(dev) -> float:
         # prefill into the 2,080-row cache: the unwritten 32-row kv tail
         # is masked for every q row, and its tile is skipped
         ("full width (prefill into the cache)", 4, 2048, 2080, 32, 32, 128, 0),
+        # granite-34b's prefill: MQA, 48 query heads on one kv head
+        ("full width (granite-34b prefill, group 48)", 2, 1024, 1024, 48, 1, 128, None),
     ]
     worst = 0.0
     for dtype in (torch.float32, torch.bfloat16):
@@ -2573,15 +2597,15 @@ def phase_cnn(card) -> dict:
 # The rest of LM serving at full width (phase 17)
 # ---------------------------------------------------------------------------
 
-# (config, layers run; None: all): full width everywhere; the two largest
+# (config, layers run; None: all): full width everywhere; the three largest
 # configs cut in depth to fit one 80 GB card with their caches and twins
 FAMILIES = (("stablelm-12b", None), ("granite-moe-1b-a400m", None),
             ("qwen3-moe-235b-a22b", 4), ("minicpm3-4b", None),
-            ("musicgen-medium", None), ("qwen2-vl-72b", 8))
+            ("musicgen-medium", None), ("qwen2-vl-72b", 8), ("granite-34b", 16))
 FAMILY_B, FAMILY_P, FAMILY_DECODE = 2, 1024, 16
 # the reference's Server sends "tokens" only: the token-frontend configs
 SERVER_FAMILIES = ("stablelm-12b", "granite-moe-1b-a400m", "qwen3-moe-235b-a22b",
-                   "minicpm3-4b")
+                   "minicpm3-4b", "granite-34b")
 
 
 class AttentionProbe:
@@ -3051,7 +3075,7 @@ def traced_family_steps(card) -> dict:
 
 
 def phase_lm_families(dev, card) -> dict:
-    """Phase 17: the six configs one at a time, each freed before the
+    """Phase 17: the seven configs one at a time, each freed before the
     next; flash launches counted per config around its runs only."""
     import multiprocessing as mp
     from concurrent.futures import ProcessPoolExecutor
@@ -3094,6 +3118,204 @@ def phase_lm_families(dev, card) -> dict:
     return {"launches": launches, "wgmma": wgmma, "by_config": by_config}
 
 
+# ---------------------------------------------------------------------------
+# Pipeline planning and the example twins (phase 18)
+# ---------------------------------------------------------------------------
+
+PIPELINE_STAGES = (2, 4, 8)
+PIPELINE_BATCH, PIPELINE_SEQ = 8, 1024
+# (config, stages) where a beam of 16 ends more than 2% above the exact
+# DP on H100 stages, on both links: qwen2-vl-72b's memory cliff (the same
+# set ``tests/test_torch_pipeline.py`` pins); any other gap fails
+BEAM_MISSES = {("qwen2-vl-72b", 4), ("qwen2-vl-72b", 8)}
+TWINS = ("torch_fleet_sweep", "torch_adaptive_replanning", "torch_pareto_frontier",
+         "torch_serve_split_llm")
+# host walls and rates in the twins' lines differ from run to run
+TWIN_WALLS = ((r"in [0-9.]+ ms \([0-9,]+ scenarios/s\)", "in <wall> ms (<rate> scenarios/s)"),
+              (r"built in [0-9]+ ms", "built in <wall> ms"),
+              (r"\[[0-9]+ us/observe\]", "[<wall> us/observe]"),
+              (r"frontiers in [0-9.]+ ms", "frontiers in <wall> ms"),
+              (r"in [0-9.]+s \([0-9.]+ tok/s on \w+\)", "in <wall>s (<rate> tok/s)"))
+
+
+def phase_pipeline_plans(card) -> dict:
+    """(a) ``plan_pipeline`` on every config's full-size graph over H100
+    stages: beam and the exact DP at 2, 4 and 8 stages on NVLink and
+    InfiniBand; both agree on feasibility, the DP is never above the beam
+    and the beam is within 2% of it outside :data:`BEAM_MISSES`."""
+    import math
+
+    import torch
+
+    from repro_torch.configs import ARCH_IDS, get_config
+    from repro_torch.core import profiles as P
+    from repro_torch.core.planner import plan_pipeline
+    from repro_torch.models.graph import arch_layer_graph
+
+    hw = P.H100_SXM
+    total = torch.cuda.get_device_properties(0).total_memory
+    print(f"  (a) plan_pipeline on {hw.name} stages ({hw.peak_flops / 1e12:g} TFLOP/s bf16, "
+          f"{hw.hbm_bytes_per_s / 1e12:g} TB/s, {hw.hbm_bytes:,} B of memory, 90% of it "
+          f"usable); this card reports total_memory {total:,} B [{card}]")
+    walls = {"beam": [], "optimal_dp": []}
+    misses, infeasible = [], []
+    for arch in ARCH_IDS:
+        g = arch_layer_graph(get_config(arch), PIPELINE_BATCH, PIPELINE_SEQ)
+        for link in (P.NVLINK, P.INFINIBAND):
+            parts = []
+            for n in PIPELINE_STAGES:
+                plans = {}
+                for solver in walls:
+                    t0 = time.perf_counter()
+                    plans[solver] = plan_pipeline(g, n, link=link, solver=solver)
+                    walls[solver].append(time.perf_counter() - t0)
+                beam, opt = (plans[k].objective_cost_s for k in ("beam", "optimal_dp"))
+                where = f"{arch} {n} stages {link.name}"
+                if math.isinf(beam) or math.isinf(opt):
+                    if beam != opt:
+                        raise AssertionError(f"{where}: beam {beam} s, DP {opt} s")
+                    infeasible.append(where)
+                    parts.append(f"{n}: infeasible (both)")
+                    continue
+                if opt > beam:
+                    raise AssertionError(f"{where}: the exact DP {opt} above the beam {beam}")
+                within = beam <= opt * 1.02
+                if within == ((arch, n) in BEAM_MISSES):
+                    raise AssertionError(f"{where}: beam / DP {beam / opt:.4f}; the known "
+                                         f"gaps are {sorted(BEAM_MISSES)}")
+                part = f"{n}: {plans['beam'].splits} {beam * 1e3:.4f} ms"
+                if not within:
+                    misses.append(where)
+                    part += (f" (DP {plans['optimal_dp'].splits} {opt * 1e3:.4f} ms: beam "
+                             f"{beam / opt:.3f}x)")
+                parts.append(part)
+            print(f"  {arch} ({g.num_layers} nodes, {g.total_params * 2 / 1e9:.1f} GB bf16) "
+                  f"{link.name}: bottleneck by stages " + "; ".join(parts))
+    n_plans = len(walls["beam"])
+    print(f"      {2 * n_plans} plans; infeasible (weights over the stages' memory) in "
+          f"{len(infeasible)}: {', '.join(infeasible)}; beam above 1.02 x the DP in "
+          f"{len(misses)}: {', '.join(misses)}; host walls: beam "
+          f"{sum(walls['beam']):.3f} s in all (max {max(walls['beam']) * 1e3:.1f} ms), DP "
+          f"{sum(walls['optimal_dp']):.3f} s (max {max(walls['optimal_dp']) * 1e3:.1f} ms)")
+    return {"plans": 2 * n_plans, "beam_s": sum(walls["beam"]),
+            "dp_s": sum(walls["optimal_dp"]), "misses": misses, "infeasible": infeasible}
+
+
+def twins_run(device) -> dict:
+    """The four example twins' ``main`` on ``device``: their printed lines
+    (walls masked) and, for the serve twin, its tokens and, per
+    ``serve_step`` call of its ``Server``, each slot's greedy pick and the
+    top-two logit gap. A ``spawn`` worker runs the CPU side."""
+    import contextlib
+    import importlib.util
+    import io
+    import re
+
+    from repro_torch.core import cuda_dp as CD
+    from repro_torch.models import transformer as T
+
+    out = {"lines": {}, "walls": {}, "dp": {}}
+    calls = []
+    step = T.serve_step
+
+    def recording_step(cfg, params, inputs, cache):
+        logits, cache = step(cfg, params, inputs, cache)
+        top2 = logits[:, 0, :cfg.vocab].float().topk(2, dim=-1)
+        calls.append((top2.indices[:, 0].tolist(),
+                      (top2.values[:, 0] - top2.values[:, 1]).tolist()))
+        return logits, cache
+
+    T.serve_step = recording_step
+    try:
+        for name in TWINS:
+            spec = importlib.util.spec_from_file_location(name, ROOT / "examples" / f"{name}.py")
+            mod = importlib.util.module_from_spec(spec)
+            spec.loader.exec_module(mod)
+            buf = io.StringIO()
+            before = CD.DENSE_LAUNCHES, CD.FUSED_LAUNCHES
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(buf):
+                result = mod.main(device)
+            out["walls"][name] = time.perf_counter() - t0
+            out["dp"][name] = {"dense_dp": CD.DENSE_LAUNCHES - before[0],
+                               "fused_dp": CD.FUSED_LAUNCHES - before[1]}
+            lines = buf.getvalue().splitlines()
+            for pattern, repl in TWIN_WALLS:
+                lines = [re.sub(pattern, repl, line) for line in lines]
+            out["lines"][name] = lines
+            if name == "torch_serve_split_llm":
+                out["serve"] = {"results": result["results"], "hops": result["hops"],
+                                "hop_seconds": result["hop_seconds"], "calls": calls}
+    finally:
+        T.serve_step = step
+    return out
+
+
+def phase_twins(card) -> dict:
+    """(b) the four example twins on the card while a ``spawn`` worker runs
+    them on the CPU: every line equal (walls masked), the served tokens
+    equal; the DP launches around the card run counted."""
+    import multiprocessing as mp
+    from concurrent.futures import ProcessPoolExecutor
+
+    import torch
+
+    from repro_torch.core import cuda_dp as CD
+
+    with ProcessPoolExecutor(max_workers=1, mp_context=mp.get_context("spawn")) as pool:
+        cpu_run = pool.submit(twins_run, "cpu")
+        before = CD.DENSE_LAUNCHES, CD.FUSED_LAUNCHES, CD.FUSED_TILED_LAUNCHES
+        t0 = time.perf_counter()
+        gpu = twins_run("cuda")
+        torch.cuda.synchronize()
+        t_card = time.perf_counter() - t0
+        after = CD.DENSE_LAUNCHES, CD.FUSED_LAUNCHES, CD.FUSED_TILED_LAUNCHES
+        cpu = cpu_run.result()
+    launches = {"dense_dp": after[0] - before[0], "fused_dp": after[1] - before[1]}
+    tiled = after[2] - before[2]
+    for name in TWINS:
+        got, want = gpu["lines"][name], cpu["lines"][name]
+        if got != want:
+            diff = next(i for i, (a, b) in enumerate(zip(got + [""], want + [""])) if a != b)
+            raise AssertionError(f"{name}: the card's line {diff} differs from the CPU's:\n"
+                                 f"  {got[diff] if diff < len(got) else '<none>'}\n  "
+                                 f"{want[diff] if diff < len(want) else '<none>'}")
+        print(f"  (b) {name}: {len(got)} lines on the card == the CPU's (walls masked); "
+              f"card {gpu['walls'][name]:.2f} s, CPU {cpu['walls'][name]:.2f} s; DP launches "
+              f"{gpu['dp'][name]}; last: {got[-1].strip()}")
+    ours, theirs = gpu["serve"], cpu["serve"]
+    if ours["results"] != theirs["results"]:
+        first = next(i for i, (a, b) in enumerate(zip(ours["calls"], theirs["calls"]))
+                     if a[0] != b[0])
+        slot = next(j for j, (a, b) in enumerate(zip(ours["calls"][first][0],
+                                                     theirs["calls"][first][0])) if a != b)
+        raise AssertionError(f"serve twin: tokens differ first at serve_step call {first}, "
+                             f"slot {slot}; the CPU's top-two logit gap there "
+                             f"{theirs['calls'][first][1][slot]:.4g}")
+    gaps = [g for _, row in theirs["calls"] for g in row]
+    print("      " + "\n      ".join(gpu["lines"]["torch_serve_split_llm"]))
+    print(f"      serve twin: {sum(map(len, ours['results'].values()))} tokens of "
+          f"{len(ours['results'])} requests == the CPU's; {ours['hops']} hops, "
+          f"{ours['hop_seconds']:.6f} s == the CPU's; smallest CPU top-two gap over its "
+          f"{len(theirs['calls'])} serve_step calls {min(gaps):.4g}")
+    if launches["fused_dp"] < 1 or launches["dense_dp"] < 1:
+        raise AssertionError(f"twins on the card: DP launches {launches}")
+    print(f"      DP launches around the card run: dense {launches['dense_dp']}, fused "
+          f"{launches['fused_dp']} ({tiled} tiled); card side {t_card:.1f} s [{card}]")
+    return {"launches": launches, "tiled": tiled}
+
+
+def phase_planning_twins(card) -> dict:
+    """Phase 18: pipeline planning over H100 stages, then the twins."""
+    t0 = time.perf_counter()
+    plans = phase_pipeline_plans(card)
+    t1 = time.perf_counter()
+    twins = phase_twins(card)
+    print(f"  phase 18: pipeline plans {t1 - t0:.1f} s, twins {time.perf_counter() - t1:.1f} "
+          f"s; {time.perf_counter() - t0:.1f} s")
+    return {**twins, "pipeline": plans}
+
+
 def main() -> int:
     import torch
 
@@ -3107,11 +3329,6 @@ def main() -> int:
 
     t_start = time.perf_counter()
     dev = torch.device("cuda")
-    # float32 products in full float32 (no TF32; PyTorch's default, stated
-    # here): the float32 plain attention of phase 6 and the Server's
-    # float32 cache need it. The LM head's inputs are bfloat16 values,
-    # which TF32 holds exactly.
-    torch.backends.cuda.matmul.allow_tf32 = False
     card = card_line()
     print(f"== 1 device: {card}; torch {torch.__version__}, CUDA "
           f"{torch.version.cuda}; {torch.cuda.get_device_name(0)} x "
@@ -3193,22 +3410,30 @@ def main() -> int:
     flash_launches += sum(families["launches"].values())
     wgmma_launches += families["wgmma"]
 
+    card = card_line()
+    print(f"== 18 pipeline planning over H100 stages and the example twins on the card [{card}]")
+    twins = phase_planning_twins(card)
+
     kernels = []
-    by_variant = {"tiled": path["by_variant"]["tiled"] + planner["tiled"] + replan["tiled"],
+    by_variant = {"tiled": path["by_variant"]["tiled"] + planner["tiled"] + replan["tiled"]
+                  + twins["tiled"],
                   "per_scenario": path["by_variant"]["per_scenario"]
                   + planner["launches"]["fused_dp"] - planner["tiled"]
-                  + replan["launches"]["fused_dp"] - replan["tiled"]}
+                  + replan["launches"]["fused_dp"] - replan["tiled"]
+                  + twins["launches"]["fused_dp"] - twins["tiled"]}
     for name, line in (("dense_dp", 150), ("fused_dp", 170)):
         kernels.append({
             "name": name, "route": "cuda",
             "source": "src/repro_torch/csrc/split_dp.cu",
             "replaces": f"src/repro/core/pallas_dp.py:{line}",
             "launches": (path["launches"][name] + planner["launches"][name]
-                         + replan["launches"][name] + cnn["launches"][name]),
+                         + replan["launches"][name] + cnn["launches"][name]
+                         + twins["launches"][name]),
             "launches_by_path": {"sweep": path["launches"][name],
                                  **{k: v[name] for k, v in planner["by_path"].items()},
                                  **{k: v[name] for k, v in replan["by_path"].items()},
-                                 "cnn_plans": cnn["launches"][name]},
+                                 "cnn_plans": cnn["launches"][name],
+                                 "examples": twins["launches"][name]},
             "max_abs_err": errs[name], **times[name], "library_ms": None,
             **({"launches_by_variant": by_variant} if name == "fused_dp" else {}),
         })
@@ -3238,6 +3463,8 @@ def main() -> int:
         })
     print(f"  total {time.perf_counter() - t_start:.1f} s; clocks now [{card_line()}]")
     print(json.dumps({"kernels": kernels}))
+    print(f"device memory: torch.cuda.get_device_properties(0).total_memory = "
+          f"{torch.cuda.get_device_properties(0).total_memory:,} B")
     print(smi("name,power.limit"))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

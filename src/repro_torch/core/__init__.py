@@ -10,7 +10,8 @@ wherever the port has them:
                  every kwarg entry point routes through it),
                  build_surfaces_from_spec (process-pool rebuild worker)
   solvers      — beam / greedy / first_fit / random_fit / brute_force / optimal_dp
-  planner      — plan_split, compare_solvers, plan_split_batch
+  planner      — plan_split, compare_solvers, plan_split_batch,
+                 plan_pipeline (LM stages on H100s; stage_cost_profile)
   sweep        — batched solvers over stacked C[k,a,b] cost tensors +
                  ScenarioGrid fleet sweeps
   cuda_dp      — the dense and fused split-DP kernels on the card
@@ -22,14 +23,15 @@ wherever the port has them:
                  fleet_managers for mixed-fleet-size deployments
   executor     — run_split / run_unsplit segment execution with the
                  int8 wire simulated at every hop
-  profiles     — paper-calibrated ESP32 + protocol tables
+  profiles     — paper-calibrated ESP32 + protocol tables; H100 stage
+                 hardware and the NVLink / InfiniBand links
   quantization — int8 PTQ + activation wire format
 
-The reference's ``shard`` (the sharded backend) and ``plan_pipeline`` /
-``tpu_cost_profile`` are not ported yet. As in the reference, only names
-are re-exported here: ``repro_torch.core.sweep``, ``.surface``,
-``.async_replan`` and ``.adaptive`` stay the submodules (get the function
-with ``from repro_torch.core.sweep import sweep``).
+The reference's ``shard`` (the sharded backend) is not ported yet; its
+``tpu_cost_profile`` is ``stage_cost_profile`` here. As in the
+reference, only names are re-exported here: ``repro_torch.core.sweep``,
+``.surface``, ``.async_replan`` and ``.adaptive`` stay the submodules
+(get the function with ``from repro_torch.core.sweep import sweep``).
 """
 
 from repro_torch.core.latency import (  # noqa: F401
@@ -61,9 +63,11 @@ from repro_torch.core.planner import (  # noqa: F401
     SegmentPlan,
     SplitPlan,
     compare_solvers,
+    plan_pipeline,
     plan_split,
     plan_split_batch,
     plan_surface,
+    stage_cost_profile,
     uniform_split,
 )
 # NOTE: `surface` must keep resolving to the submodule — only names are

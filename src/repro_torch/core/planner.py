@@ -8,22 +8,26 @@ The port's counterpart of ``repro.core.planner``, line for line:
   :data:`repro_torch.core.sweep.BATCHED_SOLVERS`.
 * :func:`plan_split_batch` — many cost models in one batched pass; its
   exact DP runs on the dense CUDA kernel by default.
+* :func:`plan_pipeline` — the paper's split search re-targeted at
+  pipeline parallelism: cut an LM's block chain into stages of
+  accelerators (default: H100s joined by NVLink) minimising the
+  bottleneck stage time; :func:`stage_cost_profile` prices its layers.
 * :func:`compare_solvers` (Figs. 3-4), :func:`plan_surface`,
   :func:`plans_from_batched` and :func:`uniform_split`.
 
 ``plan_split_batch`` is a shim over the planner tier, as in the
 reference: it builds a :func:`repro_torch.core.spec.models_spec` and
 resolves it through :class:`repro_torch.core.spec.PlannerService`, which
-calls :func:`_plan_split_batch_impl`. The TPU pipeline
-planner (``tpu_cost_profile``, ``plan_pipeline``) is not ported: it
-needs stage profiles of the card.
+calls :func:`_plan_split_batch_impl`. The reference's
+``tpu_cost_profile`` is :func:`stage_cost_profile` here, with the stage
+hardware a parameter (:class:`repro_torch.core.profiles.StageHardware`).
 """
 
 from __future__ import annotations
 
 import dataclasses
 from dataclasses import dataclass
-from typing import Sequence
+from typing import TYPE_CHECKING, Sequence
 
 import numpy as np
 import torch
@@ -32,9 +36,15 @@ from repro_torch.core import solvers as S
 from repro_torch.core import sweep as SW  # no cycle: sweep depends only on latency/solvers
 from repro_torch.core.latency import (
     BottleneckVariant,
+    LayerCost,
     LinkProfile,
+    ModelCostProfile,
     SplitCostModel,
 )
+from repro_torch.core.profiles import H100_SXM, NVLINK, StageHardware
+
+if TYPE_CHECKING:  # no runtime import: models.graph imports core.latency
+    from repro_torch.models.graph import LayerGraph
 
 
 @dataclass(frozen=True)
@@ -394,6 +404,81 @@ def compare_solvers(
         kwargs = per_solver_kwargs.get(name, {}) if per_solver_kwargs else {}
         out[name] = plan_split(cost_model, n_devices, solver=name, **kwargs)
     return out
+
+
+# ---------------------------------------------------------------------------
+# Pipeline planning (the beyond-paper integration)
+# ---------------------------------------------------------------------------
+
+
+def stage_cost_profile(
+    graph: "LayerGraph",
+    *,
+    hardware: StageHardware = H100_SXM,
+    act_dtype_bytes: int = 2,
+    param_dtype_bytes: int = 2,
+    chips_per_stage: int = 1,
+) -> ModelCostProfile:
+    """Analytic per-layer stage times on ``hardware``: max(compute,
+    memory) roofline terms.
+
+    ``bytes_moved`` per layer approximates params read once plus
+    activations in+out (training adds backward traffic uniformly — a
+    constant factor that does not move split decisions)."""
+    layers = []
+    for n in graph.nodes:
+        bytes_moved = (
+            n.param_count * param_dtype_bytes + n.work_elems * act_dtype_bytes
+        )
+        layers.append(
+            LayerCost(
+                name=n.name,
+                t_infer_s=hardware.layer_time_s(n.flops, bytes_moved, chips_per_stage),
+                act_bytes=n.out_elems * act_dtype_bytes,
+                param_bytes=n.param_count * param_dtype_bytes,
+                work_bytes=n.work_elems * act_dtype_bytes,
+                flops=n.flops,
+            )
+        )
+    return ModelCostProfile(
+        name=graph.name, layers=tuple(layers), input_bytes=graph.input_elems * act_dtype_bytes
+    )
+
+
+def plan_pipeline(
+    graph: "LayerGraph",
+    n_stages: int,
+    *,
+    chips_per_stage: int = 1,
+    link: LinkProfile = NVLINK,
+    hardware: StageHardware = H100_SXM,
+    solver: str = "beam",
+    act_dtype_bytes: int = 2,
+    objective: str = "bottleneck",
+    **solver_kwargs,
+) -> SplitPlan:
+    """Beam-search pipeline-stage boundaries for a transformer block chain.
+
+    This is the paper's split-point optimization re-targeted at pipeline
+    parallelism: stages are groups of ``chips_per_stage`` accelerators
+    (``hardware``), the link joins consecutive stages (NVLink within a
+    host, InfiniBand across hosts), and the objective is the
+    steady-state bottleneck stage time. Memory-cliff instances (segments
+    that barely fit a stage) need a wider beam than the paper's IoT
+    cases: ``beam_width`` defaults to 16."""
+    if solver == "beam":
+        solver_kwargs.setdefault("beam_width", 16)
+    prof = stage_cost_profile(
+        graph, hardware=hardware, act_dtype_bytes=act_dtype_bytes,
+        chips_per_stage=chips_per_stage,
+    )
+    model = SplitCostModel(
+        profile=prof,
+        devices=(hardware.stage_device(chips_per_stage),),
+        link=link,
+        objective=objective,
+    )
+    return plan_split(model, n_stages, solver=solver, **solver_kwargs)
 
 
 def uniform_split(L: int, n_devices: int) -> tuple[int, ...]:

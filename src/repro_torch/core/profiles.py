@@ -25,11 +25,16 @@ Calibration notes (all constants traceable to the paper):
 
 * **Sanity**: with these constants the model reproduces the Table IV RTTs
   within ~2% for all four protocols.
+
+* **Pipeline stages** (:class:`StageHardware`, :data:`H100_SXM`,
+  :data:`NVLINK`, :data:`INFINIBAND`): the accelerator and the links
+  that :func:`repro_torch.core.planner.plan_pipeline` prices an LM's
+  block chain on, in place of the reference's fixed stage hardware.
 """
 
 from __future__ import annotations
 
-from dataclasses import replace
+from dataclasses import dataclass, replace
 from typing import Sequence
 
 from repro_torch.core.latency import (
@@ -40,7 +45,11 @@ from repro_torch.core.latency import (
     SplitCostModel,
     bottleneck_variants,
 )
-from repro_torch.models.graph import mobilenet_v2_graph, resnet50_graph
+
+# NOTE: repro_torch.models.graph is imported inside the builder functions
+# below: models.graph depends on repro_torch.core.latency, and the planner
+# (imported by repro_torch.core.__init__) imports this module, so a
+# module-scope import would close a cycle through the package.
 
 # ---------------------------------------------------------------------------
 # Wireless protocol profiles (Tables I, II, IV)
@@ -155,12 +164,16 @@ def _piecewise_calibrate(
 
 def esp32_flops_per_s() -> float:
     """Effective ESP32-S3 int8 TFLM throughput implied by Table III."""
+    from repro_torch.models.graph import mobilenet_v2_graph
+
     g = mobilenet_v2_graph(width=0.35, image_size=224)
     return g.total_flops / (MBV2_PART1_INFER_S + MBV2_PART2_INFER_S)
 
 
 def mobilenet_cost_profile() -> ModelCostProfile:
     """MobileNet-V2 0.35 per-layer costs on ESP32-S3, Table-III calibrated."""
+    from repro_torch.models.graph import mobilenet_v2_graph
+
     g = mobilenet_v2_graph(width=0.35, image_size=224)
     prof = g.cost_profile(flops_per_s=esp32_flops_per_s(), act_dtype_bytes=1, param_dtype_bytes=1)
     return _piecewise_calibrate(prof, MBV2_SPLIT_LAYER, MBV2_PART1_INFER_S, MBV2_PART2_INFER_S)
@@ -169,6 +182,8 @@ def mobilenet_cost_profile() -> ModelCostProfile:
 def resnet50_cost_profile() -> ModelCostProfile:
     """ResNet50 per-layer costs on ESP32-S3 (FLOP-proportional at the
     MobileNet-calibrated rate; no per-part measurement exists in the paper)."""
+    from repro_torch.models.graph import resnet50_graph
+
     g = resnet50_graph(image_size=224)
     return g.cost_profile(flops_per_s=esp32_flops_per_s(), act_dtype_bytes=1, param_dtype_bytes=1)
 
@@ -217,3 +232,68 @@ def esp32_variant_bank(
         encoder_s_per_byte=per_byte,
         accuracy_drop_per_octave=accuracy_drop_per_octave,
     )
+
+
+# ---------------------------------------------------------------------------
+# Pipeline-stage hardware (plan_pipeline)
+# ---------------------------------------------------------------------------
+
+
+@dataclass(frozen=True)
+class StageHardware:
+    """One accelerator of a pipeline stage, as the pipeline planner sees
+    it: a dense peak rate, a memory rate and a memory size. A stage of
+    ``n`` of them divides both roofline terms by ``n`` and holds ``n``
+    times the memory."""
+
+    name: str
+    peak_flops: float  # dense FLOP/s at the type the stages compute in
+    hbm_bytes_per_s: float
+    hbm_bytes: int
+
+    def layer_time_s(self, flops: float, bytes_moved: float, n: int = 1) -> float:
+        """Analytic per-layer time: max of the compute and memory roofline
+        terms."""
+        return max(flops / (n * self.peak_flops), bytes_moved / (n * self.hbm_bytes_per_s))
+
+    def stage_device(self, n: int, mem_fraction: float = 0.9) -> DeviceProfile:
+        """A pipeline stage made of ``n`` of these accelerators.
+
+        Per-layer inference times in stage cost profiles are produced
+        analytically (:meth:`layer_time_s`); the stage device then just
+        scales by the count."""
+        return DeviceProfile(
+            name=f"{self.name}_x{n}",
+            compute_scale=1.0 / n,
+            t_model_load_s=0.0,
+            t_tensor_alloc_s=0.0,
+            mem_limit_bytes=n * self.hbm_bytes * mem_fraction,
+        )
+
+
+# NVIDIA H100 SXM5 80GB, from NVIDIA's H100 Tensor Core GPU datasheet:
+# 989 TFLOP/s dense bf16 (the sheet's 1,979 counts 2:4 sparsity), 3.35
+# TB/s of HBM3, 80 GB. A card reports its own usable size in
+# ``torch.cuda.get_device_properties(0).total_memory``.
+H100_SXM = StageHardware(name="h100_sxm", peak_flops=989e12, hbm_bytes_per_s=3.35e12,
+                         hbm_bytes=80 * 10**9)
+
+# Links between stages. No datasheet gives per-hop propagation, setup or
+# feedback times, so those are 0; both fabrics are lossless (credit-based
+# flow control), so loss_p is 0.
+NVLINK = LinkProfile(
+    name="nvlink",
+    # NVLink 4 on the H100 SXM5 datasheet: 900 GB/s counts both directions
+    # of 18 links; one direction, the rate a stage hands its activations
+    # on at, is 450 GB/s
+    mtu_bytes=256,  # an NVLink transaction carries at most 256 bytes of data
+    rate_bytes_per_s=450e9,
+)
+
+INFINIBAND = LinkProfile(
+    name="infiniband",
+    mtu_bytes=4096,  # InfiniBand's largest MTU
+    rate_bytes_per_s=50e9,  # one NDR port: 400 Gb/s
+)
+
+H100_LINKS: dict[str, LinkProfile] = {"nvlink": NVLINK, "infiniband": INFINIBAND}

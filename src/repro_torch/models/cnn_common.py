@@ -20,44 +20,15 @@ caller's process-wide settings are restored after it.
 from __future__ import annotations
 
 import math
-from contextlib import contextmanager, nullcontext
+from contextlib import nullcontext
 
 import torch
 import torch.nn.functional as F
 
+from repro_torch.device import ieee_float32
+
 __all__ = ["conv2d", "conv_weight", "dense", "global_avg_pool", "ieee_float32",
            "init_conv", "init_dense", "max_pool"]
-
-
-def _float32_knobs():
-    """(object, attribute, value) of each setting :func:`ieee_float32`
-    scopes. Torch with per-backend precision settings takes those; older
-    torch the ``allow_tf32`` flags (mixing the two raises in new torch)."""
-    cudnn, matmul = torch.backends.cudnn, torch.backends.cuda.matmul
-    conv = getattr(cudnn, "conv", None)
-    if conv is not None and hasattr(conv, "fp32_precision"):
-        knobs = [(conv, "fp32_precision", "ieee"), (matmul, "fp32_precision", "ieee")]
-    else:
-        knobs = [(cudnn, "allow_tf32", False), (matmul, "allow_tf32", False)]
-    # the same shape picks the same algorithm, and that algorithm is
-    # deterministic: split execution stays bit-equal to the unsplit model
-    return knobs + [(cudnn, "benchmark", False), (cudnn, "deterministic", True)]
-
-
-@contextmanager
-def ieee_float32():
-    """cuDNN convolutions and cuBLAS products in true float32 for the
-    duration of the block, cuDNN's benchmark off and its algorithms
-    deterministic; every setting is restored on exit."""
-    knobs = _float32_knobs()
-    saved = [getattr(obj, name) for obj, name, _ in knobs]
-    try:
-        for obj, name, value in knobs:
-            setattr(obj, name, value)
-        yield
-    finally:
-        for (obj, name, _), value in zip(knobs, saved):
-            setattr(obj, name, value)
 
 
 def _scope(x: torch.Tensor):

@@ -4,8 +4,8 @@ One frozen dataclass covers the whole zoo; family-specific fields default
 off. Every config in ``repro_torch/configs/`` instantiates this with the
 exact published dimensions. A copy of the reference's
 ``repro.models.config`` (the port imports nothing of ``repro``); the
-port's model runs the dense attention stack only and refuses the other
-features by name (``repro_torch.models.transformer.check_supported``).
+port's model refuses block patterns and shared attention by name
+(``repro_torch.models.transformer.check_supported``).
 """
 
 from __future__ import annotations
@@ -89,7 +89,7 @@ class ModelConfig:
     # --- attention execution -------------------------------------------------
     q_chunk: int = 512  # chunked-attention block sizes (memory-efficient attn)
     kv_chunk: int = 1024
-    use_flash_kernel: bool = False  # route attention through the Pallas kernel
+    use_flash_kernel: bool = False  # route attention through the CUDA flash kernel
     mla_absorbed_decode: bool = True  # latent-space MLA decode (perf iteration)
     causal_skip: bool = False  # dynamic-bound kv loop in prefill attention
     # (skips fully-masked causal blocks; forward-only -> serving paths)

@@ -2,8 +2,11 @@
 
 These tables are the planner's view of a model (the paper's "measured
 per-layer inference and transmission costs"). They are pure-Python shape
-math, the port's own copy of the reference's CNN graphs (MobileNet-V2
-and ResNet50), node for node.
+math, the port's own copy of the reference's graphs, node for node: the
+CNNs (MobileNet-V2, ResNet50) and the LM block chains
+(:func:`transformer_layer_graph`, :func:`arch_layer_graph` for any
+:class:`~repro_torch.models.config.ModelConfig`, :func:`ssm_layer_graph`),
+whose nodes equal the reference's with ``==``.
 
 Conventions:
   * ``flops`` counts multiply-adds as 2 ops.
@@ -243,3 +246,191 @@ def resnet50_graph(image_size: int = 224, num_classes: int = 1000) -> LayerGraph
                            param_count=c_in * num_classes + num_classes,
                            out_elems=num_classes, work_elems=c_in + num_classes))
     return LayerGraph("resnet50", tuple(nodes), in_elems)
+
+
+# ---------------------------------------------------------------------------
+# Transformer-family graphs (the 10 assigned architectures)
+# ---------------------------------------------------------------------------
+
+
+def _attn_flops(b: int, s: int, d: int, n_heads: int, n_kv: int, head_dim: int,
+                kv_len: int | None = None) -> float:
+    """QKV + scores + AV + out-proj flops for one attention layer."""
+    kv_len = s if kv_len is None else kv_len
+    q_proj = 2.0 * b * s * d * (n_heads * head_dim)
+    kv_proj = 2.0 * b * s * d * (2 * n_kv * head_dim)
+    scores = 2.0 * b * n_heads * s * kv_len * head_dim
+    av = 2.0 * b * n_heads * s * kv_len * head_dim
+    out = 2.0 * b * s * (n_heads * head_dim) * d
+    return q_proj + kv_proj + scores + av + out
+
+
+def transformer_layer_graph(
+    *,
+    name: str,
+    n_layers: int,
+    d_model: int,
+    n_heads: int,
+    n_kv_heads: int,
+    d_ff: int,
+    vocab: int,
+    batch: int,
+    seq: int,
+    head_dim: int | None = None,
+    n_experts: int = 0,
+    top_k: int = 0,
+    gated_mlp: bool = True,
+    kv_len: int | None = None,
+    tie_embeddings: bool = False,
+) -> LayerGraph:
+    """Per-block layer graph for a decoder-only LM.
+
+    Each transformer block is one node (split candidates are block
+    boundaries — KV caches make intra-block cuts impractical). The
+    embedding and LM head are separate nodes. ``kv_len`` models decode
+    steps (s=1 query against a long cache)."""
+    head_dim = head_dim or d_model // n_heads
+    nodes: list[LayerNode] = []
+    act = batch * seq * d_model
+    in_elems = batch * seq  # token ids
+
+    nodes.append(
+        LayerNode("embed", flops=0.0, param_count=vocab * d_model,
+                  out_elems=act, work_elems=batch * seq + act)
+    )
+    mlp_mats = 3 if gated_mlp else 2
+    for i in range(n_layers):
+        attn = _attn_flops(batch, seq, d_model, n_heads, n_kv_heads, head_dim, kv_len)
+        if n_experts > 0:
+            ff = 2.0 * batch * seq * d_model * d_ff * mlp_mats * top_k
+            router = 2.0 * batch * seq * d_model * n_experts
+            ff_params = n_experts * (mlp_mats * d_model * d_ff) + d_model * n_experts
+            ff += router
+        else:
+            ff = 2.0 * batch * seq * d_model * d_ff * mlp_mats
+            ff_params = mlp_mats * d_model * d_ff
+        attn_params = (n_heads + 2 * n_kv_heads) * head_dim * d_model + n_heads * head_dim * d_model
+        nodes.append(
+            LayerNode(
+                f"block_{i}",
+                flops=attn + ff,
+                param_count=attn_params + ff_params + 2 * d_model,
+                out_elems=act,
+                work_elems=2 * act,
+            )
+        )
+    head_params = 0 if tie_embeddings else vocab * d_model
+    nodes.append(
+        LayerNode("lm_head", flops=2.0 * batch * seq * d_model * vocab,
+                  param_count=head_params, out_elems=batch * seq * vocab,
+                  work_elems=act + batch * seq * vocab)
+    )
+    return LayerGraph(name, tuple(nodes), in_elems)
+
+
+def arch_layer_graph(cfg, batch: int, seq: int, kv_len: int | None = None,
+                     act_dtype_bytes: int = 2) -> LayerGraph:
+    """LayerGraph for any assigned :class:`ModelConfig` — walks the block
+    pattern with per-kind FLOP/param/activation formulas. Used by the
+    analytic roofline terms and by :func:`plan_pipeline` on real archs."""
+    d = cfg.d_model
+    nodes: list[LayerNode] = []
+    act = batch * seq * d
+    embed_params = cfg.vocab * d * max(1, cfg.n_codebooks)
+    nodes.append(LayerNode("embed", flops=0.0, param_count=embed_params,
+                           out_elems=act, work_elems=2 * act))
+    for i, kind in enumerate(cfg.pattern):
+        if kind == "attn":
+            if cfg.use_mla:
+                dn, dr, dv = cfg.qk_nope_head_dim, cfg.qk_rope_head_dim, cfg.v_head_dim
+                H = cfg.n_heads
+                kv = seq if kv_len is None else kv_len
+                f = 2.0 * batch * seq * (
+                    d * cfg.q_lora_rank + cfg.q_lora_rank * H * (dn + dr)
+                    + d * (cfg.kv_lora_rank + dr))
+                # absorbed-score decode path: latent-space attention
+                f += 2.0 * batch * H * seq * kv * (cfg.kv_lora_rank + dr) * 2
+                f += 2.0 * batch * seq * H * dv * d
+                p = (d * cfg.q_lora_rank + cfg.q_lora_rank * H * (dn + dr)
+                     + d * (cfg.kv_lora_rank + dr)
+                     + cfg.kv_lora_rank * H * (dn + dv) + H * dv * d)
+            else:
+                f = _attn_flops(batch, seq, d, cfg.n_heads, cfg.n_kv_heads,
+                                cfg.head_dim, kv_len)
+                p = ((cfg.n_heads + 2 * cfg.n_kv_heads) * cfg.head_dim * d
+                     + cfg.n_heads * cfg.head_dim * d)
+            if cfg.is_moe:
+                mats = 3 if cfg.gated_mlp else 2
+                f += 2.0 * batch * seq * d * cfg.d_ff * mats * cfg.top_k
+                f += 2.0 * batch * seq * d * cfg.n_experts
+                p += cfg.n_experts * mats * d * cfg.d_ff + d * cfg.n_experts
+            elif cfg.d_ff:
+                mats = 3 if cfg.gated_mlp else 2
+                f += 2.0 * batch * seq * d * cfg.d_ff * mats
+                p += mats * d * cfg.d_ff
+            nodes.append(LayerNode(f"block_{i}_attn", flops=f, param_count=p + 2 * d,
+                                   out_elems=act, work_elems=2 * act))
+        elif kind == "mamba":
+            di, ds = cfg.d_inner, cfg.ssm_state
+            nh = di // cfg.ssm_head_dim
+            f = 2.0 * batch * seq * (d * (2 * di + 2 * ds + nh)  # in_proj
+                                     + (di + 2 * ds) * cfg.d_conv  # conv
+                                     + 2 * di * ds  # scan state update + out
+                                     + di * d)  # out_proj
+            p = (d * (2 * di + 2 * ds + nh) + (di + 2 * ds) * cfg.d_conv
+                 + 2 * nh + nh + di * d)
+            nodes.append(LayerNode(f"block_{i}_mamba", flops=f, param_count=p + d,
+                                   out_elems=act, work_elems=2 * act))
+        elif kind in ("mlstm", "slstm"):
+            di = cfg.d_inner
+            f = 2.0 * batch * seq * (d * (3 * di + 2 * cfg.n_heads) + di * d)
+            if kind == "mlstm":
+                ph = di // cfg.n_heads
+                # chunk-parallel matrix-memory terms
+                f += 2.0 * batch * seq * cfg.n_heads * ph * ph * 2
+            else:
+                ph = di // cfg.n_heads
+                f += 2.0 * batch * seq * cfg.n_heads * ph * 4 * ph
+            p = d * (4 * di if kind == "slstm" else 3 * di + 2 * cfg.n_heads) + di * d
+            nodes.append(LayerNode(f"block_{i}_{kind}", flops=f, param_count=p + d,
+                                   out_elems=act, work_elems=2 * act))
+    head_p = 0 if cfg.tie_embeddings else cfg.vocab_padded * d * max(1, cfg.n_codebooks)
+    nodes.append(LayerNode(
+        "lm_head",
+        flops=2.0 * batch * seq * d * cfg.vocab_padded * max(1, cfg.n_codebooks),
+        param_count=head_p,
+        out_elems=batch * seq * cfg.vocab_padded,
+        work_elems=act + batch * seq * cfg.vocab_padded))
+    return LayerGraph(cfg.name, tuple(nodes), batch * seq)
+
+
+def ssm_layer_graph(
+    *,
+    name: str,
+    n_layers: int,
+    d_model: int,
+    d_state: int,
+    vocab: int,
+    batch: int,
+    seq: int,
+    expand: int = 2,
+    conv_dim: int = 4,
+) -> LayerGraph:
+    """Mamba2-style SSM block chain (used for zamba2 / xlstm planning)."""
+    d_inner = expand * d_model
+    nodes: list[LayerNode] = []
+    act = batch * seq * d_model
+    nodes.append(LayerNode("embed", flops=0.0, param_count=vocab * d_model,
+                           out_elems=act, work_elems=act))
+    for i in range(n_layers):
+        in_proj = 2.0 * batch * seq * d_model * (2 * d_inner)
+        conv = 2.0 * batch * seq * d_inner * conv_dim
+        scan = 2.0 * batch * seq * d_inner * d_state * 2
+        out_proj = 2.0 * batch * seq * d_inner * d_model
+        params = d_model * 2 * d_inner + d_inner * conv_dim + d_inner * d_state * 2 + d_inner * d_model
+        nodes.append(LayerNode(f"ssm_block_{i}", flops=in_proj + conv + scan + out_proj,
+                               param_count=params + 2 * d_model, out_elems=act, work_elems=2 * act))
+    nodes.append(LayerNode("lm_head", flops=2.0 * batch * seq * d_model * vocab,
+                           param_count=vocab * d_model, out_elems=batch * seq * vocab,
+                           work_elems=act + batch * seq * vocab))
+    return LayerGraph(name, tuple(nodes), batch * seq)

@@ -43,10 +43,12 @@ Block patterns and shared attention (zamba2, xlstm) raise
 
 from __future__ import annotations
 
+from contextlib import nullcontext
+
 import torch
 from torch import nn
 
-from repro_torch.device import resolve_device
+from repro_torch.device import ieee_float32, resolve_device
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import (
     MLA,
@@ -139,6 +141,14 @@ class Transformer(nn.Module):
     @torch.no_grad()
     def forward(self, cfg: ModelConfig, inputs: dict, cache: dict | None = None,
                 decode: bool = False):
+        # On the card the float32 products (attention scores and PV, MLA's
+        # absorbed decode, the LM head) run in IEEE float32 whatever the
+        # caller's TF32 settings: scoped once per pass, not per product,
+        # because decode is bound by the host's enqueue.
+        with ieee_float32() if self.device.type == "cuda" else nullcontext():
+            return self._forward(cfg, inputs, cache, decode)
+
+    def _forward(self, cfg: ModelConfig, inputs: dict, cache: dict | None, decode: bool):
         dev = self.device
         x = self._embed_inputs(cfg, inputs)
         B, S = x.shape[:2]

@@ -17,6 +17,7 @@ from repro.models import cnn_common as RC
 from repro.models.mobilenetv2 import MobileNetV2 as RefMobileNetV2
 from repro.models.resnet50 import ResNet50 as RefResNet50
 from repro_torch.convert import cnn_params_from_reference
+from repro_torch.device import _float32_knobs
 from repro_torch.models import cnn_common as PC
 from repro_torch.models.graph import mobilenet_v2_graph, resnet50_graph
 from repro_torch.models.mobilenetv2 import MobileNetV2
@@ -201,7 +202,7 @@ def test_init_draws_he_normal_weights_from_the_generator(chain):
 def test_ieee_float32_scope_restores_the_callers_settings():
     """The scope sets true float32, cuDNN benchmark off and deterministic
     algorithms, and puts back whatever the caller had."""
-    knobs = PC._float32_knobs()
+    knobs = _float32_knobs()
     cudnn = torch.backends.cudnn
     saved = [getattr(o, n) for o, n, _ in knobs]
     try:

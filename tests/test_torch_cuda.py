@@ -646,7 +646,7 @@ def lm_pair(card, arch, **kw):
     from repro_torch.configs import get_config
     from repro_torch.models import transformer as T
 
-    cfg = replace(get_config(arch).reduced(), use_flash_kernel=True, **kw)
+    cfg = replace(get_config(arch).reduced(), **{"use_flash_kernel": True, **kw})
     cpu = T.init_params(cfg, generator=torch.Generator().manual_seed(0), device="cpu")
     gpu = T.Transformer(cfg, device=card)
     gpu.load_state_dict(cpu.state_dict())
@@ -736,3 +736,40 @@ def test_int8_cache_on_card_equals_cpu_quantizer(card):
         name = "kv"[i % 2]
         assert torch.equal(cache[name][i // 2, :, :40].cpu(), want_vals)
         assert torch.equal(cache[name + "_scale"][i // 2, :, :40].cpu(), want_scale)
+
+
+def float32_settings() -> dict:
+    """Every process-wide setting that decides how a float32 or bf16
+    product runs on the card."""
+    matmul, cudnn = torch.backends.cuda.matmul, torch.backends.cudnn
+    names = [(matmul, "allow_tf32"), (cudnn, "allow_tf32"), (cudnn, "benchmark"),
+             (cudnn, "deterministic"), (matmul, "allow_bf16_reduced_precision_reduction")]
+    return {f"{type(obj).__name__}.{name}": getattr(obj, name) for obj, name in names}
+
+
+def test_float32_lm_on_card_ignores_the_callers_tf32(card):
+    """deepseek-7b reduced, float32, plain attention, at d 256 with 4
+    heads of 64 and a 1,024-token vocab: a prefill of 2 x 24 tokens and 4
+    greedy ``serve_step``s on the card within 1e-4 x rms of the CPU on
+    the same weights, with the caller's TF32 flags on, as in
+    ``test_cnn_on_card_matches_cpu``. TF32 products in the attention
+    scores, the PV product or the LM head would put the card far outside
+    that (at ``reduced()``'s own d 64 the flags change no logit, hence
+    the wider model). The model scopes IEEE float32 per call and restores
+    the caller's settings."""
+    cfg, models = lm_pair(card, "deepseek-7b", use_flash_kernel=False, d_model=256,
+                          head_dim=64, d_ff=512, vocab=1024)
+    tf32 = torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        callers = float32_settings()
+        got, _ = lm_steps(cfg, models[card], card, n_decode=4)
+        assert float32_settings() == callers
+    finally:
+        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = tf32
+    want, _ = lm_steps(cfg, models["cpu"], "cpu", n_decode=4)
+    assert len(got) == len(want) == 5
+    for step, (g, w) in enumerate(zip(got, want)):
+        g, w = g.double(), w.double()
+        used = float((g - w).abs().max() / (1e-4 * w.square().mean().sqrt()))
+        assert used <= 1.0, f"step {step}: {used:.4g} x the limit (1e-4 x rms)"

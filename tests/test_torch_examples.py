@@ -7,29 +7,13 @@
 equal line for line (planner wall times masked), the hops' bytes,
 packets and modeled latency too, and every top-1 check agrees."""
 
-import importlib.util
-import re
-from pathlib import Path
-
 import pytest
 
-ROOT = Path(__file__).resolve().parent.parent
-EXAMPLES = ROOT / "examples"
+from torch_parity import load_example as load
+from torch_parity import printed
 
-
-def load(name):
-    spec = importlib.util.spec_from_file_location(f"example_{name}", EXAMPLES / f"{name}.py")
-    mod = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(mod)
-    return mod
-
-
-def printed(capsys, fn, *args):
-    capsys.readouterr()
-    fn(*args)
-    # host wall times of the planners differ from run to run
-    return [re.sub(r"planner (took )?[0-9.]+ ?ms", "planner <wall> ms", line)
-            for line in capsys.readouterr().out.splitlines()]
+# host wall times of the planners differ from run to run
+WALLS = [(r"planner (took )?[0-9.]+ ?ms", "planner <wall> ms")]
 
 
 @pytest.mark.parametrize("name,agreement", [
@@ -37,8 +21,8 @@ def printed(capsys, fn, *args):
     ("split_mobilenet_inference", "top-1 agreement across batch: 100%"),
 ])
 def test_twin_prints_the_reference_examples_lines(capsys, name, agreement):
-    want = printed(capsys, load(name).main)
-    got = printed(capsys, load(f"torch_{name}").main, "cpu")
+    want, _ = printed(capsys, load(name).main, masks=WALLS)
+    got, _ = printed(capsys, load(f"torch_{name}").main, "cpu", masks=WALLS)
     assert agreement in got and agreement in want
     assert len(got) == len(want) > 5
     assert got == want

@@ -168,6 +168,9 @@ CNN_ENTRIES = {
     "torch_quickstart.main": lambda: example_main("torch_quickstart")(),
     "torch_split_mobilenet_inference.main":
         lambda: example_main("torch_split_mobilenet_inference")(),
+    **{f"{name}.main": (lambda name=name: example_main(name)())
+       for name in ("torch_fleet_sweep", "torch_adaptive_replanning",
+                    "torch_pareto_frontier", "torch_serve_split_llm")},
 }
 
 

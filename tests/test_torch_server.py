@@ -39,6 +39,8 @@ from repro.runtime import server as RS
 from repro_torch import convert
 from repro_torch.configs import get_config
 from repro_torch.core import adaptive as PA
+from repro_torch.core import planner as PPL
+from repro_torch.models import graph as PG
 from repro_torch.models import transformer as PT
 from repro_torch.runtime import server as PS
 from repro_torch.runtime.server import (
@@ -47,18 +49,15 @@ from repro_torch.runtime.server import (
     Server,
     SplitLatencyMeter,
 )
+from torch_parity import plan_fields, synced_ref_server, tpu_stage_hardware
 
 REF_CFG = dataclasses.replace(ref_get_config("deepseek-7b").reduced(), use_flash_kernel=True)
 CFG = dataclasses.replace(get_config("deepseek-7b").reduced(), use_flash_kernel=True)
 PROMPTS = {0: [3, 9, 4], 1: [11, 5, 7, 2, 60, 1, 8, 8, 30, 12], 2: [21, 9]}
 
 
-class SyncedRefServer(RS.Server):
-    """The reference ``Server`` with each step's host buffers copied."""
-
-    def _token_inputs(self, tokens_per_slot, positions_per_slot):
-        return super()._token_inputs(tokens_per_slot.copy(), positions_per_slot.copy())
-
+# the reference ``Server`` with each step's host buffers copied
+SyncedRefServer = synced_ref_server()
 
 REF = types.SimpleNamespace(Server=SyncedRefServer, Request=RS.Request)
 
@@ -134,15 +133,24 @@ def test_run_until_drained_raise_mode(params):
 def test_meter_hops_equal_the_reference_meter(ref_params, params, n_devices,
                                               bytes_per_token):
     plan = plan_pipeline(arch_layer_graph(REF_CFG, batch=2, seq=32), n_devices, link=ICI)
+    port_plan = port_tpu_plan(n_devices)
+    assert plan_fields(port_plan) == plan_fields(plan)
     want = RS.SplitLatencyMeter(plan=plan, link=ESP_NOW, bytes_per_token=bytes_per_token)
-    got = SplitLatencyMeter(plan=convert.plan_from_reference(plan),
-                            link=convert.link_from_reference(ESP_NOW),
+    got = SplitLatencyMeter(plan=port_plan, link=convert.link_from_reference(ESP_NOW),
                             bytes_per_token=bytes_per_token)
     requests = [(0, [1, 2], 3), (1, [4], 2)]
     serve(REF, REF_CFG, ref_params, requests, meter=want)
     serve(PS, CFG, params, requests, meter=got)
     assert got.hops == want.hops == 5 * (n_devices - 1)
     assert got.hop_seconds == want.hop_seconds > 0
+
+
+def port_tpu_plan(n_stages):
+    """The port's own ``plan_pipeline`` on the reference's TPU stages and
+    ICI link (the port's defaults are H100 stages and NVLink)."""
+    return PPL.plan_pipeline(PG.arch_layer_graph(CFG, batch=2, seq=32), n_stages,
+                             link=convert.link_from_reference(ICI),
+                             hardware=tpu_stage_hardware())
 
 
 def managed_meter(port, n_devices, variants):
@@ -240,3 +248,5 @@ def test_meter_prices_remaining_hops_across_a_replan():
 def test_plan_conversion_keeps_every_field():
     plan = plan_pipeline(arch_layer_graph(REF_CFG, batch=2, seq=32), 2, link=ICI)
     assert convert.plan_from_reference(plan).to_dict() == plan.to_dict()
+    port_plan = port_tpu_plan(2)
+    assert {**port_plan.to_dict(), "planner_time_s": plan.planner_time_s} == plan.to_dict()

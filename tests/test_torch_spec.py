@@ -315,8 +315,8 @@ NOT_YET = {
     # the sharded backend (ROADMAP queue 1, sharding)
     "mesh_from_spec": "shard", "scenario_shards": "shard",
     "sharded_dp_tables": "shard", "sharded_optimal_dp": "shard",
-    # the TPU pipeline planner (ROADMAP queue 1, H100 planning profiles)
-    "plan_pipeline": "planner", "tpu_cost_profile": "planner",
+    # the TPU pipeline planner's cost profile; counterpart: stage_cost_profile
+    "tpu_cost_profile": "planner",
     # the Pallas backend: the port's kernels are core.cuda_dp, exported
     # under their own names (cuda_optimal_dp, cuda_fused_optimal_dp, ...)
     "pallas_dp_tables": "pallas_dp", "pallas_fused_dp_tables": "pallas_dp",

@@ -8,7 +8,10 @@ two outputs with ``==``. Timing fields (``wall_time_s``,
 
 from __future__ import annotations
 
+import importlib.util
+import re
 from dataclasses import asdict, fields
+from pathlib import Path
 
 import numpy as np
 
@@ -182,19 +185,30 @@ def lm_port_run(cfg, model, ref: dict) -> dict:
     from repro_torch.models import transformer as PT
 
     inp = as_torch(lm_inputs(cfg, LM_P, 0))
-    out = {"uncached": PT.forward(cfg, model, inp)[0].numpy(),
-           "step": make_prefill_step(cfg)(model, inp).numpy()}
+    out = {"uncached": to_numpy(PT.forward(cfg, model, inp)[0]),
+           "step": to_numpy(make_prefill_step(cfg)(model, inp))}
     cache = PT.init_cache(cfg, LM_B, LM_MAX_SEQ, device="cpu")
     logits, cache = PT.prefill(cfg, model, inp, cache)
-    out["steps"] = [logits.numpy()]
+    out["steps"] = [to_numpy(logits)]
     for i, feed in enumerate(ref["feeds"]):
-        mine = lm_next_inputs(cfg, logits[:, -1].numpy(), i)
+        mine = lm_next_inputs(cfg, to_numpy(logits[:, -1]), i)
         for k in mine:
             np.testing.assert_array_equal(mine[k], feed[k], err_msg=f"decode step {i}: {k}")
         logits, cache = PT.serve_step(cfg, model, as_torch(feed), cache)
-        out["steps"].append(logits.numpy())
-    out["cache"] = {k: v.numpy() for k, v in cache.items()}
+        out["steps"].append(to_numpy(logits))
+    out["cache"] = {k: to_numpy(v) for k, v in cache.items()}
     return out
+
+
+def to_numpy(t) -> np.ndarray:
+    """A CPU tensor as numpy; bfloat16 as numpy's bfloat16 (``ml_dtypes``,
+    the type the reference's arrays come back in), exact via float32."""
+    import ml_dtypes
+    import torch
+
+    if t.dtype == torch.bfloat16:
+        return t.float().numpy().astype(ml_dtypes.bfloat16)
+    return t.numpy()
 
 
 def assert_logits_close(got, want, what):
@@ -228,3 +242,50 @@ def assert_lm_runs_match(port: dict, ref: dict):
     for i, (got, want) in enumerate(zip(port["steps"], ref["steps"])):
         assert_logits_close(got, want, f"cached step {i}")
     assert_caches_close(port["cache"], ref["cache"])
+
+
+# --------------------------------------------------------------------------
+# The example twins
+# --------------------------------------------------------------------------
+
+EXAMPLES = Path(__file__).resolve().parent.parent / "examples"
+
+
+def load_example(name):
+    """``examples/<name>.py`` as a fresh module (its ``main`` not run)."""
+    spec = importlib.util.spec_from_file_location(f"example_{name}", EXAMPLES / f"{name}.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def printed(capsys, fn, *args, masks=(), **kwargs) -> tuple[list[str], object]:
+    """(the lines ``fn`` prints, with each ``(pattern, replacement)`` of
+    ``masks`` applied: host wall times differ from run to run, its result)."""
+    capsys.readouterr()
+    result = fn(*args, **kwargs)
+    lines = capsys.readouterr().out.splitlines()
+    for pattern, repl in masks:
+        lines = [re.sub(pattern, repl, line) for line in lines]
+    return lines, result
+
+
+def synced_ref_server():
+    """The reference ``Server`` with each step's host buffers copied
+    (``tests/test_torch_server.py`` says why)."""
+    from repro.runtime import server as RS
+
+    class SyncedRefServer(RS.Server):
+        def _token_inputs(self, tokens_per_slot, positions_per_slot):
+            return super()._token_inputs(tokens_per_slot.copy(), positions_per_slot.copy())
+
+    return SyncedRefServer
+
+
+def tpu_stage_hardware():
+    """The reference's TPU stage constants as the port's ``StageHardware``
+    (parity data for ``plan_pipeline``; the port holds no TPU number)."""
+    from repro.core import profiles as RP
+    from repro_torch.core.profiles import StageHardware
+
+    return StageHardware("tpu_v5e", RP.TPU_PEAK_FLOPS, RP.TPU_HBM_BW, RP.TPU_HBM_BYTES)
