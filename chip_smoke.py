@@ -218,10 +218,41 @@ reference package ``repro``) on the card and fails on any fault:
    launches around the card run, by twin (fused: the sweeps; dense: the
    fleet twin's energy-budget grid; the adaptive twin's managers solve
    with the beam on the host, as the reference example's do);
-19. a JSON line of per-kernel results (the DP rows' launches by path
-   with ``"examples"``; flash with granite-34b's launches and its prefill
-   shape's times), the card's memory size, the card line, and the last
-   line ``{"ok": true, "device": {...}}``.
+19. the SSM and hybrid models at full depth and width, seeded random
+   weights made on the card in bf16 and, from the same draws, in
+   float32, ``use_flash_kernel=True``, one config at a time: zamba2-1.2b
+   (38 layers: 33 Mamba2, d_inner 4,096 = 64 heads of 64, ds 64, chunk
+   128, and one shared attention block applied at 5 positions, 32 heads
+   of 64) and xlstm-1.3b (42 mLSTM, 6 sLSTM, 4 heads of 1,024, chunk
+   512): (a) the bf16 ``make_prefill_step`` on 2 x 1024 with the SSD
+   launches (one per Mamba2 layer, 33) and the flash launches (5, all
+   wgmma) counted, every Mamba2 scan's float32 y held to the reference's
+   chunk body on the card on its own inputs within the SSD contract and
+   every shared-attention call to ``attention_ref`` within the flash
+   contract; (b) the logits against the twin (the chunk body, chunked
+   attention: no kernel) in float32 within 2.5e-3 x std (the
+   root-sum-square of the path's kernel contracts), and in bf16 printed
+   beside the gap from halving ``scan_chunk`` (equally valid bf16 orders
+   of zamba2 differ 0.2-0.7 x std at random init); (c) a 128-token prompt
+   fed token by token through ``serve_step`` (no launch): every Mamba2
+   and mLSTM layer's streamed outputs against its chunked form on the
+   same inputs within 2.5e-3 x rms (float32), and the last logits against
+   the uncached forward at position 127, held in float32 where halving
+   the chunk moves the forward less than the tolerance (zamba2; xlstm's
+   stack turns float32 rounding into several std), bf16 printed; (d)
+   ``Server`` at ``reduced()`` size in float32, card tokens == CPU tokens
+   (the CPU run's smallest top-two gap printed), and at full width 2
+   requests with tokens/s (a request beside another need not equal it
+   alone: the recurrent steps ignore positions, as the reference's); (e)
+   the prefill step's wall and tokens/s, ms per ``serve_step`` over 16
+   steps, peak memory, the SSD kernel and flash at the prefill shapes
+   beside their bounds, and traced ``serve_step``s (and zamba2's prefill
+   step) in a fresh ``spawn`` process (idle share);
+20. a JSON line of per-kernel results (the DP rows' launches by path
+   with ``"examples"``; flash with granite-34b's and zamba2's launches and
+   their prefill shapes' times; the SSD scan's launches by path and its
+   time at zamba2's prefill shape), the card's memory size, the card
+   line, and the last line ``{"ok": true, "device": {...}}``.
 
 Exits non-zero, printing no result, when no card is present.
 """
@@ -865,12 +896,13 @@ def phase_cached(dev, cfg, twin, params, tol, n_decode=32) -> dict:
     return {"counts": counts, "wgmma": wgmma, "exact": exact, "total": total, "cache": ours}
 
 
-def serve_requests(params, cfg, reqs, slots=4, max_seq=128, stagger=True):
-    """Serve ``reqs`` [(rid, prompt, max_new)] on a fresh ``Server``;
-    staggered: two at a time, with ticks between the admissions."""
+def serve_requests(params, cfg, reqs, slots=4, max_seq=128, stagger=True, server=None):
+    """Serve ``reqs`` [(rid, prompt, max_new)] on a fresh ``Server`` (or
+    ``server``, a subclass); staggered: two at a time, with ticks between
+    the admissions."""
     from repro_torch.runtime.server import Request, Server
 
-    srv = Server(cfg, params, slots=slots, max_seq=max_seq)
+    srv = (server or Server)(cfg, params, slots=slots, max_seq=max_seq)
     out = {rid: [] for rid, _, _ in reqs}
     pending = list(reqs)
     while pending or srv.queue or srv.active:
@@ -1300,6 +1332,28 @@ def check_scan(label, got, folded, chunk, dtype_name) -> float:
     return err
 
 
+def ssd_work(B, S, H, ph, ds, ck, dtype) -> tuple[int, int, int]:
+    """(bytes, bf16 piece flops, plain flops) of one scan call: x, b, c of
+    ``dtype``, float32 dA, dt read once and y written once; per chunk of
+    r rows C Bᵀ on the r (r + 1) / 2 pairs the causal mask keeps, once per
+    batch row (its H heads share B and C), and per head the masked (C Bᵀ
+    ∘ L)(dt x), C h and the state update Bᵀ(dt x). Each product runs as
+    bf16 piece products: with bf16 inputs C Bᵀ as one and the rest as
+    three (one operand float32); with float32 inputs six."""
+    import torch
+
+    rows = [min(ck, S - i * ck) for i in range(-(-S // ck))]
+    cb_pieces, pieces = (1, 3) if dtype == torch.bfloat16 else (6, 6)
+
+    def flops(cb, per_head):
+        return sum(2 * B * (r * (r + 1) // 2 * ds * cb
+                            + H * per_head * (r * (r + 1) // 2 * ph + 2 * r * ds * ph))
+                   for r in rows)
+
+    nbytes = dtype.itemsize * (2 * B * H * S * ph + 2 * B * S * ds) + 4 * 2 * B * H * S
+    return nbytes, flops(cb_pieces, pieces), flops(1, 1)
+
+
 def phase_ssd(dev, B=4, S=2048, H=64, ph=64, ds=64, ragged=(2, 1000, 8)) -> dict:
     """``ssm_scan`` at full width, launch counter zeroed around the two
     calls; then the outputs and ragged cases against the plain version
@@ -1403,29 +1457,15 @@ def phase_quant_times(dev, card, gemm, ssd) -> dict:
     B, S, H, ph = ssd["inputs"][torch.bfloat16][0].shape
     ds = ssd["inputs"][torch.bfloat16][1].shape[2]
     ck = 128
-    n_chunks = -(-S // ck)
-    # per chunk of r rows: C Bᵀ on the r (r + 1) / 2 pairs the causal mask
-    # keeps, once per batch row (its H heads share B and C); per head, the
-    # masked (C Bᵀ ∘ L)(dt x), C h and the state update Bᵀ(dt x). Each
-    # product runs as bf16 piece products: with bf16 inputs C Bᵀ as one and
-    # the rest as three (one operand float32); with float32 inputs six.
-    rows = [min(ck, S - i * ck) for i in range(n_chunks)]
-
-    def ssd_flops(cb_pieces, pieces):
-        return sum(2 * B * (r * (r + 1) // 2 * ds * cb_pieces
-                            + H * pieces * (r * (r + 1) // 2 * ph + 2 * r * ds * ph))
-                   for r in rows)
-
-    cuda_core_ms = ssd_flops(1, 1) / FP32_FLOPS_PER_S * 1e3
+    cuda_core_ms = ssd_work(B, S, H, ph, ds, ck, torch.float32)[2] / FP32_FLOPS_PER_S * 1e3
     folded = {}
-    for dt_, (cb_pieces, pieces) in ((torch.bfloat16, (1, 3)), (torch.float32, (6, 6))):
+    for dt_ in (torch.bfloat16, torch.float32):
         folded[dt_] = fold_scan(*ssd["inputs"][dt_])
-        size = dt_.itemsize
-        nbytes = size * (2 * B * H * S * ph + 2 * B * S * ds) + 4 * 2 * B * H * S
+        nbytes, flops, _ = ssd_work(B, S, H, ph, ds, ck, dt_)
         work[f"ssd_scan {str(dt_)[6:]}"] = (
             lambda f=folded[dt_]: SK.ssm_scan_kernel(*f, chunk=ck),
             lambda f=folded[dt_]: SK.ssm_scan_plain(*f, chunk=ck), None, nbytes,
-            ssd_flops(cb_pieces, pieces), BF16_FLOPS_PER_S)
+            flops, BF16_FLOPS_PER_S)
     for name, (kernel, plain, library, nbytes, ops, peak) in work.items():
         plain_a = timed_ms(plain, 3)
         if name == "w8a8_matmul":  # in turns: wgmma, mma, mma, wgmma
@@ -3316,6 +3356,535 @@ def phase_planning_twins(card) -> dict:
     return {**twins, "pipeline": plans}
 
 
+# ---------------------------------------------------------------------------
+# SSM and hybrid models at full width (phase 19)
+# ---------------------------------------------------------------------------
+
+HYBRIDS = ("zamba2-1.2b", "xlstm-1.3b")
+# (c): prompt tokens streamed through serve_step; (e): serve_step timing window
+HYBRID_STREAM, HYBRID_DECODE = 128, 16
+# (b), (c) in float32, max |diff| over std: the root-sum-square of the
+# contract rtols of the kernel calls a zamba2 prefill makes (33 SSD calls
+# at 2e-4, 5 float32 flash calls at 1e-3); xlstm's paths (no kernel) are
+# held to the same. In bf16 equally valid orders of zamba2 at random init
+# already differ 0.20-0.70 x std (tools/hybrid_logit_sensitivity.py), so
+# the bf16 gaps are printed beside the gap from halving scan_chunk.
+HYBRID_F32_TOL = float(np.sqrt(33 * 2e-4 ** 2 + 5 * 1e-3 ** 2))
+
+
+class ScanProbe:
+    """While entered, every ``ssm.mamba_scan`` call (one per Mamba2 layer)
+    is checked on its own inputs: the SSD kernel's float32 y against the
+    reference's chunk body (``mamba_scan_plain``) run on the card on the
+    same tensors, within the kernel's contract (``SSD_TOL["float32"]``:
+    rtol 2e-4, atol 1e-4). With ``plain=True`` each call runs the chunk
+    body instead, unchecked (the twin)."""
+
+    def __init__(self, plain=False):
+        self.plain, self.layers = plain, []
+
+    def __enter__(self):
+        from repro_torch.models import ssm
+
+        self.ssm, self.scan = ssm, ssm.mamba_scan
+        ssm.mamba_scan = self._scan
+        return self
+
+    def __exit__(self, *exc):
+        self.ssm.mamba_scan = self.scan
+
+    def _scan(self, x, b, c, dA, dt, chunk):
+        if self.plain:
+            return self.ssm.mamba_scan_plain(x, b, c, dA, dt, chunk)
+        y = self.scan(x, b, c, dA, dt, chunk)
+        err, used = within(y, self.ssm.mamba_scan_plain(x, b, c, dA, dt, chunk),
+                           *SSD_TOL["float32"])
+        self.layers.append({"err": err, "used": used, "y": str(y.dtype)[6:],
+                            "shape": tuple(x.shape)})
+        return y
+
+
+def hybrid_counts(run) -> tuple:
+    """(result, {"ssd", "flash", "wgmma"} launches) of ``run()``, the
+    counters zeroed just before it and read just after."""
+    import torch
+
+    from repro_torch.kernels.flash_attention import ops as FA
+    from repro_torch.kernels.ssm_scan import kernel as SK
+
+    SK.reset_launch_count()
+    FA.reset_launch_count()
+    out = run()
+    torch.cuda.synchronize()
+    return out, {"ssd": SK.SSD_LAUNCHES, "flash": FA.FLASH_LAUNCHES,
+                 "wgmma": FA.FLASH_WGMMA_LAUNCHES}
+
+
+def check_counts(what, cfg, counts, bf16=True) -> None:
+    """One SSD launch per Mamba2 layer and one flash launch per application
+    of an attention block (Sq > 8), of the wgmma kernel in bf16 and of
+    the CUDA-core kernel in float32."""
+    n_attn = cfg.pattern.count("attn")
+    want = {"ssd": cfg.pattern.count("mamba"), "flash": n_attn, "wgmma": n_attn if bf16 else 0}
+    if counts != want:
+        raise AssertionError(f"{cfg.name} {what}: launches {counts}, expected {want}")
+
+
+def hybrid_setup(dev, arch):
+    """The config at full width, its twin config (chunked attention) and
+    the seeded weights made on the card in bf16 and, from the same draws,
+    in float32."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import transformer as T
+
+    cfg = replace(get_config(arch), use_flash_kernel=True)
+    t0 = time.perf_counter()
+    params, params32 = (T.init_params(replace(cfg, dtype=dt_), device=dev,
+                                      generator=torch.Generator(device=dev).manual_seed(0))
+                        for dt_ in ("bfloat16", "float32"))
+    torch.cuda.synchronize()
+    kinds = {k: cfg.pattern.count(k) for k in dict.fromkeys(cfg.pattern)}
+    mixers = (f"Mamba2 d_inner {cfg.d_inner} = {cfg.d_inner // cfg.ssm_head_dim} heads of "
+              f"{cfg.ssm_head_dim}, ds {cfg.ssm_state}" if "mamba" in kinds else
+              f"mLSTM / sLSTM d_inner {cfg.d_inner} = {cfg.n_heads} heads of "
+              f"{cfg.d_inner // cfg.n_heads}")
+    print(f"  {arch}: {cfg.n_layers} layers {kinds}"
+          + (" (one shared attention block)" if cfg.shared_attn else "")
+          + f", d {cfg.d_model}, {mixers}, chunk {cfg.scan_chunk}, vocab {cfg.vocab}, "
+          f"{cfg.dtype}; {sum(p.numel() for p in params.parameters()) / 1e9:.3f} G "
+          f"parameters made on the card in bf16 and float32 (the same draws) in "
+          f"{time.perf_counter() - t0:.1f} s")
+    return cfg, replace(cfg, use_flash_kernel=False), params, params32
+
+
+def hybrid_prefill_step(dev, cfg, twin, params, params32) -> dict:
+    """(a) the bf16 prefill step 2 x 1024 with every Mamba2 scan and every
+    attention call held to its plain version on its own inputs; (b) its
+    last-position logits against the twin's (the chunk body, chunked
+    attention), in float32 within ``HYBRID_F32_TOL`` x std, in bf16 beside
+    the gap from halving ``scan_chunk``."""
+    import torch
+
+    from repro_torch.launch.steps import make_prefill_step
+
+    batch = family_batch(dev, cfg, FAMILY_P)
+    counts = {}
+    with AttentionProbe() as attn, ScanProbe() as scan:
+        got, counts["prefill step (a)"] = hybrid_counts(
+            lambda: make_prefill_step(cfg)(params, batch))
+    check_counts("prefill step", cfg, counts["prefill step (a)"])
+    if (len(scan.layers), len(attn.layers)) != (cfg.pattern.count("mamba"),
+                                                cfg.pattern.count("attn")):
+        raise AssertionError(f"{cfg.name}: probed {len(scan.layers)} scans and "
+                             f"{len(attn.layers)} attention calls")
+    notes = []
+    if scan.layers:
+        worst = max(scan.layers, key=lambda e: e["used"])
+        if worst["used"] > 1.0 or {e["y"] for e in scan.layers} != {"float32"}:
+            raise AssertionError(f"{cfg.name}: a Mamba2 scan beyond the SSD contract or not "
+                                 f"float32 ({worst})")
+        notes.append(f"every Mamba2 scan {scan.layers[0]['shape']} (float32 x, B, C) vs the "
+                     f"chunk body on the card (rtol {SSD_TOL['float32'][0]}, atol "
+                     f"{SSD_TOL['float32'][1]}): share of the limit by layer "
+                     f"{[round(e['used'], 3) for e in scan.layers]}, worst "
+                     f"{worst['used']:.3f}, max abs err "
+                     f"{max(e['err'] for e in scan.layers):.4g}")
+    if attn.layers:
+        worst = max(attn.layers, key=lambda e: e["used"])
+        if worst["used"] > 1.0:
+            raise AssertionError(f"{cfg.name}: a shared-attention flash call beyond the "
+                                 f"contract ({worst})")
+        notes.append(f"every shared-attention flash call vs attention_ref (rtol "
+                     f"{FLASH_TOL_FULL_BF16[0]}, atol {FLASH_TOL_FULL_BF16[1]}): share by "
+                     f"call {[round(e['used'], 3) for e in attn.layers]}, worst "
+                     f"{worst['used']:.3f}; vs plain_attention worst "
+                     f"{max(e['plain_used'] for e in attn.layers):.3f}")
+    if not notes:
+        notes.append("no kernel on this path (mLSTM and sLSTM run PyTorch ops)")
+    print(f"  (a) prefill step {FAMILY_B} x {FAMILY_P}, bf16: launches "
+          f"{counts['prefill step (a)']}; " + "; ".join(notes))
+    if tuple(got.shape) != (FAMILY_B, cfg.vocab_padded) \
+            or not bool(torch.isfinite(got[..., :cfg.vocab]).all()):
+        raise AssertionError(f"{cfg.name} prefill step: bad logits {tuple(got.shape)}")
+    with ScanProbe(plain=True):
+        want, twin_counts = hybrid_counts(lambda: make_prefill_step(twin)(params, batch))
+    half = replace(cfg, scan_chunk=cfg.scan_chunk // 2)
+    other, counts["prefill step, scan_chunk / 2 (b)"] = hybrid_counts(
+        lambda: make_prefill_step(half)(params, batch))
+    check_counts("prefill step, scan_chunk / 2", cfg, counts["prefill step, scan_chunk / 2 (b)"])
+    cfg32, twin32 = replace(cfg, dtype="float32"), replace(twin, dtype="float32")
+    got32, counts["prefill step float32 (b)"] = hybrid_counts(
+        lambda: make_prefill_step(cfg32)(params32, batch))
+    check_counts("float32 prefill step", cfg, counts["prefill step float32 (b)"], bf16=False)
+    with ScanProbe(plain=True):
+        want32, twin32_counts = hybrid_counts(lambda: make_prefill_step(twin32)(params32, batch))
+    if any(twin_counts.values()) or any(twin32_counts.values()):
+        raise AssertionError(f"{cfg.name}: the twin launched {twin_counts}, {twin32_counts}")
+    err32, std32 = logits_err(got32, want32, cfg)
+    err, std = logits_err(got, want, cfg)
+    floor, _ = logits_err(other, got, cfg)
+    print(f"  (b) last-position logits {tuple(got.shape)} vs the twin (chunk body, chunked "
+          f"attention, no kernel): float32 max abs err {err32:.4g} = {err32 / std32:.5f} x std "
+          f"{std32:.4g} (tolerance {HYBRID_F32_TOL:.5f} x std); bf16 {err / std:.4f} x std "
+          f"{std:.4g}, and the kernel run vs itself at scan_chunk {half.scan_chunk} "
+          f"{floor / std:.4f} x std (equally valid bf16 orders)")
+    if not err32 <= HYBRID_F32_TOL * std32:
+        raise AssertionError(f"{cfg.name} prefill step: float32 logits beyond tolerance")
+    return {"counts": counts, "batch": batch}
+
+
+class RecurrentProbe:
+    """While entered, keeps each recurrent block's one-token steps (the
+    mixer's input and output per ``serve_step``): ``check()`` then runs
+    every Mamba2 and mLSTM layer's chunked form on that layer's streamed
+    inputs and holds the streamed outputs to it (max |diff| <=
+    ``HYBRID_F32_TOL`` x the layer output's rms); sLSTM has one form, so
+    its sequence run on the same inputs is only printed."""
+
+    def __enter__(self):
+        from repro_torch.models import ssm
+
+        self.ssm, self.steps = ssm, {}
+        self.saved = {name: getattr(ssm, name) for name in ("mamba_step", "mlstm_step",
+                                                            "slstm_forward")}
+        for name, fn in self.saved.items():
+            setattr(ssm, name, self._wrap(name, fn))
+        return self
+
+    def __exit__(self, *exc):
+        for name, fn in self.saved.items():
+            setattr(self.ssm, name, fn)
+
+    def _wrap(self, name, fn):
+        def step(cfg, p, x, cache=None):
+            y, new = fn(cfg, p, x, cache)
+            _, _, xs, ys = self.steps.setdefault(id(p), (name, p, [], []))
+            xs.append(x)
+            ys.append(y)
+            return y, new
+        return step
+
+    def check(self, cfg) -> list:
+        import torch
+
+        forms = {"mamba_step": self.ssm.mamba_chunked, "mlstm_step": self.ssm.mlstm_chunked}
+        out = []
+        for name, p, xs, ys in self.steps.values():
+            x, y = torch.cat(xs, 1), torch.cat(ys, 1)
+            if name in forms:
+                want = forms[name](cfg, p, x, chunk=cfg.scan_chunk)
+            else:
+                want, _ = self.saved["slstm_forward"](cfg, p, x)
+            used = float((y - want).abs().max() / (HYBRID_F32_TOL * want.float().square()
+                                                   .mean().sqrt()))
+            out.append((name.split("_")[0], used))
+        return out
+
+
+def hybrid_stream(dev, cfg, params, params32) -> dict:
+    """(c) a 128-token prompt fed token by token through ``serve_step``
+    from a fresh cache, as the ``Server`` feeds it, in bf16 and in
+    float32: (1) each Mamba2 and mLSTM layer's streamed outputs against
+    its chunked form on the same inputs (float32, :class:`RecurrentProbe`);
+    (2) the last step's logits against the uncached forward's at position
+    127, the float32 gap held to ``HYBRID_F32_TOL`` x std where halving
+    the chunk the prompt takes moves the float32 forward less than that (a
+    stack that turns rounding into whole std cannot be compared whole),
+    the bf16 gap printed. The streamed steps launch no kernel. Returns the bf16
+    stream's cache and last logits for (e)."""
+    from repro_torch.models import transformer as T
+
+    tokens = family_batch(dev, cfg, HYBRID_STREAM, seed=2)["tokens"]
+    counts, gaps, out, layers = {}, {}, {}, []
+    for name, p, c in (("bf16", params, cfg), ("float32", params32, replace(cfg, dtype="float32"))):
+        path = f"forward S={HYBRID_STREAM}" + (" float32" if name == "float32" else "") + " (c)"
+        full, counts[path] = hybrid_counts(
+            lambda: T.forward(c, p, {"tokens": tokens})[0][:, -1])
+        check_counts(path, cfg, counts[path], bf16=name == "bf16")
+        cache = T.init_cache(c, FAMILY_B, HYBRID_STREAM + HYBRID_DECODE, device=dev)
+
+        def stream():
+            nonlocal cache
+            for t in range(HYBRID_STREAM):
+                logits, cache = T.serve_step(c, p, {"tokens": tokens[:, t:t + 1],
+                                                    "cur_index": t}, cache)
+            return logits[:, 0]
+
+        t0 = time.perf_counter()
+        with RecurrentProbe() as probe:
+            last, stream_counts = hybrid_counts(stream)
+        wall = time.perf_counter() - t0
+        if any(stream_counts.values()):
+            raise AssertionError(f"{cfg.name}: serve_steps launched {stream_counts}")
+        err, std = logits_err(last, full, cfg)
+        gaps[name] = (err / std, wall)
+        out[name] = {"cache": cache, "last": last}
+        if name == "float32":
+            layers = probe.check(c)
+            # half the chunk the stream's prompt actually takes, so the
+            # arithmetic moves (a chunk at or above S covers it whole)
+            half = replace(c, scan_chunk=min(c.scan_chunk, HYBRID_STREAM) // 2)
+            path = f"forward S={HYBRID_STREAM} float32, scan_chunk / 2 (c)"
+            other, counts[path] = hybrid_counts(
+                lambda: T.forward(half, p, {"tokens": tokens})[0][:, -1])
+            check_counts(path, cfg, counts[path], bf16=False)
+            floor_err, floor_std = logits_err(other, full, cfg)
+            floor = floor_err / floor_std
+        del probe
+    checked = [u for kind, u in layers if kind != "slstm"]
+    slstm = [u for kind, u in layers if kind == "slstm"]
+    comparable = floor <= HYBRID_F32_TOL
+    print(f"  (c) {HYBRID_STREAM} prompt tokens through serve_step (no kernel launch; "
+          f"{gaps['float32'][1]:.2f} s float32, {gaps['bf16'][1]:.2f} s bf16): each of the "
+          f"{len(checked)} Mamba2 / mLSTM layers' streamed outputs vs its chunked form on the "
+          f"same inputs (float32), share of the limit ({HYBRID_F32_TOL:.5f} x rms) worst "
+          f"{max(checked):.4f}, by layer {[round(u, 4) for u in checked]}"
+          + (f"; sLSTM sequence vs steps (one form) {[round(u, 4) for u in slstm]}" if slstm
+             else "")
+          + f"; last logits vs the uncached forward at position {HYBRID_STREAM - 1}: float32 "
+          f"{gaps['float32'][0]:.5f} x std, the float32 forward vs itself at scan_chunk "
+          f"{min(cfg.scan_chunk, HYBRID_STREAM) // 2} {floor:.5f} x std ("
+          + ("comparable: tolerance" if comparable else "not comparable whole: above")
+          + f" {HYBRID_F32_TOL:.5f}), bf16 {gaps['bf16'][0]:.4f} x std")
+    if max(checked) > 1.0:
+        raise AssertionError(f"{cfg.name}: a layer's recurrent steps beyond tolerance of its "
+                             f"chunked form")
+    if comparable and not gaps["float32"][0] <= HYBRID_F32_TOL:
+        raise AssertionError(f"{cfg.name}: recurrent decode beyond tolerance of the chunked forms")
+    return {"counts": counts, **out["bf16"]}
+
+
+def gap_server(gaps: list):
+    """A ``Server`` that appends to ``gaps`` each step's smallest top-two
+    logit gap over the slots it steps (position >= 0)."""
+    import torch
+
+    from repro_torch.runtime.server import Server
+
+    class GapServer(Server):
+        def _decode(self, tokens, positions):
+            logits = super()._decode(tokens, positions)
+            live = torch.from_numpy(positions >= 0).to(logits.device)
+            top2 = logits[:, 0, :self.cfg.vocab][live].topk(2, dim=-1).values
+            gaps.append(float((top2[:, 0] - top2[:, 1]).min()))
+            return logits
+
+    return GapServer
+
+
+def hybrid_server(dev, arch, card) -> None:
+    """(d) ``Server``: at ``reduced()`` size in float32, weights seeded on
+    the CPU and moved, 3 staggered requests on 2 slots served on the card
+    and on the CPU give the same tokens (the smallest top-two gap of the
+    CPU run printed); at full width 2 staggered requests, tokens/s. A
+    request beside another need not equal it alone (the recurrent steps
+    ignore positions, as the reference's), so that is not checked."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import transformer as T
+
+    small = get_config(arch).reduced()
+    cpu = T.init_params(small, generator=torch.Generator().manual_seed(0), device="cpu")
+    card_model = T.Transformer(small, device=dev)
+    card_model.load_state_dict(cpu.state_dict())
+    rng = np.random.RandomState(7)
+    reqs = [(rid, rng.randint(0, small.vocab, size=n).astype(np.int32), 6)
+            for rid, n in enumerate((5, 3, 7))]
+    gaps = []
+    want = serve_requests(cpu, small, reqs, slots=2, max_seq=32, server=gap_server(gaps))
+    got = serve_requests(card_model, small, reqs, slots=2, max_seq=32)
+    gap = min(gaps)
+    if got != want:
+        raise AssertionError(f"{arch} reduced Server: card tokens {got} != CPU {want} (the "
+                             f"CPU run's smallest top-two gap {gap:.4g})")
+    print(f"  (d) reduced Server (float32, 2 slots, 3 staggered requests, 6 new tokens each): "
+          f"card tokens == CPU tokens; the CPU run's smallest top-two logit gap {gap:.4g}")
+
+
+def hybrid_full_server(cfg, params, card) -> dict:
+    """(d) at full width: 2 requests (8 and 5 prompt tokens, 8 new each) on
+    2 slots, the second admitted a tick later."""
+    import torch
+
+    rng = np.random.RandomState(8)
+    reqs = [(rid, rng.randint(0, cfg.vocab, size=n).astype(np.int32), 8)
+            for rid, n in enumerate((8, 5))]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    got, counts = hybrid_counts(lambda: serve_requests(params, cfg, reqs, slots=2,
+                                                         max_seq=32))
+    wall = time.perf_counter() - t0
+    if any(counts.values()):
+        raise AssertionError(f"{cfg.name} Server: launched {counts}")
+    if any(len(t) != 8 or not all(0 <= x < cfg.vocab for x in t) for t in got.values()):
+        raise AssertionError(f"{cfg.name} Server: a request did not drain")
+    n = sum(len(t) for t in got.values())
+    print(f"      full-width Server, 2 slots, 2 requests (8 and 5 prompt tokens, 8 new each): "
+          f"drained, no kernel launch; {wall:.3f} s, {n / wall:.1f} generated tokens/s "
+          f"({(n + 13) / wall:.1f} incl. prompt tokens) [{card}]")
+    return {"wall_s": wall, "tokens": n}
+
+
+def ssd_at(dev, cfg, card) -> dict:
+    """The SSD kernel, its plain version (``ssm_scan_plain``) at zamba2's
+    prefill shape (B 2 x S 1,024, float32 x, B, C: the model path's), beside
+    the bound."""
+    import torch
+
+    from repro_torch.kernels.ssm_scan import kernel as SK
+
+    H, ph, ds, ck = cfg.d_inner // cfg.ssm_head_dim, cfg.ssm_head_dim, cfg.ssm_state, cfg.scan_chunk
+    inputs = ssd_inputs(dev, FAMILY_B, FAMILY_P, H, ph, ds, torch.float32, 43)
+    folded = fold_scan(*inputs)
+    nbytes, flops, plain_flops = ssd_work(FAMILY_B, FAMILY_P, H, ph, ds, ck, torch.float32)
+    bytes_ms, ops_ms = nbytes / HBM_BYTES_PER_S * 1e3, flops / BF16_FLOPS_PER_S * 1e3
+    plain_a = timed_ms(lambda: SK.ssm_scan_plain(*folded, chunk=ck), 3)
+    ms = timed_ms(lambda: SK.ssm_scan_kernel(*folded, chunk=ck), 10)
+    plain_ms = min(plain_a, timed_ms(lambda: SK.ssm_scan_plain(*folded, chunk=ck), 3))
+    bound = max(bytes_ms, ops_ms)
+    by = "bytes" if bytes_ms >= ops_ms else "operations"
+    print(f"      SSD at the prefill shape (B {FAMILY_B} S {FAMILY_P} H {H} ph {ph} ds {ds} chunk "
+          f"{ck}, float32 x, B, C): kernel {ms:.4f} ms; plain {plain_ms:.3f} ms; bound "
+          f"{bound:.4f} ms by {by} ({flops / 1e9:.2f} G bf16 piece flops in {ops_ms:.4f} ms, "
+          f"{nbytes / 1e6:.1f} MB in {bytes_ms:.4f} ms; the {plain_flops / 1e9:.2f} G flops "
+          f"once each on the float32 CUDA cores {plain_flops / FP32_FLOPS_PER_S * 1e3:.4f} ms); "
+          f"{ms / bound:.1f}x the bound; no PyTorch call computes it [{card}]")
+    return {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound, "bound_by": by,
+            "library_ms": None, "shape": f"B {FAMILY_B} S {FAMILY_P} H {H} ph {ph} ds {ds} "
+                                         f"chunk {ck} float32"}
+
+
+def hybrid_times(dev, cfg, params, stream, card) -> dict:
+    """(e) the prefill step's wall and tokens/s (launches counted), ms per
+    ``serve_step`` over 16 greedy steps on the streamed cache."""
+    import torch
+
+    from repro_torch.launch.steps import make_prefill_step
+    from repro_torch.models import transformer as T
+
+    step, batch = make_prefill_step(cfg), family_batch(dev, cfg, FAMILY_P)
+    walls = []
+
+    def timed():
+        for _ in range(2):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            step(params, batch)
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t0)
+
+    _, counts = hybrid_counts(timed)
+    cache, tok = stream["cache"], stream["last"][:, :cfg.vocab].argmax(-1)[:, None]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for i in range(HYBRID_DECODE):
+        logits, cache = T.serve_step(cfg, params, {"tokens": tok, "cur_index":
+                                                   HYBRID_STREAM + i}, cache)
+        tok = logits[:, 0, :cfg.vocab].argmax(-1)[:, None]
+    torch.cuda.synchronize()
+    step_ms = (time.perf_counter() - t0) / HYBRID_DECODE * 1e3
+    n = FAMILY_B * FAMILY_P
+    print(f"  (e) prefill step {FAMILY_B} x {FAMILY_P}: {min(walls):.4f} s ({n / min(walls):.1f} "
+          f"tokens/s; runs {', '.join(f'{w:.4f}' for w in walls)} s; launches {counts}); "
+          f"serve_step {step_ms:.3f} ms per step over {HYBRID_DECODE} greedy steps after the "
+          f"{HYBRID_STREAM}-token prompt ({FAMILY_B * 1e3 / step_ms:.1f} tokens/s at "
+          f"{FAMILY_B} rows) [{card}]")
+    return {"prefill_s": min(walls), "step_ms": step_ms, "counts": counts}
+
+
+def traced_hybrid_steps(card) -> dict:
+    """In a fresh process: each config built as in phase 19, 8 prompt
+    tokens streamed, two warm-up ``serve_step``s, one traced; then for
+    zamba2 one traced prefill step (2 x 1024) after a warm-up."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch.steps import make_prefill_step
+    from repro_torch.models import transformer as T
+
+    dev = torch.device("cuda")
+    out = {}
+    for arch in HYBRIDS:
+        cfg = replace(get_config(arch), use_flash_kernel=True)
+        params = T.init_params(cfg, generator=torch.Generator(device=dev).manual_seed(0),
+                               device=dev)
+        cache = T.init_cache(cfg, FAMILY_B, 16, device=dev)
+        tokens = family_batch(dev, cfg, 8)["tokens"]
+        for t in range(8):
+            _, cache = T.serve_step(cfg, params, {"tokens": tokens[:, t:t + 1], "cur_index": t},
+                                    cache)
+        step = lambda: T.serve_step(cfg, params, {"tokens": tokens[:, :1], "cur_index": 8},
+                                    cache)
+        step()
+        step()
+        out[arch] = {"serve_step": traced_run(f"{arch} serve_step, {FAMILY_B} rows (a fresh "
+                                              f"process)", step, card)}
+        if "mamba" in cfg.pattern:  # xlstm's prefill is 127k launches of sLSTM steps
+            prefill, batch = make_prefill_step(cfg), family_batch(dev, cfg, FAMILY_P)
+            prefill(params, batch)
+            out[arch]["prefill"] = traced_run(f"{arch} prefill step {FAMILY_B} x {FAMILY_P} (a "
+                                              f"fresh process)", lambda: prefill(params, batch),
+                                              card)
+        for key, trace in out[arch].items():
+            out[arch][key] = None if trace is None else {
+                "wall_ms": trace["wall_ms"], "busy_ms": trace["busy_ms"],
+                "top": sorted(trace["ops"].items(), key=lambda kv: -kv[1])[:4]}
+        del params, cache
+        torch.cuda.empty_cache()
+    return out
+
+
+def phase_hybrids(dev, card) -> dict:
+    """Phase 19: zamba2-1.2b and xlstm-1.3b at full depth and width, one
+    at a time, each freed before the next; then the traced steps in a
+    fresh process."""
+    import multiprocessing as mp
+    from concurrent.futures import ProcessPoolExecutor
+
+    import torch
+
+    t_phase = time.perf_counter()
+    launches, by_path, ssd, flash = {}, {}, None, None
+    for arch in HYBRIDS:
+        t0 = time.perf_counter()
+        torch.cuda.reset_peak_memory_stats()
+        cfg, twin, params, params32 = hybrid_setup(dev, arch)
+        pre = hybrid_prefill_step(dev, cfg, twin, params, params32)
+        stream = hybrid_stream(dev, cfg, params, params32)
+        del params32
+        hybrid_server(dev, arch, card)
+        hybrid_full_server(cfg, params, card)
+        times = hybrid_times(dev, cfg, params, stream, card)
+        paths = {**pre["counts"], **stream["counts"], "prefill step timing (e)": times["counts"]}
+        by_path[arch] = paths
+        launches[arch] = {k: sum(c[k] for c in paths.values()) for k in ("ssd", "flash",
+                                                                         "wgmma")}
+        if "mamba" in cfg.pattern:
+            ssd = ssd_at(dev, cfg, card)
+        if "attn" in cfg.pattern:
+            flash = flash_at(dev, cfg, card)
+        print(f"  {arch}: launches on its paths {launches[arch]} (by path {paths}); peak "
+              f"{torch.cuda.max_memory_allocated() / 1e9:.1f} GB allocated; "
+              f"{time.perf_counter() - t0:.1f} s [{card}]")
+        del params, pre, stream, times
+        torch.cuda.empty_cache()
+    with ProcessPoolExecutor(max_workers=1, mp_context=mp.get_context("spawn")) as pool:
+        traced = pool.submit(traced_hybrid_steps, card).result()
+    for arch, runs in traced.items():
+        print(f"  traced {arch}: " + "; ".join(
+            f"{what} " + ("not measured" if t is None else
+                          f"idle share {1 - t['busy_ms'] / t['wall_ms']:.4f} (wall "
+                          f"{t['wall_ms']:.2f} ms, busy {t['busy_ms']:.2f} ms; top "
+                          + ", ".join(f"{k[:40]} {v:.2f} ms" for k, v in t["top"]) + ")")
+            for what, t in runs.items()) + f" [{card}]")
+    print(f"  phase 19: launches by config {launches}; {time.perf_counter() - t_phase:.1f} s")
+    return {"launches": launches, "by_path": by_path, "ssd_at": ssd, "flash_at": flash,
+            "traced": traced}
+
+
 def main() -> int:
     import torch
 
@@ -3414,6 +3983,14 @@ def main() -> int:
     print(f"== 18 pipeline planning over H100 stages and the example twins on the card [{card}]")
     twins = phase_planning_twins(card)
 
+    card = card_line()
+    print(f"== 19 SSM and hybrid models at full width: zamba2-1.2b (Mamba2 with shared "
+          f"attention) and xlstm-1.3b (mLSTM, sLSTM) [{card}]")
+    hybrids = phase_hybrids(dev, card)
+    zamba = hybrids["launches"]["zamba2-1.2b"]
+    flash_launches += zamba["flash"]
+    wgmma_launches += zamba["wgmma"]
+
     kernels = []
     by_variant = {"tiled": path["by_variant"]["tiled"] + planner["tiled"] + replan["tiled"]
                   + twins["tiled"],
@@ -3444,22 +4021,28 @@ def main() -> int:
         "launches": flash_launches, "max_abs_err": errs["flash_attention"],
         "launches_by_variant": {"wgmma": wgmma_launches,
                                 "simt": flash_launches - wgmma_launches},
-        "launches_by_path": {"deepseek-7b": deepseek_launches, **families["launches"]},
-        **times["flash_attention"], "by_config": families["by_config"],
+        "launches_by_path": {"deepseek-7b": deepseek_launches, **families["launches"],
+                             "zamba2-1.2b": zamba["flash"]},
+        **times["flash_attention"],
+        "by_config": {**families["by_config"], "zamba2-1.2b": hybrids["flash_at"]},
     })
     for name, source, replaces, launches in (
             ("w8a8_matmul", "quant_matmul.cu", "quant_matmul/kernel.py:31",
              gemm["launches"]["w8a8_matmul"]),
             ("w8a16_matmul", "quant_matmul.cu", "quant_matmul/kernel.py:123",
              gemm["launches"]["w8a16_matmul"]),
-            ("ssd_scan", "ssm_scan.cu", "ssm_scan/kernel.py:40", ssd["launches"])):
+            ("ssd_scan", "ssm_scan.cu", "ssm_scan/kernel.py:40",
+             ssd["launches"] + zamba["ssd"])):
         kernels.append({
             "name": name, "route": "cuda", "source": f"src/repro_torch/csrc/{source}",
             "replaces": f"src/repro/kernels/{replaces}", "launches": launches,
             "max_abs_err": errs[name], **times[name],
             **({"launches_by_variant": gemm["by_variant"]} if name == "w8a8_matmul" else {}),
             # one launch = one call of the C entry, which runs three CUDA kernels
-            **({"launch_is": "ssm_scan_fwd call (3 kernels)"} if name == "ssd_scan" else {}),
+            **({"launch_is": "ssm_scan_fwd call (3 kernels)",
+                "launches_by_path": {"ssm_scan op": ssd["launches"],
+                                     "zamba2-1.2b": zamba["ssd"]},
+                "by_config": {"zamba2-1.2b": hybrids["ssd_at"]}} if name == "ssd_scan" else {}),
         })
     print(f"  total {time.perf_counter() - t_start:.1f} s; clocks now [{card_line()}]")
     print(json.dumps({"kernels": kernels}))

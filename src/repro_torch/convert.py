@@ -33,6 +33,7 @@ from repro_torch.core.quantization import QTensor
 from repro_torch.core.sweep import ScenarioGrid
 from repro_torch.models.cnn_common import conv_weight
 from repro_torch.models.config import ModelConfig
+from repro_torch.models.transformer import is_homogeneous
 
 __all__ = [
     "cnn_params_from_reference",
@@ -125,28 +126,52 @@ def _tensor(a) -> torch.Tensor:
     return torch.from_numpy(np.array(a))
 
 
+def _leaves(tree, prefix: str = ""):
+    """(dotted path, leaf) of a nested dict of arrays, in its order."""
+    for key, value in tree.items():
+        if isinstance(value, dict):
+            yield from _leaves(value, f"{prefix}{key}.")
+        else:
+            yield prefix + key, value
+
+
 def lm_params_from_reference(cfg: ModelConfig, params) -> dict[str, torch.Tensor]:
     """The port's ``Transformer`` state dict from the reference's
-    ``init_params`` pytree of a homogeneous attention stack: every
-    per-layer stack (leading axis ``n_layers``) under ``blocks`` becomes
-    ``blocks.<i>.<group>.<leaf>`` (the port's modules keep the
-    reference's leaf names: ``attn.wq`` or MLA's ``attn.q_down``, the
-    MoE's ``ff.router`` and stacked ``ff.w_in``, ...). The embedding (one
-    table per codebook, stacked) and the head come across as they are;
-    a tied head has no weight. Load it with
+    ``init_params`` pytree. The port's modules keep the reference's leaf
+    names (``attn.wq`` or MLA's ``attn.q_down``, the MoE's ``ff.router``
+    and stacked ``ff.w_in``, a mixer block's ``norm.scale`` and
+    ``mixer.in_proj`` / ``mixer.A_log`` / ``mixer.r``, ...), so a leaf
+    at dotted path ``<path>`` of a per-layer stack lands at:
+
+    * homogeneous attention stacks (``blocks`` one stack, leading axis
+      ``n_layers``): ``blocks.<i>.<path>``;
+    * block patterns (``blocks`` one stack per kind, leading axis that
+      kind's count in ``cfg.pattern``): ``blocks.<kind>.<i>.<path>``
+      (``mamba``, ``mlstm``, ``slstm``, and ``attn`` without
+      ``shared_attn``); the shared block (``blocks.attn_shared``, not
+      stacked) at ``blocks.attn_shared.<path>``.
+
+    The embedding (one table per codebook, stacked) and the head come
+    across as they are; a tied head has no weight. Load it with
     ``Transformer(cfg, device=...).load_state_dict(...)``."""
     sd = {"embed.table": _tensor(params["embed"]["table"]),
           "final_norm.scale": _tensor(params["final_norm"]["scale"])}
     if "w" in params["lm_head"]:
         sd["lm_head.w"] = _tensor(params["lm_head"]["w"])
-    for group, leaves in params["blocks"].items():
-        for leaf, stack in leaves.items():
+    stacks = ({"": (params["blocks"], cfg.n_layers)} if is_homogeneous(cfg) else
+              {f"{kind}.": (tree, None if kind == "attn_shared" else cfg.pattern.count(kind))
+               for kind, tree in params["blocks"].items()})
+    for prefix, (tree, n) in stacks.items():
+        for path, stack in _leaves(tree):
+            if n is None:
+                sd[f"blocks.{prefix}{path}"] = _tensor(stack)
+                continue
             stack = np.asarray(stack)
-            if stack.shape[0] != cfg.n_layers:
-                raise ValueError(f"{group}.{leaf}: {stack.shape[0]} layers, "
-                                 f"config has {cfg.n_layers}")
-            for i in range(cfg.n_layers):
-                sd[f"blocks.{i}.{group}.{leaf}"] = _tensor(stack[i])
+            if stack.shape[0] != n:
+                raise ValueError(f"{prefix}{path}: {stack.shape[0]} layers, "
+                                 f"config has {n}")
+            for i in range(n):
+                sd[f"blocks.{prefix}{i}.{path}"] = _tensor(stack[i])
     return sd
 
 

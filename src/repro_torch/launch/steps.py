@@ -19,6 +19,8 @@ def make_prefill_step(cfg: ModelConfig):
     ``codes`` or ``embeds`` as the config's frontend takes, and optional
     ``positions`` ((3, B, S) for M-RoPE).
 
+    It runs the uncached forward, so a block pattern's Mamba2 and mLSTM
+    blocks take their chunked forms (the SSD kernel on the card).
     Serving prefill has no backward pass, so causal block skipping is on
     (``causal_skip=True``), as in the reference."""
     cfg = dataclasses.replace(cfg, causal_skip=True)

@@ -3,10 +3,7 @@
 One frozen dataclass covers the whole zoo; family-specific fields default
 off. Every config in ``repro_torch/configs/`` instantiates this with the
 exact published dimensions. A copy of the reference's
-``repro.models.config`` (the port imports nothing of ``repro``); the
-port's model refuses block patterns and shared attention by name
-(``repro_torch.models.transformer.check_supported``).
-"""
+``repro.models.config`` (the port imports nothing of ``repro``)."""
 
 from __future__ import annotations
 

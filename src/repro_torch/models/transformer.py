@@ -1,8 +1,6 @@
-"""Decoder-only LM: the homogeneous attention stacks of the reference's
-``repro.models.transformer``, in PyTorch.
+"""Decoder-only LM: the reference's ``repro.models.transformer`` in PyTorch.
 
-One model, configured by :class:`ModelConfig`, covers every config whose
-blocks are all attention blocks:
+One model, configured by :class:`ModelConfig`, covers every config:
 
 * dense / GQA / MQA attention (deepseek-7b, granite-34b), with the
   parallel residual (stablelm-12b: attention and FFN both read the same
@@ -12,33 +10,47 @@ blocks are all attention blocks:
 * the audio-codes frontend (musicgen-medium: one embedding table per
   codebook, one head per codebook) and the vision-embeds frontend with
   M-RoPE and the int8 KV cache (qwen2-vl-72b);
-* the tied head (``tie_embeddings``).
+* the tied head (``tie_embeddings``);
+* block patterns (``cfg.pattern``): Mamba2 with one shared attention
+  block applied at every ``attn`` position (zamba2-1.2b,
+  ``shared_attn``), mLSTM and sLSTM stacks (xlstm-1.3b); the mixers are
+  :mod:`repro_torch.models.ssm`'s.
 
-:class:`Transformer` holds the weights: an embedding, a ``ModuleList`` of
-pre-norm blocks and a final norm with the LM head. There is no
-``lax.scan``: the blocks run in a Python loop. The reference's
-functional entry points keep their names and take the module as
-``params``:
+:class:`Transformer` holds the weights: an embedding, the blocks and a
+final norm with the LM head. An all-attention stack without
+``shared_attn`` is homogeneous: ``blocks`` is a ``ModuleList`` of
+pre-norm attention blocks, one per layer. Any other pattern is
+heterogeneous: ``blocks`` is a ``ModuleDict`` of per-kind stacks in
+pattern order (``blocks.mamba.<i>``, ``blocks.mlstm.<i>``, ...; an
+``attn`` stack, or the one ``blocks.attn_shared`` block), as the
+reference's per-kind parameter stacks. There is no ``lax.scan``: the
+blocks run in a Python loop, so no run grouping is needed. The
+reference's functional entry points keep their names and take the module
+as ``params``:
 
 * :func:`forward` ``(cfg, params, inputs, cache, decode)`` ->
   ``(logits, cache)``;
 * :func:`prefill` runs it with a cache, :func:`serve_step` with a cache
-  and ``decode=True`` (MLA's absorbed path);
+  and ``decode=True`` (MLA's absorbed path, the recurrent steps);
 * :func:`init_params` makes a module of random weights from a seeded
-  ``torch.Generator``; :func:`init_cache` the stacked cache of shape
-  (L, B, Smax, ...): ``{"k", "v"}``, ``{"c_kv", "k_rope"}`` for MLA, or
-  int8 ``{"k", "v"}`` with float32 ``{"k_scale", "v_scale"}``.
+  ``torch.Generator``; :func:`init_cache` a homogeneous stack's stacked
+  cache of shape (L, B, Smax, ...): ``{"k", "v"}``, ``{"c_kv",
+  "k_rope"}`` for MLA, or int8 ``{"k", "v"}`` with float32 ``{"k_scale",
+  "v_scale"}``; a heterogeneous pattern's tuple of per-layer caches.
 
 Inputs: ``tokens`` (B, S) int, ``codes`` (B, S, n_codebooks) int for the
 audio frontend, or ``embeds`` (B, S, d_model) for the vision frontend
 (cast to the compute type); optional ``positions`` (B, S), or (3, B, S)
 for M-RoPE, and ``cur_index``.
 
-The cache is updated IN PLACE and returned (the reference returns a new
-one): a full-width cache is too large to copy per step.
-
-Block patterns and shared attention (zamba2, xlstm) raise
-``NotImplementedError`` by name (:func:`check_supported`).
+Attention caches are updated IN PLACE and returned (the reference returns
+new ones): a full-width cache is too large to copy per step. A
+heterogeneous forward with a cache returns a new tuple: the attention
+entries are the dicts it was given, written in place; a recurrent entry
+is the block's new state. As in the reference, a Mamba2 or mLSTM block
+run without ``decode`` (``prefill``) returns ``None`` for its state, and
+the recurrent steps ignore ``positions``: a slot idle at -1 still
+advances its state.
 """
 
 from __future__ import annotations
@@ -49,6 +61,7 @@ import torch
 from torch import nn
 
 from repro_torch.device import ieee_float32, resolve_device
+from repro_torch.models import ssm
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import (
     MLA,
@@ -61,25 +74,29 @@ from repro_torch.models.layers import (
     torch_dtype,
 )
 
-__all__ = ["Transformer", "check_supported", "forward", "init_cache",
-           "init_params", "prefill", "serve_step"]
+__all__ = ["Block", "MixerBlock", "Transformer", "check_supported", "forward", "init_cache",
+           "init_params", "is_homogeneous", "prefill", "serve_step"]
+
+BLOCK_KINDS = ("attn", "mamba", "mlstm", "slstm")
+
+
+def is_homogeneous(cfg: ModelConfig) -> bool:
+    """All-attention blocks without a shared block: one stacked layout."""
+    return all(k == "attn" for k in cfg.pattern) and not cfg.shared_attn
 
 
 def check_supported(cfg: ModelConfig) -> None:
-    """Raise ``NotImplementedError`` naming the first feature of ``cfg``
-    that the port's model does not run."""
-    unported = [
-        ("block_pattern", any(k != "attn" for k in cfg.pattern)),
-        ("shared_attn", cfg.shared_attn),
-    ]
-    for name, used in unported:
-        if used:
-            raise NotImplementedError(
-                f"{cfg.name}: {name} is not ported to repro_torch yet; the "
-                f"port runs homogeneous attention stacks only")
+    """Raise ``ValueError`` naming a block kind of ``cfg.pattern`` that
+    neither the reference nor the port knows."""
+    for kind in cfg.pattern:
+        if kind not in BLOCK_KINDS:
+            raise ValueError(f"{cfg.name}: unknown block kind {kind!r}")
 
 
 class Block(nn.Module):
+    """The pre-norm attention block: attention (MLA or GQA), then the MLP
+    or MoE, sequential or with the parallel residual."""
+
     def __init__(self, cfg: ModelConfig, *, device, dtype):
         super().__init__()
         kw = dict(device=device, dtype=dtype)
@@ -106,6 +123,35 @@ class Block(nn.Module):
         return x + self._ff(cfg, self.norm2(x, cfg.norm_eps))
 
 
+_MIXERS = {"mamba": ssm.Mamba2, "mlstm": ssm.MLSTM, "slstm": ssm.SLSTM}
+
+
+class MixerBlock(nn.Module):
+    """A recurrent block: RMSNorm, then the ``kind`` mixer of
+    :mod:`repro_torch.models.ssm`, added to the residual."""
+
+    def __init__(self, cfg: ModelConfig, kind: str, *, device, dtype):
+        super().__init__()
+        self.kind = kind
+        self.norm = RMSNorm(cfg.d_model, device=device, dtype=dtype)
+        self.mixer = _MIXERS[kind](cfg, device=device, dtype=dtype)
+
+    def forward(self, cfg: ModelConfig, x, cache=None, decode: bool = False):
+        """(x + mixer(norm(x)), the new state). Mamba2 and mLSTM run their
+        chunked forms without ``decode`` and return no state; sLSTM always
+        runs its cell from ``cache`` (or a fresh state) and returns it."""
+        h = self.norm(x, cfg.norm_eps)
+        if self.kind == "slstm":
+            y, new = ssm.slstm_forward(cfg, self.mixer, h, cache)
+        elif decode:
+            step = ssm.mamba_step if self.kind == "mamba" else ssm.mlstm_step
+            y, new = step(cfg, self.mixer, h, cache)
+        else:
+            chunked = ssm.mamba_chunked if self.kind == "mamba" else ssm.mlstm_chunked
+            y, new = chunked(cfg, self.mixer, h, chunk=cfg.scan_chunk), None
+        return x + y, new
+
+
 class Transformer(nn.Module):
     """The weights of one decoder. ``forward(cfg, inputs, cache, decode)``
     takes the config per call, so a step may run with its own settings
@@ -116,13 +162,39 @@ class Transformer(nn.Module):
         check_supported(cfg)
         kw = dict(device=resolve_device(device), dtype=dtype or torch_dtype(cfg.dtype))
         self.embed = Embed(cfg, **kw)
-        self.blocks = nn.ModuleList(Block(cfg, **kw) for _ in range(cfg.n_layers))
+        if is_homogeneous(cfg):
+            self.blocks = nn.ModuleList(Block(cfg, **kw) for _ in range(cfg.n_layers))
+        else:
+            stacks = {}
+            for kind in dict.fromkeys(cfg.pattern):  # kinds in pattern order
+                if kind == "attn" and cfg.shared_attn:
+                    stacks["attn_shared"] = Block(cfg, **kw)
+                    continue
+                n = cfg.pattern.count(kind)
+                stacks[kind] = nn.ModuleList(
+                    Block(cfg, **kw) if kind == "attn" else MixerBlock(cfg, kind, **kw)
+                    for _ in range(n))
+            self.blocks = nn.ModuleDict(stacks)
         self.final_norm = RMSNorm(cfg.d_model, **kw)
         self.lm_head = LMHead(cfg, **kw)
 
     @property
     def device(self) -> torch.device:
         return self.embed.table.device
+
+    def _pattern_blocks(self, cfg: ModelConfig) -> list:
+        """(kind, block) per position of a heterogeneous ``cfg.pattern``:
+        the i-th block of a kind is its stack's i-th, and every ``attn``
+        position of a ``shared_attn`` config takes the one shared block."""
+        seen: dict[str, int] = {}
+        out = []
+        for kind in cfg.pattern:
+            if kind == "attn" and cfg.shared_attn:
+                out.append((kind, self.blocks["attn_shared"]))
+                continue
+            i = seen[kind] = seen.get(kind, -1) + 1
+            out.append((kind, self.blocks[kind][i]))
+        return out
 
     @torch.no_grad()
     def init_weights(self, generator: torch.Generator) -> None:
@@ -139,16 +211,17 @@ class Transformer(nn.Module):
         return self.embed(torch.as_tensor(inputs[key], device=dev).long())
 
     @torch.no_grad()
-    def forward(self, cfg: ModelConfig, inputs: dict, cache: dict | None = None,
+    def forward(self, cfg: ModelConfig, inputs: dict, cache: dict | tuple | None = None,
                 decode: bool = False):
         # On the card the float32 products (attention scores and PV, MLA's
-        # absorbed decode, the LM head) run in IEEE float32 whatever the
-        # caller's TF32 settings: scoped once per pass, not per product,
-        # because decode is bound by the host's enqueue.
+        # absorbed decode, the recurrent mixers, the LM head) run in IEEE
+        # float32 whatever the caller's TF32 settings: scoped once per
+        # pass, not per product, because decode is bound by the host's
+        # enqueue.
         with ieee_float32() if self.device.type == "cuda" else nullcontext():
             return self._forward(cfg, inputs, cache, decode)
 
-    def _forward(self, cfg: ModelConfig, inputs: dict, cache: dict | None, decode: bool):
+    def _forward(self, cfg: ModelConfig, inputs: dict, cache, decode: bool):
         dev = self.device
         x = self._embed_inputs(cfg, inputs)
         B, S = x.shape[:2]
@@ -164,9 +237,20 @@ class Transformer(nn.Module):
             pos_ids = positions[0] if positions.dim() == 3 else positions
             # the prefill cache write's offset (one host read per call)
             offset = int(pos_ids[0, 0]) if cache is not None and S > 1 else 0
-        for i, block in enumerate(self.blocks):
-            layer_cache = None if cache is None else {k: t[i] for k, t in cache.items()}
-            x = block(cfg, x, positions, layer_cache, offset, decode)
+        if isinstance(self.blocks, nn.ModuleList):
+            for i, block in enumerate(self.blocks):
+                layer_cache = None if cache is None else {k: t[i] for k, t in cache.items()}
+                x = block(cfg, x, positions, layer_cache, offset, decode)
+        else:
+            states = []
+            for i, (kind, block) in enumerate(self._pattern_blocks(cfg)):
+                layer_cache = None if cache is None else cache[i]
+                if kind == "attn":
+                    x = block(cfg, x, positions, layer_cache, offset, decode)
+                else:
+                    x, layer_cache = block(cfg, x, layer_cache, decode)
+                states.append(layer_cache)
+            cache = None if cache is None else tuple(states)
         x = self.final_norm(x, cfg.norm_eps)
         return self.lm_head(x, self.embed.table), cache
 
@@ -176,8 +260,11 @@ def init_params(cfg: ModelConfig, generator: torch.Generator | None = None,
     """A :class:`Transformer` on ``device`` (default: the card) with the
     reference's init distribution: every projection normal / sqrt(fan_in)
     with fan_in its first dim (the attention output normal / sqrt(H*Dh);
-    the stacked experts (E, d, f) / sqrt(E); the MoE router float32),
-    embedding and head normal * 0.02, norm scales one. ``generator`` must
+    the stacked experts (E, d, f) / sqrt(E); the MoE router float32;
+    Mamba2's conv normal * 0.5 with a zero bias, ``A_log = log(linspace(1,
+    16, nh))``, ``D`` one, ``dt_bias`` zero; mLSTM's ``f_bias`` 3; sLSTM's
+    float32 ``r`` normal / sqrt(ph)), embedding and head normal * 0.02,
+    norm scales one. ``generator`` must
     live on ``device`` (default: a fresh one seeded 0)."""
     model = Transformer(cfg, device=device)
     if generator is None:
@@ -187,16 +274,20 @@ def init_params(cfg: ModelConfig, generator: torch.Generator | None = None,
 
 
 def init_cache(cfg: ModelConfig, batch: int, max_seq: int,
-               dtype: torch.dtype | None = None, device=None) -> dict:
-    """Decode cache of zeros, each entry (L, B, Smax, ...): ``{"k", "v"}``
-    (Hkv, Dh) of ``dtype`` (default: the config's activation type); MLA's
-    latents ``{"c_kv": kv_lora_rank, "k_rope": rope_dim}``; and with
-    ``kv_cache_dtype="int8"`` and no ``dtype`` given, int8 ``{"k", "v"}``
-    with float32 ``{"k_scale", "v_scale"}`` (Hkv)."""
+               dtype: torch.dtype | None = None, device=None) -> dict | tuple:
+    """Decode cache of zeros. A homogeneous stack's is one dict, each entry
+    (L, B, Smax, ...): ``{"k", "v"}`` (Hkv, Dh) of ``dtype`` (default:
+    the config's activation type); MLA's latents ``{"c_kv":
+    kv_lora_rank, "k_rope": rope_dim}``; and with ``kv_cache_dtype="int8"``
+    and no ``dtype`` given, int8 ``{"k", "v"}`` with float32 ``{"k_scale",
+    "v_scale"}`` (Hkv). A heterogeneous pattern's is a tuple with one
+    cache per position: the same attention entries without the L axis
+    (each application of a shared block has its own), or the mixer's
+    state (``ssm.init_mamba_cache`` with its conv context of ``dtype``,
+    ``init_mlstm_cache``, ``init_slstm_cache``)."""
     check_supported(cfg)
     dt = dtype or torch_dtype(cfg.dtype)
     dev = resolve_device(device)
-    lead = (cfg.n_layers, batch, max_seq)
     if cfg.use_mla:
         shapes = {"c_kv": ((cfg.kv_lora_rank,), dt), "k_rope": ((cfg.qk_rope_head_dim,), dt)}
     elif dtype is None and cfg.kv_cache_dtype == "int8":
@@ -206,24 +297,40 @@ def init_cache(cfg: ModelConfig, batch: int, max_seq: int,
     else:
         kv = ((cfg.n_kv_heads, cfg.head_dim), dt)
         shapes = {"k": kv, "v": kv}
-    return {name: torch.zeros(lead + shape, dtype=t, device=dev)
-            for name, (shape, t) in shapes.items()}
+
+    def attn_cache(lead):
+        return {name: torch.zeros(lead + shape, dtype=t, device=dev)
+                for name, (shape, t) in shapes.items()}
+
+    if is_homogeneous(cfg):
+        return attn_cache((cfg.n_layers, batch, max_seq))
+    states = {"mamba": lambda: ssm.init_mamba_cache(cfg, batch, dtype=dt, device=dev),
+              "mlstm": lambda: ssm.init_mlstm_cache(cfg, batch, device=dev),
+              "slstm": lambda: ssm.init_slstm_cache(cfg, batch, device=dev),
+              "attn": lambda: attn_cache((batch, max_seq))}
+    return tuple(states[kind]() for kind in cfg.pattern)
 
 
 def forward(cfg: ModelConfig, params: Transformer, inputs: dict,
-            cache: dict | None = None, decode: bool = False):
+            cache: dict | tuple | None = None, decode: bool = False):
     """``(logits, cache)``; ``inputs`` as the module docstring says.
     Logits are float32 over the padded vocab, (B, S, Vp) or (B, S,
     n_codebooks, Vp). ``decode`` takes MLA's absorbed path where
-    ``cfg.mla_absorbed_decode``."""
+    ``cfg.mla_absorbed_decode`` and the recurrent blocks' one-token
+    steps."""
     return params(cfg, inputs, cache, decode)
 
 
-def serve_step(cfg: ModelConfig, params: Transformer, inputs: dict, cache: dict):
+def serve_step(cfg: ModelConfig, params: Transformer, inputs: dict, cache):
     """One decode step: new token(s) + cache -> next-token logits + cache."""
     return forward(cfg, params, inputs, cache, decode=True)
 
 
-def prefill(cfg: ModelConfig, params: Transformer, inputs: dict, cache: dict):
-    """Prefill a prompt into the cache; attention reads the whole cache."""
+def prefill(cfg: ModelConfig, params: Transformer, inputs: dict, cache):
+    """Prefill a prompt into the cache; attention reads the whole cache.
+    On a heterogeneous pattern the Mamba2 and mLSTM entries come back
+    ``None``, as the reference's do (their chunked forms keep no state):
+    such a cache cannot be decoded from, so a prompt for decode goes
+    token by token through :func:`serve_step`, as the ``Server`` feeds
+    it."""
     return forward(cfg, params, inputs, cache, decode=False)

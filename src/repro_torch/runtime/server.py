@@ -9,7 +9,12 @@ The port of the reference's ``repro.runtime.server``:
   its own position and retires finished requests. The cache is float32.
   The server never runs a batched prefill, so with ``use_flash_kernel``
   it still launches no flash kernel: every step has one query position.
-  Its steps are ``serve_step``s (``decode=True``: MLA's absorbed path).
+  Its steps are ``serve_step``s (``decode=True``: MLA's absorbed path,
+  the recurrent blocks' one-token steps). A block pattern's cache is the
+  per-layer tuple ``serve_step`` returns, kept step to step; as in the
+  reference, the recurrent steps ignore positions, so an idle slot
+  advances its Mamba2 / mLSTM / sLSTM state with token 0 and a request
+  served beside another need not equal serving it alone.
   Like the reference's, it sends ``"tokens"`` only, so it serves the
   token-frontend configs (not musicgen's codes or qwen2-vl's embeds).
 * :class:`SplitLatencyMeter`: prices every generated token's hops between

@@ -773,3 +773,134 @@ def test_float32_lm_on_card_ignores_the_callers_tf32(card):
         g, w = g.double(), w.double()
         used = float((g - w).abs().max() / (1e-4 * w.square().mean().sqrt()))
         assert used <= 1.0, f"step {step}: {used:.4g} x the limit (1e-4 x rms)"
+
+
+# ---------------------------------------------------------------------------
+# SSM and hybrid models: the SSD kernel on the Mamba2 prefill path
+# ---------------------------------------------------------------------------
+
+SSD_CONTRACT = dict(rtol=2e-4, atol=1e-4)  # the reference kernel test's, float32
+
+
+def mamba_on_card(card, cfg, S, seed):
+    """A seeded float32 Mamba2 mixer on the card, its input (1, S, d) of
+    unit rms, and ``mamba_chunked`` run twice: the kernel's y and output
+    (with the scan's inputs recorded), then the plain chunk body's on the
+    same card tensors."""
+    from repro_torch.models import ssm as S_
+
+    g = torch.Generator(device=card).manual_seed(seed)
+    mixer = S_.Mamba2(cfg, device=card, dtype=torch.float32)
+    with torch.no_grad():
+        mixer.init_weights(g)
+        x = torch.randn((2, S, cfg.d_model), generator=g, device=card)
+    seen, scan = [], S_.mamba_scan
+    try:
+        S_.mamba_scan = lambda *a: seen.append((a, scan(*a))) or seen[-1][1]
+        with torch.no_grad():
+            got = S_.mamba_chunked(cfg, mixer, x, chunk=cfg.scan_chunk)
+        S_.mamba_scan = S_.mamba_scan_plain
+        with torch.no_grad():
+            want = S_.mamba_chunked(cfg, mixer, x, chunk=cfg.scan_chunk)
+    finally:
+        S_.mamba_scan = scan
+    torch.cuda.synchronize()
+    (args, y), = seen
+    return args, y, got, want
+
+
+@pytest.mark.parametrize("width", ["reduced", "full"])
+def test_mamba_chunked_kernel_equals_plain_body_on_card(card, width):
+    """zamba2-1.2b's Mamba2 mixer, float32, at ``reduced()`` size (8 heads
+    of 16, ds 16, chunk 16; S 40: a ragged tail) and one full-width layer
+    (64 heads of 64, ds 64, chunk 128; S 1,000): the kernel's y against
+    the reference's chunk body on the same card inputs within the
+    kernel's contract, one launch per call, x, B and C handed over as
+    float32; the mixer's output within the contract's rtol and its atol
+    times the output's rms."""
+    from dataclasses import replace
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.ssm_scan import kernel as SK
+    from repro_torch.models import ssm as S_
+
+    full = get_config("zamba2-1.2b")
+    cfg, S = (replace(full.reduced(), dtype="float32"), 40) if width == "reduced" else \
+        (replace(full, dtype="float32"), 1000)
+    SK.reset_launch_count()
+    (x, b, c, dA, dt, chunk), y, got, want = mamba_on_card(card, cfg, S, seed=5)
+    assert SK.SSD_LAUNCHES == 1 and chunk == cfg.scan_chunk
+    assert x.dtype == b.dtype == c.dtype == y.dtype == torch.float32
+    torch.testing.assert_close(y, S_.mamba_scan_plain(x, b, c, dA, dt, chunk), **SSD_CONTRACT)
+    rms = float(want.square().mean().sqrt())
+    torch.testing.assert_close(got, want, rtol=SSD_CONTRACT["rtol"],
+                               atol=SSD_CONTRACT["atol"] * rms)
+
+
+def test_ssd_launches_once_per_mamba_layer(card):
+    """zamba2 reduced on the card: a prefill step launches the SSD kernel
+    once per Mamba2 layer (2) and the flash kernel once per application
+    of the shared attention block (2); decode steps launch neither."""
+    from dataclasses import replace
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attention import ops as FA
+    from repro_torch.kernels.ssm_scan import kernel as SK
+    from repro_torch.launch.steps import make_prefill_step
+    from repro_torch.models import transformer as T
+
+    cfg = replace(get_config("zamba2-1.2b").reduced(), use_flash_kernel=True)
+    model = T.init_params(cfg, generator=torch.Generator(device=card).manual_seed(0),
+                          device=card)
+    tokens = torch.randint(0, cfg.vocab, (2, 40), device=card)
+    SK.reset_launch_count()
+    FA.reset_launch_count()
+    make_prefill_step(cfg)(model, {"tokens": tokens})
+    torch.cuda.synchronize()
+    assert SK.SSD_LAUNCHES == cfg.pattern.count("mamba") == 2
+    assert FA.FLASH_LAUNCHES == cfg.pattern.count("attn") == 2
+    cache = T.init_cache(cfg, 2, 8, device=card)
+    T.serve_step(cfg, model, {"tokens": tokens[:, :1], "cur_index": 0}, cache)
+    torch.cuda.synchronize()
+    assert SK.SSD_LAUNCHES == 2 and FA.FLASH_LAUNCHES == 2
+
+
+def hybrid_steps(cfg, model, dev, P=24, n_decode=3):
+    """The uncached forward over a 2 x ``P`` prompt, the prompt streamed
+    token by token through ``serve_step`` from a fresh cache, then
+    ``n_decode`` greedy steps: each step's logits, on the CPU."""
+    from repro_torch.models import transformer as T
+
+    tokens = torch.randint(0, cfg.vocab, (2, P), generator=torch.Generator().manual_seed(1))
+    out = [T.forward(cfg, model, {"tokens": tokens.to(dev)})[0].cpu()]
+    cache = T.init_cache(cfg, 2, P + n_decode, device=dev)
+    for t in range(P + n_decode):
+        tok = tokens[:, t:t + 1] if t < P else out[-1][:, -1, :cfg.vocab].argmax(-1)[:, None]
+        logits, cache = T.serve_step(cfg, model, {"tokens": tok.to(dev), "cur_index": t}, cache)
+        out.append(logits.cpu())
+    return out
+
+
+@pytest.mark.parametrize("arch", ["zamba2-1.2b", "xlstm-1.3b"])
+def test_float32_hybrids_on_card_ignore_the_callers_tf32(card, arch):
+    """zamba2 and xlstm reduced, float32, widened to d 256: the uncached
+    forward (zamba2: the SSD and flash kernels), the prompt streamed
+    through ``serve_step`` and 3 greedy steps on the card, with the
+    caller's TF32 flags on, within 1e-4 x rms of the CPU on the same
+    weights (``test_float32_lm_on_card_ignores_the_callers_tf32``'s
+    pattern)."""
+    cfg, models = lm_pair(card, arch, d_model=256)
+    tf32 = torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        callers = float32_settings()
+        got = hybrid_steps(cfg, models[card], card)
+        assert float32_settings() == callers
+    finally:
+        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = tf32
+    want = hybrid_steps(cfg, models["cpu"], "cpu")
+    assert len(got) == len(want) == 28
+    for step, (g, w) in enumerate(zip(got, want)):
+        g, w = g[..., :cfg.vocab].double(), w[..., :cfg.vocab].double()
+        used = float((g - w).abs().max() / (1e-4 * w.square().mean().sqrt()))
+        assert used <= 1.0, f"step {step}: {used:.4g} x the limit (1e-4 x rms)"

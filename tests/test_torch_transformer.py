@@ -203,41 +203,28 @@ def test_init_params_follows_the_reference_distribution():
     assert torch.equal(again.blocks[1].ff.w_gate, model.blocks[1].ff.w_gate)
 
 
-UNPORTED = {
-    "block_pattern": lambda c: dataclasses.replace(c, block_pattern=("mamba", "attn")),
-    "shared_attn": lambda c: dataclasses.replace(c, shared_attn=True),
-}
-
-
-@pytest.mark.parametrize("feature", sorted(UNPORTED))
-def test_unported_features_raise_by_name(feature):
-    cfg = UNPORTED[feature](get_config("deepseek-7b").reduced())
-    with pytest.raises(NotImplementedError, match=feature):
-        PT.Transformer(cfg, device="cpu")
-    with pytest.raises(NotImplementedError, match=feature):
-        PT.init_cache(cfg, 1, 8, device="cpu")
-
-
-@pytest.mark.parametrize("arch", ["zamba2-1.2b", "xlstm-1.3b"])
-def test_unported_configs_raise(arch):
-    with pytest.raises(NotImplementedError):
-        PT.check_supported(get_config(arch))
-
-
 # The features and configs the port once refused, on deepseek-7b reduced
-# with the feature on (sized as ``reduced()`` sizes it) or on the config's
-# own ``reduced()``; a tied head needs vocab == its padded size.
+# with the feature on (sized as ``reduced()`` sizes it) or on a config's
+# own ``reduced()`` with its overrides; a tied head needs vocab == its
+# padded size. The block patterns (zamba2: Mamba2 with the shared
+# attention block, or with an attention stack; xlstm: mLSTM and sLSTM; a
+# Mamba2-only stack) feed their prompt token by token through
+# ``serve_step`` (``torch_parity.streams_prompt``).
 PORTED = {
-    "use_mla": dict(use_mla=True, q_lora_rank=32, kv_lora_rank=16, qk_nope_head_dim=16,
-                    qk_rope_head_dim=8, v_head_dim=16),
-    "is_moe": dict(n_experts=4, top_k=2),
-    "mrope_sections": dict(mrope_sections=(2, 3, 3)),
-    "kv_cache_dtype": dict(kv_cache_dtype="int8"),
-    "parallel_residual": dict(parallel_residual=True),
-    "frontend": dict(frontend="audio_codes", n_codebooks=4),
-    "tie_embeddings": dict(tie_embeddings=True, vocab=256),
-    "minicpm3-4b": None, "qwen3-moe-235b-a22b": None, "qwen2-vl-72b": None,
-    "stablelm-12b": None, "musicgen-medium": None,
+    "use_mla": ("deepseek-7b", dict(use_mla=True, q_lora_rank=32, kv_lora_rank=16,
+                                    qk_nope_head_dim=16, qk_rope_head_dim=8, v_head_dim=16)),
+    "is_moe": ("deepseek-7b", dict(n_experts=4, top_k=2)),
+    "mrope_sections": ("deepseek-7b", dict(mrope_sections=(2, 3, 3))),
+    "kv_cache_dtype": ("deepseek-7b", dict(kv_cache_dtype="int8")),
+    "parallel_residual": ("deepseek-7b", dict(parallel_residual=True)),
+    "frontend": ("deepseek-7b", dict(frontend="audio_codes", n_codebooks=4)),
+    "tie_embeddings": ("deepseek-7b", dict(tie_embeddings=True, vocab=256)),
+    "minicpm3-4b": ("minicpm3-4b", {}), "qwen3-moe-235b-a22b": ("qwen3-moe-235b-a22b", {}),
+    "qwen2-vl-72b": ("qwen2-vl-72b", {}), "stablelm-12b": ("stablelm-12b", {}),
+    "musicgen-medium": ("musicgen-medium", {}),
+    "zamba2-1.2b": ("zamba2-1.2b", {}), "xlstm-1.3b": ("xlstm-1.3b", {}),
+    "zamba2-unshared-attn": ("zamba2-1.2b", dict(shared_attn=False)),
+    "mamba-only": ("zamba2-1.2b", dict(n_layers=3, block_pattern=("mamba",) * 3)),
 }
 
 
@@ -245,13 +232,13 @@ PORTED = {
 def test_ported_feature_builds_and_matches_the_reference(name):
     """The model builds with the feature (or config) and, on the
     reference's weights, matches its uncached forward, prefill step,
-    cached prefill and 2 greedy ``serve_step``s and final cache
+    cached prefill (or the prompt streamed through ``serve_step``) and 2
+    greedy ``serve_step``s and final cache
     (``torch_parity.assert_lm_runs_match``: rtol 1e-4, atol 1e-5)."""
     from torch_parity import assert_lm_runs_match, lm_port_model, lm_port_run, lm_reference_run
 
-    kw = PORTED[name]
-    arch = "deepseek-7b" if kw is not None else name
-    rcfg, cfg = (dataclasses.replace(c.reduced(**(kw or {})), use_flash_kernel=True)
+    arch, kw = PORTED[name]
+    rcfg, cfg = (dataclasses.replace(c.reduced(**kw), use_flash_kernel=True)
                  for c in (ref_get_config(arch), get_config(arch)))
     PT.check_supported(cfg)
     params = ref_init_params(jax.random.PRNGKey(0), rcfg)
@@ -259,7 +246,27 @@ def test_ported_feature_builds_and_matches_the_reference(name):
     model = lm_port_model(cfg, params)
     if name == "tie_embeddings":
         assert "lm_head.w" not in model.state_dict() and not params["lm_head"]
+    if name == "zamba2-unshared-attn":
+        assert set(params["blocks"]) == {"mamba", "attn"}
     assert_lm_runs_match(lm_port_run(cfg, model, ref), ref)
+
+
+@pytest.mark.parametrize("arch", ARCH_IDS)
+def test_every_config_is_supported(arch):
+    """``check_supported`` refuses none of the repo's configs; the port's
+    model of each is homogeneous exactly where the reference's is."""
+    cfg = get_config(arch)
+    PT.check_supported(cfg)
+    assert PT.is_homogeneous(cfg) == RT._is_homogeneous(ref_get_config(arch))
+
+
+def test_unknown_block_kind_raises_as_the_reference():
+    rcfg, cfg = (dataclasses.replace(c.reduced(), n_layers=2, block_pattern=("mamba", "conv"))
+                 for c in (ref_get_config("zamba2-1.2b"), get_config("zamba2-1.2b")))
+    with pytest.raises(ValueError, match="unknown block kind 'conv'"):
+        RT.init_params(jax.random.PRNGKey(0), rcfg)
+    with pytest.raises(ValueError, match="unknown block kind 'conv'"):
+        PT.Transformer(cfg, device="cpu")
 
 
 def test_tied_head_refuses_a_padded_vocab():
