@@ -19,7 +19,7 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.kernels import build
+from repro_torch.kernels import build, refuse_autograd
 from repro_torch.kernels.flash_attention.ref import attention_ref
 
 __all__ = ["FLASH_LAUNCHES", "FLASH_WGMMA_LAUNCHES", "MAX_HEAD_DIM", "VARIANTS",
@@ -127,7 +127,9 @@ def flash_attention(q, k, v, *, q_positions, kv_positions, scale) -> torch.Tenso
 
     ``q_positions`` may be (B, Sq) (uniform across the batch: prefill
     satisfies this, and row 0 is taken) or (Sq,); ``kv_positions`` is
-    (Skv,). Returns (B, Sq, H, D) in q's type."""
+    (Skv,). Returns (B, Sq, H, D) in q's type. Raises ``RuntimeError``
+    where autograd would record it, on either device: it has no backward."""
+    refuse_autograd("flash_attention", q, k, v)
     B, Sq, H, D = q.shape
     Hkv = k.shape[2]
     if q_positions.dim() == 2:

@@ -12,6 +12,7 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.kernels import refuse_autograd
 from repro_torch.kernels.ssm_scan.kernel import X_DTYPES, ssm_scan_kernel, ssm_scan_plain
 
 __all__ = ["ssm_scan"]
@@ -24,7 +25,9 @@ def ssm_scan(x, b, c, dA, dt, *, chunk: int = 128) -> torch.Tensor:
     as the reference kernel does after casting its inputs: x, b and c
     of one type, float32 or bfloat16, go to the kernel as they are; any
     other mix (bfloat16 x with float32 b, c, say) goes as float32, which
-    holds every such value exactly."""
+    holds every such value exactly. Raises ``RuntimeError`` where autograd
+    would record it, on either device: it has no backward."""
+    refuse_autograd("ssm_scan", x, b, c, dA, dt)
     B, S, H, ph = x.shape
     same = b.dtype == c.dtype == x.dtype and x.dtype in X_DTYPES
     kind = x.dtype if same else torch.float32

@@ -27,7 +27,9 @@ model.
 The Mamba2 chunk loop is :func:`mamba_scan`: CUDA tensors launch the SSD
 kernel (``kernels.ssm_scan``, ``csrc/ssm_scan.cu``) with x, B and C cast
 to float32, CPU tensors run the reference's chunk body
-(:func:`mamba_scan_plain`). Neither falls back to the other.
+(:func:`mamba_scan_plain`); where autograd records (training), every
+device runs the chunk body, since the kernel has no backward. Neither
+falls back to the other.
 """
 
 from __future__ import annotations
@@ -168,12 +170,21 @@ def mamba_scan_plain(x, Bm, Cm, dA, dt, chunk: int) -> torch.Tensor:
 
 
 def mamba_scan(x, Bm, Cm, dA, dt, chunk: int) -> torch.Tensor:
-    """:func:`mamba_scan_plain`'s function, by the tensors' device: CPU
-    tensors run it; CUDA tensors launch the SSD kernel through
-    ``ssm_scan`` with x, B and C cast to float32 (exact: the chunk body
-    casts them itself), so y comes back float32, as the reference keeps
-    it. A shape outside the kernel's range raises its ``ValueError``."""
-    if x.device.type == "cpu":
+    """:func:`mamba_scan_plain`'s function. The route is chosen by mode
+    and device, never by a failure:
+
+    * where autograd records (grad mode on and an input requires grad:
+      the train path), the chunk body runs on the tensors' device, as the
+      reference trains on its own chunk body (the SSD kernel has no
+      backward);
+    * otherwise CPU tensors run the chunk body, and CUDA tensors launch
+      the SSD kernel through ``ssm_scan`` with x, B and C cast to float32
+      (exact: the chunk body casts them itself), so y comes back float32,
+      as the reference keeps it. A shape outside the kernel's range
+      raises its ``ValueError``."""
+    records = torch.is_grad_enabled() and any(
+        t.requires_grad for t in (x, Bm, Cm, dA, dt))
+    if records or x.device.type == "cpu":
         return mamba_scan_plain(x, Bm, Cm, dA, dt, chunk)
     return ssm_scan(x.float(), Bm.float(), Cm.float(), dA, dt, chunk=chunk)
 

@@ -904,3 +904,62 @@ def test_float32_hybrids_on_card_ignore_the_callers_tf32(card, arch):
         g, w = g[..., :cfg.vocab].double(), w[..., :cfg.vocab].double()
         used = float((g - w).abs().max() / (1e-4 * w.square().mean().sqrt()))
         assert used <= 1.0, f"step {step}: {used:.4g} x the limit (1e-4 x rms)"
+
+
+def mamba_grads(cfg, dev, seed=3, S=40):
+    """A reduced float32 Mamba2 mixer seeded on the CPU and moved to
+    ``dev``: ``mamba_chunked`` on a (2, S, d) input of unit rms, the sum
+    of its output times fixed weights backpropagated; the input's and
+    every leaf's gradient, on the CPU."""
+    from repro_torch.models import ssm as S_
+
+    g = torch.Generator().manual_seed(seed)
+    mixer = S_.Mamba2(cfg, device="cpu", dtype=torch.float32)
+    with torch.no_grad():
+        mixer.init_weights(g)
+    x = torch.randn((2, S, cfg.d_model), generator=g)
+    w = torch.randn((2, S, cfg.d_model), generator=g)
+    mixer = mixer.to(dev).requires_grad_(True)
+    x = x.to(dev).requires_grad_(True)
+    out = S_.mamba_chunked(cfg, mixer, x, chunk=cfg.scan_chunk)
+    names, leaves = zip(*mixer.named_parameters())
+    grads = torch.autograd.grad((out * w.to(dev)).sum(), (x, *leaves))
+    return {name: t.cpu() for name, t in zip(("x",) + names, grads)}
+
+
+def test_mamba_mixer_gradients_on_card_equal_cpu(card):
+    """zamba2's reduced Mamba2 mixer, float32: every gradient on the card
+    within 1e-4 x its rms of the CPU's, and no SSD launch. Where autograd
+    records, the scan runs the chunk body on the card; the kernel has no
+    backward, and an untracked kernel output would leave only the
+    ``x * D`` skip's gradient."""
+    from dataclasses import replace
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.ssm_scan import kernel as SK
+
+    cfg = replace(get_config("zamba2-1.2b").reduced(), dtype="float32")
+    SK.reset_launch_count()
+    got = mamba_grads(cfg, card)
+    torch.cuda.synchronize()
+    assert SK.SSD_LAUNCHES == 0
+    want = mamba_grads(cfg, "cpu")
+    for name, w in want.items():
+        w64, g64 = w.double(), got[name].double()
+        used = float((g64 - w64).abs().max() / (1e-4 * w64.square().mean().sqrt()))
+        assert used <= 1.0, f"{name}: {used:.4g} x the limit (1e-4 x rms)"
+
+
+@pytest.mark.parametrize("op", ["flash_attention", "ssm_scan"])
+def test_kernel_ops_refuse_autograd_on_card(card, op):
+    """Both kernel ops raise on a grad-requiring CUDA input under grad
+    mode, and launch under ``no_grad``."""
+    from torch_parity import grad_op_inputs
+
+    q, args = grad_op_inputs(op, card)
+    q.requires_grad_(True)
+    with pytest.raises(RuntimeError, match=f"{op} has no backward"):
+        args()
+    with torch.no_grad():
+        assert torch.isfinite(args()).all()
+

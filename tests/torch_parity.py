@@ -338,3 +338,23 @@ def tpu_stage_hardware():
     from repro_torch.core.profiles import StageHardware
 
     return StageHardware("tpu_v5e", RP.TPU_PEAK_FLOPS, RP.TPU_HBM_BW, RP.TPU_HBM_BYTES)
+
+
+def grad_op_inputs(op, dev):
+    """(the first float input, a call of ``op`` on small seeded inputs on
+    ``dev``): the kernel ops' autograd tests on both devices."""
+    import torch
+
+    from repro_torch.kernels.flash_attention.ops import flash_attention
+    from repro_torch.kernels.ssm_scan.ops import ssm_scan
+
+    g = torch.Generator().manual_seed(0)
+    if op == "flash_attention":
+        q, k, v = (torch.randn((1, 16, 2, 16), generator=g).to(dev) for _ in range(3))
+        pos = torch.arange(16, dtype=torch.int32, device=dev)
+        return q, lambda: flash_attention(q, k, v, q_positions=pos, kv_positions=pos,
+                                          scale=0.25)
+    x = torch.randn((1, 24, 2, 8), generator=g).to(dev)
+    b, c = (torch.randn((1, 24, 4), generator=g).to(dev) for _ in range(2))
+    dt = torch.rand((1, 24, 2), generator=g).to(dev)
+    return x, lambda: ssm_scan(x, b, c, -dt, dt, chunk=8)
