@@ -248,11 +248,39 @@ reference package ``repro``) on the card and fails on any fault:
    steps, peak memory, the SSD kernel and flash at the prefill shapes
    beside their bounds, and traced ``serve_step``s (and zamba2's prefill
    step) in a fresh ``spawn`` process (idle share);
-20. a JSON line of per-kernel results (the DP rows' launches by path
+20. training (``repro_torch.optim``, ``launch.steps.make_train_step``,
+   ``checkpoint.store``, ``runtime.train_loop.Trainer``,
+   ``runtime.compression``): (a) for each of the ten configs at
+   ``reduced()`` size in float32, microbatch 0's loss and gradients and
+   one ``make_train_step`` over 2 microbatches on the card against the
+   CPU on the same seeded weights and batch (the MoE configs replay the
+   CPU run's expert picks): loss within 1e-5 relative, gradients within
+   1e-4 x each leaf's largest |value| (microbatch 0's; the step's first
+   moment too, plus a bf16 accumulator's roundings:
+   ``accumulator_roundings``; the share of 1e-4 x rms printed beside),
+   updated parameters within the larger of 1e-4 x rms and what the
+   gradient bound can move a first AdamW step, wherever the update's
+   sign is determined (|g| > 2 x that bound; the rest, under 1%, counted,
+   each within 2 lr: ``step_used``), no flash or SSD launch around the
+   step, and zamba2's prefill after it one SSD launch per Mamba2 layer;
+   both kernel ops raise on grad-requiring CUDA inputs; (c) deepseek-7b
+   at full width (4 of 30 layers, bf16): one microbatch's gradients with
+   remat == without, bit for bit, and the peak memory of each; (d) int8
+   compression of a full-width gradient leaf on the card == the CPU bit
+   for bit, ``wire_bytes`` > 3.9x, one compressed step finite; (b) the
+   ``Trainer`` at full width (bf16 params, float32 moments, 8
+   microbatches of 1 x 2,048, remat): 4 steps uninterrupted, then 4 with
+   ``ckpt_every=2`` killed at step 3 and resumed from step 2's checkpoint:
+   the losses equal within rel_tol 1e-5 (bit-equality printed); the step
+   wall, tokens/s, peak memory and 6 N tokens / wall against the bf16
+   peak; (e) ``examples/torch_train_pipeline_lm.py`` at its defaults:
+   ``LEARNING``, the resume line, the plans;
+21. a JSON line of per-kernel results (the DP rows' launches by path
    with ``"examples"``; flash with granite-34b's and zamba2's launches and
    their prefill shapes' times; the SSD scan's launches by path and its
-   time at zamba2's prefill shape), the card's memory size, the card
-   line, and the last line ``{"ok": true, "device": {...}}``.
+   time at zamba2's prefill shape; ``"training"``: 0 for both), the
+   card's memory size, the card line, and the last line ``{"ok": true,
+   "device": {...}}``.
 
 Exits non-zero, printing no result, when no card is present.
 """
@@ -3885,6 +3913,452 @@ def phase_hybrids(dev, card) -> dict:
             "traced": traced}
 
 
+# ---------------------------------------------------------------------------
+# Phase 20: training
+# ---------------------------------------------------------------------------
+
+TRAIN_ARCH, TRAIN_LAYERS, TRAIN_SEQ, TRAIN_LR = "deepseek-7b", 4, 2048, 1e-3
+# the Trainer's crash-and-resume run: steps, checkpoint period, failure step
+TRAIN_STEPS, TRAIN_CKPT_EVERY, TRAIN_CRASH_AT = 4, 2, 3
+
+
+def step_used(got: dict, want: dict, clipped: dict, extra: dict, lr: float,
+              eps: float = 1e-8) -> tuple[float, int]:
+    """Updated parameters after one AdamW step from zero moments, card
+    against CPU. ``clipped`` is the CPU step's clipped mean gradient (its
+    first moment over 1 - b1); its card-vs-CPU bound is T = 1e-4 x its
+    largest |value| (``leaf_share``) plus ``extra`` (elementwise: the
+    roundings of a bfloat16 accumulator).
+    At step 1 delta = g / (|g| + eps) + wd p, so an error of T in g moves
+    delta by at most T eps / (|g| - T + eps)^2. Where |g| > 2T each
+    parameter is held within the larger of 1e-4 x rms(p) and lr times
+    that; returns the largest share of that bound used, and the count of
+    the rest (|g| <= 2T: the update's sign is open; each within 2 lr +
+    4 ulp32, else fail)."""
+    import torch
+
+    used, loose = 0.0, 0
+    for k, w in want.items():
+        g, w64 = clipped[k].double().abs(), w.double()
+        T = 1e-4 * float(g.max()) + extra[k]
+        diff = (got[k].double() - w64).abs()
+        firm = g > 2 * T
+        bound = torch.clamp_min(lr * T * eps / (g - T + eps).clamp_min(eps) ** 2,
+                                1e-4 * float(w64.square().mean().sqrt()))
+        if firm.any():
+            used = max(used, float((diff[firm] / bound[firm]).max()))
+        ulp = torch.from_numpy(np.spacing(w.float().abs().numpy()).astype(np.float64))
+        if (diff[~firm] > 2 * lr + 4 * ulp[~firm]).any():
+            raise AssertionError(f"{k}: an update beyond 2 lr where |g| <= 2T")
+        loose += int((~firm & (diff > 4 * ulp)).sum())
+    return used, loose
+
+
+def leaf_share(got: dict, want: dict, extra: dict | None = None, rms: bool = False) -> float:
+    """The largest share any element uses of 1e-4 x its leaf's largest
+    |value| (of 1e-4 x its rms with ``rms``), plus ``extra`` elementwise
+    where given. A gradient's float32 rounding scales with its leaf's
+    magnitude, and sLSTM gradients run to ~25 x their rms."""
+    worst = 0.0
+    for k, w in want.items():
+        w64 = w.double()
+        scale = float(w64.square().mean().sqrt()) if rms else float(w64.abs().max())
+        limit = 1e-4 * max(scale, 1e-30)
+        if extra is not None:
+            limit = limit + extra[k]
+        worst = max(worst, float(((got[k].double() - w64).abs() / limit).max()))
+    return worst
+
+
+def train_card_vs_cpu(dev, arch) -> dict:
+    """(a) ``reduced()`` float32, 2 microbatches, the same seeded weights
+    and batch on both devices: microbatch 0's loss and gradients, then one
+    ``make_train_step`` (lr 1e-3). MoE configs replay the CPU run's
+    expert picks on the card (``RoutingTape``): float32 near-ties flip
+    top-k between devices. No kernel launches around the card's run."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import SyntheticLMData
+    from repro_torch.launch.steps import loss_and_grads, make_prefill_step, make_train_step
+    from repro_torch.models import transformer as T
+    from repro_torch.optim import AdamWConfig, adamw_init
+
+    cfg = replace(get_config(arch).reduced(), train_microbatches=2)
+    cpu = T.init_params(cfg, torch.Generator().manual_seed(0), device="cpu")
+    gpu = T.Transformer(cfg, device=dev)
+    gpu.load_state_dict(cpu.state_dict())
+    batch = SyntheticLMData(cfg, 4, 24, seed=1).batch_at(0)
+    step = make_train_step(cfg, AdamWConfig(lr=TRAIN_LR))
+    tapes = [RoutingTape(m) for m in (cpu, gpu)] if cfg.is_moe else None
+
+    def run(model):
+        loss0, grads = loss_and_grads(cfg, model, {k: v[0] for k, v in batch.items()})
+        _, opt, metrics = step(model, adamw_init(model), batch)
+        return (float(loss0), {k: g.cpu() for k, g in grads.items()}, float(metrics["loss"]),
+                {k: v.cpu() for k, v in model.state_dict().items()},
+                {k: v.cpu() for k, v in opt["mu"].items()}, float(metrics["grad_norm"]))
+
+    if tapes:
+        tapes[0].record()
+    want = run(cpu)
+    if tapes:
+        tapes[1].tape = [t.to(dev) for t in tapes[0].tape]
+        tapes[1].replay()
+    got, counts = hybrid_counts(lambda: run(gpu))
+    changed = None
+    if tapes:
+        if tapes[1].pos != len(tapes[1].tape):
+            raise AssertionError(f"{arch}: replayed {tapes[1].pos} of {len(tapes[1].tape)} picks")
+        changed = sum(tapes[1].changed)
+        for tape in tapes:
+            tape.close()
+    if any(counts.values()):
+        raise AssertionError(f"{arch} train step launched {counts}")
+    loss_gap = max(abs(got[0] - want[0]) / abs(want[0]), abs(got[2] - want[2]) / abs(want[2]))
+    grad_used = leaf_share(got[1], want[1])
+    grad_rms = leaf_share(got[1], want[1], rms=True)
+    clipped = {k: mu.double() / 0.1 for k, mu in want[4].items()}  # mu / (1 - b1)
+    extra = accumulator_roundings(cfg, clipped, want[1], want[5])
+    moment_used = leaf_share(got[4], want[4], {k: 0.1 * e for k, e in extra.items()})
+    param_used, loose = step_used(got[3], want[3], clipped, extra, TRAIN_LR)
+    n = sum(w.numel() for w in want[3].values())
+    if (loss_gap > 1e-5 or grad_used > 1.0 or moment_used > 1.0 or param_used > 1.0
+            or loose > 1e-2 * n):
+        raise AssertionError(f"{arch}: loss gap {loss_gap:.3g} (limit 1e-5), gradients "
+                             f"{grad_used:.3g} and first moment {moment_used:.3g} of their "
+                             f"bounds, parameters {param_used:.3g} of theirs, {loose} of {n} "
+                             f"updates undetermined")
+    prefill = None
+    if "mamba" in cfg.pattern:
+        _, prefill = hybrid_counts(lambda: make_prefill_step(cfg)(gpu, batch_of(batch)))
+        if prefill["ssd"] != cfg.pattern.count("mamba"):
+            raise AssertionError(f"{arch}: a prefill after the train step launched {prefill}")
+    print(f"    {arch}: loss gap {loss_gap:.3g} rel (limit 1e-5); microbatch 0's gradients "
+          f"{grad_used:.4f} of 1e-4 x max|g| ({grad_rms:.4f} of 1e-4 x rms); the step's first "
+          f"moment {moment_used:.4f} and updated parameters {param_used:.4f} of their bounds "
+          f"({loose} of {n} updates within 2T of a zero gradient; accumulator "
+          f"{cfg.grad_accum_dtype})"
+          + ("" if changed is None else f"; replayed MoE picks, {changed} the card's router "
+             "would change")
+          + ("" if prefill is None else f"; prefill after it: {prefill}")
+          + f"; launches {counts}")
+    return {"loss_gap": loss_gap, "grad_used": grad_used, "grad_rms": grad_rms,
+            "moment_used": moment_used, "param_used": param_used, "loose": loose,
+            "counts": counts}
+
+
+def accumulator_roundings(cfg, clipped: dict, grads0: dict, grad_norm: float) -> dict:
+    """Elementwise bound, in clipped-gradient units, on what a bfloat16
+    gradient accumulator's roundings can differ between two devices whose
+    float32 gradients differ in the last bits: each of the N microbatch
+    casts and each sum may round to the other neighbour, one bf16 ulp
+    (<= 2^-7 x the value) apiece. With 2 microbatches that is 2^-7 x
+    (|g0| + |g1| + |g0 + g1|), times clip / N (g1 from the accumulated sum
+    and microbatch 0's gradient). Zero for a float32 accumulator."""
+    if cfg.grad_accum_dtype == "float32":
+        return {k: 0.0 for k in clipped}
+    n, scale = cfg.train_microbatches, min(1.0, 1.0 / grad_norm)
+    out = {}
+    for k, g in clipped.items():
+        acc, g0 = g * n / scale, grads0[k].double()
+        out[k] = scale / n * 2.0 ** -7 * (g0.abs() + (acc - g0).abs() + acc.abs())
+    return out
+
+
+def batch_of(batch: dict) -> dict:
+    """Microbatch 0 of a training batch, without its labels."""
+    return {k: v[0] for k, v in batch.items() if k != "labels"}
+
+
+def ops_refuse_autograd(dev) -> None:
+    """(a) both kernel ops raise on grad-requiring CUDA inputs."""
+    import torch
+
+    from repro_torch.kernels.flash_attention.ops import flash_attention
+    from repro_torch.kernels.ssm_scan.ops import ssm_scan
+
+    g = torch.Generator(device=dev).manual_seed(0)
+    q, k, v = (torch.randn((1, 16, 2, 16), generator=g, device=dev) for _ in range(3))
+    pos = torch.arange(16, dtype=torch.int32, device=dev)
+    x = torch.randn((1, 24, 2, 8), generator=g, device=dev)
+    b, c = (torch.randn((1, 24, 4), generator=g, device=dev) for _ in range(2))
+    dt = torch.rand((1, 24, 2), generator=g, device=dev)
+    calls = {"flash_attention": (q, lambda: flash_attention(q, k, v, q_positions=pos,
+                                                            kv_positions=pos, scale=0.25)),
+             "ssm_scan": (x, lambda: ssm_scan(x, b, c, -dt, dt, chunk=8))}
+    for name, (leaf, call) in calls.items():
+        leaf.requires_grad_(True)
+        try:
+            call()
+        except RuntimeError as e:
+            if "has no backward" not in str(e):
+                raise
+        else:
+            raise AssertionError(f"{name} ran on a grad-requiring CUDA input")
+    print("    both kernel ops raise RuntimeError on grad-requiring CUDA inputs")
+
+
+def full_width_train_cfg():
+    """deepseek-7b at full width (d 4,096, 32 heads of 128, d_ff 11,008,
+    vocab 102,400), bf16, remat, 8 microbatches, cut to 4 of 30 layers."""
+    from repro_torch.configs import get_config
+
+    return replace(get_config(TRAIN_ARCH), n_layers=TRAIN_LAYERS)
+
+
+class Crash(RuntimeError):
+    pass
+
+
+def timed_store(root, walls: dict):
+    """A ``CheckpointStore`` that records each save's and restore's wall."""
+    from repro_torch.checkpoint.store import CheckpointStore
+
+    class TimedStore(CheckpointStore):
+        def save(self, step, tree, extra=None):
+            t0 = time.perf_counter()
+            out = super().save(step, tree, extra)
+            walls.setdefault("save", []).append(time.perf_counter() - t0)
+            return out
+
+        def restore(self, template, step=None):
+            t0 = time.perf_counter()
+            out = super().restore(template, step)
+            walls.setdefault("restore", []).append(time.perf_counter() - t0)
+            return out
+
+    return TimedStore(root, keep=1)
+
+
+def train_full_width(dev, card) -> dict:
+    """(b) the ``Trainer`` at full width: an uninterrupted run of
+    ``TRAIN_STEPS`` steps (checkpoint at the end), then a run with
+    ``ckpt_every=TRAIN_CKPT_EVERY`` killed at step ``TRAIN_CRASH_AT``, then
+    a resume from its newest checkpoint to the end. The resumed losses
+    equal the uninterrupted run's within rel_tol 1e-5 (the reference
+    test's bound); the step wall, tokens/s, peak memory and 6 N tokens /
+    wall against the bf16 peak from the uninterrupted run's steps after
+    the first."""
+    import math
+    import shutil
+    import tempfile
+
+    import torch
+
+    from repro_torch.data.pipeline import SyntheticLMData
+    from repro_torch.models import transformer as T
+    from repro_torch.optim import AdamWConfig
+    from repro_torch.runtime.train_loop import Trainer, TrainLoopConfig
+
+    cfg = full_width_train_cfg()
+    data = SyntheticLMData(cfg, global_batch=cfg.train_microbatches, seq_len=TRAIN_SEQ)
+    opt_cfg = AdamWConfig(lr=TRAIN_LR)
+    walls, out = {}, {}
+
+    def failure(step):
+        if step == TRAIN_CRASH_AT:
+            raise Crash()
+
+    with tempfile.TemporaryDirectory() as tmp:
+        torch.cuda.reset_peak_memory_stats()
+        a = Trainer(cfg, data, timed_store(Path(tmp) / "a", walls),
+                    TrainLoopConfig(total_steps=TRAIN_STEPS, ckpt_every=TRAIN_STEPS),
+                    opt_cfg=opt_cfg, device=dev)
+        t0 = time.perf_counter()
+        ref, counts = hybrid_counts(a.run)
+        out["run_s"] = time.perf_counter() - t0
+        out["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+        n_params = T.param_count(a._final[0])
+        del a
+        torch.cuda.empty_cache()
+        shutil.rmtree(Path(tmp) / "a")  # ~20 GB on disk
+        store = timed_store(Path(tmp) / "b", walls)
+        crashing = Trainer(cfg, data, store, TrainLoopConfig(total_steps=TRAIN_STEPS,
+                                                             ckpt_every=TRAIN_CKPT_EVERY),
+                           opt_cfg=opt_cfg, failure_hook=failure, device=dev)
+        try:
+            crashing.run()
+            raise AssertionError("the injected failure did not fire")
+        except Crash:
+            pass
+        before = crashing.history
+        del crashing
+        torch.cuda.empty_cache()
+        if store.latest_step() != TRAIN_CKPT_EVERY:
+            raise AssertionError(f"newest checkpoint {store.latest_step()}, expected "
+                                 f"{TRAIN_CKPT_EVERY}")
+        resumed = Trainer(cfg, data, store, TrainLoopConfig(total_steps=TRAIN_STEPS,
+                                                            ckpt_every=TRAIN_CKPT_EVERY),
+                          opt_cfg=opt_cfg, device=dev)
+        after, counts_b = hybrid_counts(resumed.run)
+        del resumed
+        torch.cuda.empty_cache()
+    losses = {r.step: r.loss for r in ref}
+    if not all(math.isfinite(x) for x in losses.values()):
+        raise AssertionError(f"non-finite losses {losses}")
+    if after[0].step != TRAIN_CKPT_EVERY or [r.step for r in after] != list(
+            range(TRAIN_CKPT_EVERY, TRAIN_STEPS)):
+        raise AssertionError(f"resumed at {[r.step for r in after]}")
+    gaps = [abs(r.loss - losses[r.step]) / abs(losses[r.step]) for r in before + after]
+    if any(counts.values()) or any(counts_b.values()) or max(gaps) > 1e-5:
+        raise AssertionError(f"resume gaps {gaps} (limit 1e-5), launches {counts}, {counts_b}")
+    bit_equal = all(r.loss == losses[r.step] for r in before + after)
+    steady = [r.wall_s for r in ref[1:]]
+    wall = float(np.median(steady))
+    tokens = cfg.train_microbatches * TRAIN_SEQ
+    mfu = 6 * n_params * tokens / wall / BF16_FLOPS_PER_S
+    print(f"  (b) {TRAIN_ARCH} full width, {TRAIN_LAYERS} of 30 layers ({n_params:,} params; "
+          f"bf16, float32 moments, remat, {cfg.train_microbatches} microbatches of 1 x "
+          f"{TRAIN_SEQ}): losses {', '.join(f'{losses[s]:.5f}' for s in sorted(losses))}; "
+          f"step walls {', '.join(f'{r.wall_s:.3f}' for r in ref)} s (the first builds); "
+          f"median after the first {wall:.4f} s, {tokens / wall:,.0f} tokens/s, 6 N tokens / wall "
+          f"{6 * n_params * tokens / wall / 1e12:.1f} TFLOP/s = {mfu:.4f} of the 989 TFLOP/s "
+          f"bf16 peak; peak {out['peak_gb']:.1f} GB allocated; launches {counts} [{card}]")
+    print(f"      crash at step {TRAIN_CRASH_AT}, resumed from step {TRAIN_CKPT_EVERY}: losses "
+          f"{[round(r.loss, 6) for r in before + after]} vs the uninterrupted run's, max gap "
+          f"{max(gaps):.3g} rel (limit 1e-5); bit-equal: {bit_equal}; checkpoint save walls "
+          f"{', '.join(f'{w:.2f}' for w in walls.get('save', []))} s (background thread), "
+          f"restore {', '.join(f'{w:.2f}' for w in walls.get('restore', []))} s [{card}]")
+    return {"step_s": wall, "tokens_per_s": tokens / wall, "mfu": mfu, "n_params": n_params,
+            "bit_equal": bit_equal, "max_gap": max(gaps), **out, "walls": walls}
+
+
+def train_remat(dev, card) -> tuple:
+    """(c) one microbatch (1 x 2,048) of the full-width model: gradients
+    with ``remat`` equal those without bit for bit; the peak memory and
+    wall of each. Returns the model and the gradients for (d)."""
+    import torch
+
+    from repro_torch.data.pipeline import SyntheticLMData
+    from repro_torch.launch.steps import loss_and_grads
+    from repro_torch.models import transformer as T
+
+    cfg = full_width_train_cfg()
+    model = T.init_params(cfg, torch.Generator(device=dev).manual_seed(0), device=dev)
+    mb = {k: v[0] for k, v in SyntheticLMData(cfg, cfg.train_microbatches, TRAIN_SEQ,
+                                              seed=1).batch_at(0).items()}
+    runs = {}
+    for remat in (True, False):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        t0 = time.perf_counter()
+        loss, grads = loss_and_grads(replace(cfg, remat=remat), model, mb)
+        torch.cuda.synchronize()
+        runs[remat] = {"loss": loss, "grads": grads, "wall": time.perf_counter() - t0,
+                       "peak_gb": (torch.cuda.max_memory_allocated() - base) / 1e9}
+    on, off = runs[True], runs[False]
+    same = torch.equal(on["loss"], off["loss"]) and all(
+        torch.equal(g, off["grads"][k]) for k, g in on["grads"].items())
+    print(f"  (c) remat, one microbatch 1 x {TRAIN_SEQ}: gradients with remat == without, bit "
+          f"for bit: {same}; peak above the weights and earlier gradients "
+          f"{on['peak_gb']:.2f} GB with remat, {off['peak_gb']:.2f} GB without; walls "
+          f"{on['wall']:.3f} / {off['wall']:.3f} s (the first builds) [{card}]")
+    if not same:
+        raise AssertionError("remat changed the gradients")
+    return model, off["grads"]
+
+
+def train_compression(dev, model, grads, card) -> dict:
+    """(d) ``compress_decompress`` on the card == the CPU bit for bit on a
+    full-width gradient leaf (an up-projection, 4,096 x 11,008) with a
+    seeded error buffer; ``wire_bytes`` over every leaf; one compressed
+    train step at full width, finite."""
+    import math
+
+    import torch
+
+    from repro_torch.data.pipeline import SyntheticLMData
+    from repro_torch.optim import AdamWConfig, adamw_init
+    from repro_torch.runtime.compression import (
+        compress_decompress,
+        init_error_feedback,
+        wire_bytes,
+    )
+    from repro_torch.runtime.train_loop import make_compressed_train_step
+
+    name = "blocks.0.ff.w_in"
+    g = grads[name]
+    err = torch.randn(g.shape, generator=torch.Generator(device=dev).manual_seed(2),
+                      device=dev) * float(g.float().abs().max()) * 0.004
+    got = compress_decompress(g, err)
+    want = compress_decompress(g.cpu(), err.cpu())
+    equal = all(torch.equal(a.cpu(), b) for a, b in zip(got, want))
+    comp, raw = wire_bytes(grads)
+    del grads, got, err
+    torch.cuda.empty_cache()
+    cfg = full_width_train_cfg()
+    opt = dict(adamw_init(model), error_feedback=init_error_feedback(model))
+    batch = SyntheticLMData(cfg, cfg.train_microbatches, TRAIN_SEQ, seed=2).batch_at(0)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    _, opt, metrics = make_compressed_train_step(cfg, AdamWConfig(lr=TRAIN_LR))(model, opt, batch)
+    loss = float(metrics["loss"])
+    wall = time.perf_counter() - t0
+    finite = math.isfinite(loss) and math.isfinite(float(metrics["grad_norm"])) and all(
+        bool(torch.isfinite(p).all()) for p in model.parameters())
+    print(f"  (d) compression: {name} {tuple(g.shape)} on the card == CPU bit for bit: {equal}; "
+          f"wire bytes {comp:,} vs {raw:,} float32 ({raw / comp:.3f}x); one compressed step at "
+          f"full width: loss {loss:.5f}, finite: {finite}, {wall:.3f} s [{card}]")
+    if not (equal and finite and raw / comp > 3.9):
+        raise AssertionError("compression check failed")
+    return {"ratio": raw / comp, "step_s": wall}
+
+
+def train_twin(card, **kw) -> dict:
+    """(e) ``examples/torch_train_pipeline_lm.py`` on the card, at its
+    defaults unless ``kw`` says otherwise: its lines, the ``LEARNING``
+    verdict, the resume, the plans."""
+    import contextlib
+    import importlib.util
+    import io
+
+    name = "torch_train_pipeline_lm"
+    spec = importlib.util.spec_from_file_location(name, ROOT / "examples" / f"{name}.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        result = mod.main(**{"device": "cuda", **kw})
+    wall = time.perf_counter() - t0
+    lines = buf.getvalue().splitlines()
+    for line in lines:
+        print(f"      | {line}")
+    hist = result["history"]
+    _, _, fell = mod.learning([r.loss for r in hist])
+    steps = [r.wall_s for r in hist[1:]]
+    if not (fell and hist[0].step == result["resumed_from"]
+            and any(line.startswith("beam PP plan over infiniband") for line in lines)):
+        raise AssertionError("the training twin did not learn, resume or plan")
+    print(f"  (e) the training twin ({kw or 'defaults'}): LEARNING, resumed at step "
+          f"{result['resumed_from']} after the crash at {result['crash_at']}; {wall:.1f} s, "
+          f"median step {np.median(steps) * 1e3:.2f} ms [{card}]")
+    return {"wall_s": wall, "step_ms": float(np.median(steps)) * 1e3}
+
+
+def phase_training(dev, card) -> dict:
+    """Phase 20: training, (a)-(e)."""
+    import torch
+
+    from repro_torch.configs import ARCH_IDS
+
+    t_phase = time.perf_counter()
+    print("  (a) reduced train step, card == CPU (float32, 2 microbatches):")
+    card_cpu = {arch: train_card_vs_cpu(dev, arch) for arch in ARCH_IDS}
+    ops_refuse_autograd(dev)
+    t_a = time.perf_counter() - t_phase
+    model, grads = train_remat(dev, card)
+    comp = train_compression(dev, model, grads, card)
+    del model, grads
+    torch.cuda.empty_cache()
+    full = train_full_width(dev, card)
+    twin = train_twin(card)
+    print(f"  phase 20: {time.perf_counter() - t_phase:.1f} s ((a) {t_a:.1f} s)")
+    return {"card_cpu": card_cpu, "full": full, "compression": comp, "twin": twin}
+
+
 def main() -> int:
     import torch
 
@@ -3991,6 +4465,14 @@ def main() -> int:
     flash_launches += zamba["flash"]
     wgmma_launches += zamba["wgmma"]
 
+    card = card_line()
+    print(f"== 20 training: AdamW, the microbatched train step, checkpoints, the fault-tolerant "
+          f"Trainer and gradient compression; {TRAIN_ARCH} at full width [{card}]")
+    training = phase_training(dev, card)
+    # the train path launches no kernel (the ops refuse autograd)
+    train_launches = {k: sum(r["counts"][k] for r in training["card_cpu"].values())
+                      for k in ("ssd", "flash")}
+
     kernels = []
     by_variant = {"tiled": path["by_variant"]["tiled"] + planner["tiled"] + replan["tiled"]
                   + twins["tiled"],
@@ -4022,7 +4504,7 @@ def main() -> int:
         "launches_by_variant": {"wgmma": wgmma_launches,
                                 "simt": flash_launches - wgmma_launches},
         "launches_by_path": {"deepseek-7b": deepseek_launches, **families["launches"],
-                             "zamba2-1.2b": zamba["flash"]},
+                             "zamba2-1.2b": zamba["flash"], "training": train_launches["flash"]},
         **times["flash_attention"],
         "by_config": {**families["by_config"], "zamba2-1.2b": hybrids["flash_at"]},
     })
@@ -4041,7 +4523,8 @@ def main() -> int:
             # one launch = one call of the C entry, which runs three CUDA kernels
             **({"launch_is": "ssm_scan_fwd call (3 kernels)",
                 "launches_by_path": {"ssm_scan op": ssd["launches"],
-                                     "zamba2-1.2b": zamba["ssd"]},
+                                     "zamba2-1.2b": zamba["ssd"],
+                                     "training": train_launches["ssd"]},
                 "by_config": {"zamba2-1.2b": hybrids["ssd_at"]}} if name == "ssd_scan" else {}),
         })
     print(f"  total {time.perf_counter() - t_start:.1f} s; clocks now [{card_line()}]")

@@ -524,6 +524,18 @@ class MoE(nn.Module):
         return y.to(x.dtype).reshape(n * g, D)[:T].reshape(B, S, D)
 
 
+def moe_aux_loss(cfg: ModelConfig, router_probs: torch.Tensor,
+                 top_idx: torch.Tensor) -> torch.Tensor:
+    """Switch-style load-balancing loss: the mean fraction of (token, slot)
+    picks each expert takes, times its mean router probability, summed
+    and scaled by E. ``router_probs`` (n, g, E) and ``top_idx`` (n, g, k),
+    as :meth:`MoE.select` sees them. Neither package's ``loss_fn`` adds it."""
+    E = cfg.n_experts
+    frac = torch.mean(F.one_hot(top_idx.long(), E).float(), dim=(0, 1, 2))
+    prob = torch.mean(router_probs, dim=tuple(range(router_probs.dim() - 1)))
+    return torch.sum(frac * prob) * E
+
+
 # ---------------------------------------------------------------------------
 # Embedding, head
 # ---------------------------------------------------------------------------

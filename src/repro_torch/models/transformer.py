@@ -59,6 +59,7 @@ from contextlib import nullcontext
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.device import ieee_float32, resolve_device
 from repro_torch.models import ssm
@@ -74,8 +75,9 @@ from repro_torch.models.layers import (
     torch_dtype,
 )
 
-__all__ = ["Block", "MixerBlock", "Transformer", "check_supported", "forward", "init_cache",
-           "init_params", "is_homogeneous", "prefill", "serve_step"]
+__all__ = ["Block", "MixerBlock", "Transformer", "check_supported", "cross_entropy", "forward",
+           "init_cache", "init_params", "is_homogeneous", "loss_fn", "param_count", "prefill",
+           "serve_step"]
 
 BLOCK_KINDS = ("attn", "mamba", "mlstm", "slstm")
 
@@ -210,15 +212,19 @@ class Transformer(nn.Module):
         key = "codes" if cfg.frontend == "audio_codes" else "tokens"
         return self.embed(torch.as_tensor(inputs[key], device=dev).long())
 
+    def float32_scope(self):
+        """On the card, :func:`~repro_torch.device.ieee_float32`: the float32
+        products (attention scores and PV, MLA's absorbed decode, the
+        recurrent mixers, the LM head) run in IEEE float32 whatever the
+        caller's TF32 settings. Entered once per pass, not per product,
+        because decode is bound by the host's enqueue; the train step holds
+        it over the backward too. A no-op on the CPU."""
+        return ieee_float32() if self.device.type == "cuda" else nullcontext()
+
     @torch.no_grad()
     def forward(self, cfg: ModelConfig, inputs: dict, cache: dict | tuple | None = None,
                 decode: bool = False):
-        # On the card the float32 products (attention scores and PV, MLA's
-        # absorbed decode, the recurrent mixers, the LM head) run in IEEE
-        # float32 whatever the caller's TF32 settings: scoped once per
-        # pass, not per product, because decode is bound by the host's
-        # enqueue.
-        with ieee_float32() if self.device.type == "cuda" else nullcontext():
+        with self.float32_scope():
             return self._forward(cfg, inputs, cache, decode)
 
     def _forward(self, cfg: ModelConfig, inputs: dict, cache, decode: bool):
@@ -237,15 +243,23 @@ class Transformer(nn.Module):
             pos_ids = positions[0] if positions.dim() == 3 else positions
             # the prefill cache write's offset (one host read per call)
             offset = int(pos_ids[0, 0]) if cache is not None and S > 1 else 0
-        if isinstance(self.blocks, nn.ModuleList):
+        # activation checkpointing where autograd records an uncached pass
+        # (the train path): the reference's jax.checkpoint(nothing_saveable)
+        remat = cfg.remat and cache is None and not decode and torch.is_grad_enabled()
+        if isinstance(self.blocks, nn.ModuleList) and cache is None:
+            x = self._stack(cfg, x, positions, decode, remat)
+        elif isinstance(self.blocks, nn.ModuleList):
             for i, block in enumerate(self.blocks):
-                layer_cache = None if cache is None else {k: t[i] for k, t in cache.items()}
+                layer_cache = {k: t[i] for k, t in cache.items()}
                 x = block(cfg, x, positions, layer_cache, offset, decode)
         else:
             states = []
             for i, (kind, block) in enumerate(self._pattern_blocks(cfg)):
                 layer_cache = None if cache is None else cache[i]
-                if kind == "attn":
+                if remat:
+                    x = checkpoint(self._block_fn(cfg, kind, block, positions), x,
+                                   use_reentrant=False)
+                elif kind == "attn":
                     x = block(cfg, x, positions, layer_cache, offset, decode)
                 else:
                     x, layer_cache = block(cfg, x, layer_cache, decode)
@@ -253,6 +267,29 @@ class Transformer(nn.Module):
             cache = None if cache is None else tuple(states)
         x = self.final_norm(x, cfg.norm_eps)
         return self.lm_head(x, self.embed.table), cache
+
+    def _stack(self, cfg: ModelConfig, x, positions, decode: bool, remat: bool):
+        """A homogeneous stack without a cache. With ``remat`` each block is
+        checkpointed, or each group of ``cfg.remat_group`` blocks where that
+        divides the depth (only the group boundaries are kept)."""
+        g = cfg.remat_group if remat and cfg.n_layers % cfg.remat_group == 0 else 1
+        blocks = list(self.blocks)
+        for i in range(0, len(blocks), g):
+            def run(h, group=blocks[i:i + g]):
+                for block in group:
+                    h = block(cfg, h, positions, None, 0, decode)
+                return h
+
+            x = checkpoint(run, x, use_reentrant=False) if remat else run(x)
+        return x
+
+    @staticmethod
+    def _block_fn(cfg: ModelConfig, kind: str, block, positions):
+        """One uncached block of a pattern as a function of x alone (a
+        mixer's state is dropped), for checkpointing."""
+        if kind == "attn":
+            return lambda h: block(cfg, h, positions, None, 0, False)
+        return lambda h: block(cfg, h, None, False)[0]
 
 
 def init_params(cfg: ModelConfig, generator: torch.Generator | None = None,
@@ -334,3 +371,40 @@ def prefill(cfg: ModelConfig, params: Transformer, inputs: dict, cache):
     token by token through :func:`serve_step`, as the ``Server`` feeds
     it."""
     return forward(cfg, params, inputs, cache, decode=False)
+
+
+def param_count(params) -> int:
+    """Number of parameter values (a module's parameters, or a mapping's
+    tensors): the reference's leaf sizes summed."""
+    leaves = params.parameters() if isinstance(params, nn.Module) else params.values()
+    return sum(p.numel() for p in leaves)
+
+
+def cross_entropy(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    """Mean next-token cross entropy over every leading axis (codebooks
+    included). logits (..., V) in float32; labels (...) ids. The gold
+    logit is taken with an index-compare mask, as the reference does (no
+    scatter: its backward is the elementwise softmax minus one-hot)."""
+    logits = logits.float()
+    lse = torch.logsumexp(logits, dim=-1)
+    slot = torch.arange(logits.shape[-1], device=logits.device)
+    onehot = labels.long()[..., None] == slot
+    gold = torch.sum(torch.where(onehot, logits, 0.0), dim=-1)
+    return torch.mean(lse - gold)
+
+
+def loss_fn(cfg: ModelConfig, params: Transformer, batch: dict) -> torch.Tensor:
+    """The uncached forward's mean cross entropy against ``batch["labels"]``,
+    differentiable where grad mode is on (the module's parameters must
+    require grad for a gradient to reach them; ``launch.steps`` turns that
+    on for the step). With ``cfg.remat`` and grad mode, blocks are
+    checkpointed. The reference's ``maybe_constrain_logits`` pins a mesh
+    layout and is the identity outside one; the port runs on one card
+    and has none. On the card the pass runs in IEEE float32
+    (:meth:`Transformer.float32_scope`); hold the scope over the backward
+    too, as the train step does, or checkpointed blocks recompute under
+    the caller's TF32 settings."""
+    with params.float32_scope():
+        logits, _ = params._forward(cfg, batch, None, False)
+        labels = torch.as_tensor(batch["labels"], device=params.device)
+        return cross_entropy(logits, labels)

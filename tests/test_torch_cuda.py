@@ -963,3 +963,95 @@ def test_kernel_ops_refuse_autograd_on_card(card, op):
     with torch.no_grad():
         assert torch.isfinite(args()).all()
 
+
+
+# ---------------------------------------------------------------------------
+# Training: the train step, checkpoints and launch counts on the card
+# ---------------------------------------------------------------------------
+
+def train_step_run(cfg, model, dev, lr=1e-3):
+    """One ``make_train_step`` over 2 microbatches of a seeded batch, and
+    microbatch 0's gradients: (loss, {name: grad}, {name: updated param},
+    {name: first moment}), on the CPU."""
+    from repro_torch.data.pipeline import SyntheticLMData
+    from repro_torch.launch.steps import loss_and_grads, make_train_step
+    from repro_torch.optim import AdamWConfig, adamw_init
+
+    batch = SyntheticLMData(cfg, 4, 24, seed=1).batch_at(0)
+    _, grads = loss_and_grads(cfg, model, {k: v[0] for k, v in batch.items()})
+    grads = {k: g.cpu() for k, g in grads.items()}
+    _, opt, metrics = make_train_step(cfg, AdamWConfig(lr=lr))(model, adamw_init(model), batch)
+    return (float(metrics["loss"]), grads, {k: v.cpu() for k, v in model.state_dict().items()},
+            {k: v.cpu() for k, v in opt["mu"].items()})
+
+
+@pytest.mark.parametrize("arch", ["deepseek-7b", "zamba2-1.2b"])
+def test_train_step_on_card_equals_cpu(card, arch):
+    """Reduced float32 (attention on the chunked core, as the reference
+    trains), the same weights on both devices, 2 microbatches, the
+    caller's TF32 flags on: the loss within 1e-5
+    relative, every gradient leaf of microbatch 0 within 1e-4 x its rms,
+    the step's first moment within 1e-4 x its rms, the updated parameters
+    within their bound wherever the update's sign is determined
+    (``torch_parity.card_step_used``), and the
+    caller's settings restored. No kernel launches: the Mamba2 scan takes
+    the chunk body under autograd."""
+    from repro_torch.kernels.flash_attention import ops as FA
+    from repro_torch.kernels.ssm_scan import kernel as SK
+    from torch_parity import card_step_used
+
+    cfg, models = lm_pair(card, arch, train_microbatches=2, use_flash_kernel=False)
+    tf32 = torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = True
+    FA.reset_launch_count()
+    SK.reset_launch_count()
+    try:
+        callers = float32_settings()
+        got = train_step_run(cfg, models[card], card)
+        torch.cuda.synchronize()
+        assert float32_settings() == callers
+    finally:
+        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = tf32
+    assert FA.FLASH_LAUNCHES == SK.SSD_LAUNCHES == 0
+    want = train_step_run(cfg, models["cpu"], "cpu")
+    assert abs(got[0] - want[0]) <= 1e-5 * abs(want[0])
+    for what, i in (("gradient", 1), ("first moment", 3)):
+        for k, w in want[i].items():
+            w64 = w.double()
+            used = float((got[i][k].double() - w64).abs().max()
+                         / (1e-4 * max(float(w64.square().mean().sqrt()), 1e-30)))
+            assert used <= 1.0, f"{what} {k}: {used:.4g} x the limit"
+    clipped = {k: mu.double() / 0.1 for k, mu in want[3].items()}  # mu / (1 - b1)
+    used, loose = card_step_used(got[2], want[2], clipped, 1e-3)
+    assert used <= 1.0 and loose <= 1e-3 * sum(w.numel() for w in want[2].values())
+
+
+def test_bf16_checkpoint_roundtrip_on_card(card, tmp_path):
+    """A bf16 model and float32 moments on the card: saved (async), the
+    live tensors then updated in place, restored into a fresh card
+    template bit for bit as they were saved."""
+    from repro_torch.checkpoint.store import CheckpointStore
+    from repro_torch.configs import get_config
+    from repro_torch.models import transformer as T
+    from repro_torch.optim import adamw_init
+
+    cfg = get_config("deepseek-7b").reduced(dtype="bfloat16")
+    model = T.init_params(cfg, torch.Generator(device=card).manual_seed(0), device=card)
+    opt = adamw_init(model)
+    with torch.no_grad():
+        for v in opt["nu"].values():
+            v.uniform_()
+    want = ({k: v.cpu().clone() for k, v in model.state_dict().items()},
+            {k: v.cpu().clone() for k, v in opt["nu"].items()})
+    store = CheckpointStore(tmp_path)
+    store.save_async(1, (model, opt), extra={"next_step": 1})
+    with torch.no_grad():
+        for p in model.parameters():
+            p.add_(1.0)
+    fresh = T.init_params(cfg, torch.Generator(device=card).manual_seed(1), device=card)
+    (got, got_opt), extra = store.restore((fresh, adamw_init(fresh)))
+    assert extra == {"next_step": 1} and got.device.type == card.type
+    for k, v in got.state_dict().items():
+        assert v.dtype == want[0][k].dtype and torch.equal(v.cpu(), want[0][k]), k
+    for k, v in got_opt["nu"].items():
+        assert torch.equal(v.cpu(), want[1][k]), k

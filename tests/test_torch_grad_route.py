@@ -50,3 +50,21 @@ def test_mamba_scan_routes_to_the_chunk_body_under_autograd(monkeypatch):
     y = S_.mamba_scan(x, b, c, -dt, dt, 4)
     assert y.requires_grad and calls == []
     torch.testing.assert_close(y, S_.mamba_scan_plain(x, b, c, -dt, dt, 4), rtol=0, atol=0)
+
+
+def test_train_step_through_the_flash_kernel_raises():
+    """``use_flash_kernel=True`` routes training attention into the kernel
+    op, which refuses autograd, as ``jax.grad`` through the reference's
+    Pallas kernel fails; the reference trains on the chunked core."""
+    from dataclasses import replace
+
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import SyntheticLMData
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.models import transformer as T
+    from repro_torch.optim import adamw_init
+
+    cfg = replace(get_config("deepseek-7b").reduced(), use_flash_kernel=True)
+    model = T.init_params(cfg, torch.Generator().manual_seed(0), device="cpu")
+    with pytest.raises(RuntimeError, match="flash_attention has no backward"):
+        make_train_step(cfg)(model, adamw_init(model), SyntheticLMData(cfg, 2, 16).batch_at(0))

@@ -64,6 +64,10 @@ def test_every_module_imports_with_jax_blocked():
     assert out.stdout.strip() == "ok"
     assert len(port_modules()) >= 10
     assert "repro_torch.models.audio" in port_modules()
+    assert {"repro_torch.optim.adamw", "repro_torch.optim.schedules",
+            "repro_torch.runtime.compression", "repro_torch.runtime.train_loop",
+            "repro_torch.checkpoint.store", "repro_torch.data.pipeline",
+            "repro_torch.launch.steps"} <= set(port_modules())
 
 
 def test_audio_helpers_follow_their_tensors_device(monkeypatch):
@@ -170,15 +174,40 @@ CNN_ENTRIES = {
         lambda: example_main("torch_split_mobilenet_inference")(),
     **{f"{name}.main": (lambda name=name: example_main(name)())
        for name in ("torch_fleet_sweep", "torch_adaptive_replanning",
-                    "torch_pareto_frontier", "torch_serve_split_llm")},
+                    "torch_pareto_frontier", "torch_serve_split_llm",
+                    "torch_train_pipeline_lm")},
+    "Trainer": lambda: train_entry("trainer"),
+    "make_train_step": lambda: train_entry("step"),
 }
+
+
+def train_entry(which):
+    """The training entries as a user calls them, naming no device: a
+    ``Trainer``, or ``make_train_step`` on ``init_params``' model."""
+    from repro_torch.checkpoint.store import CheckpointStore
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import SyntheticLMData
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.models import transformer as T
+    from repro_torch.optim import adamw_init
+    from repro_torch.runtime.train_loop import Trainer
+
+    cfg = get_config("deepseek-7b").reduced()
+    data = SyntheticLMData(cfg, 2, 8)
+    if which == "trainer":
+        import tempfile
+
+        with tempfile.TemporaryDirectory() as tmp:
+            return Trainer(cfg, data, CheckpointStore(tmp)).run()
+    params = T.init_params(cfg)
+    return make_train_step(cfg)(params, adamw_init(params), data.batch_at(0))
 
 
 @pytest.mark.parametrize("entry", sorted(CNN_ENTRIES))
 def test_cnn_entries_default_to_the_card(monkeypatch, capsys, entry):
-    """The CNNs' ``init`` and the example twins' ``main`` name no device
-    by default: that is the card, and without one they raise before any
-    work."""
+    """The CNNs' ``init``, the example twins' ``main`` and the training
+    entries name no device by default: that is the card, and without one
+    they raise before any work."""
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA card"):
         CNN_ENTRIES[entry]()

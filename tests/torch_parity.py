@@ -358,3 +358,203 @@ def grad_op_inputs(op, dev):
     b, c = (torch.randn((1, 24, 4), generator=g).to(dev) for _ in range(2))
     dt = torch.rand((1, 24, 2), generator=g).to(dev)
     return x, lambda: ssm_scan(x, b, c, -dt, dt, chunk=8)
+
+
+# ---------------------------------------------------------------------------
+# Training parity (tests/test_torch_train_step.py, test_torch_train_families.py)
+# ---------------------------------------------------------------------------
+
+TRAIN_B, TRAIN_S, TRAIN_N = 2, 16, 2
+TRAIN_LR = 1e-3
+
+# A gradient leaf's tolerance, relative to its largest |value|: both
+# frameworks sum in float32 (u = 2^-24) in other orders; an element's
+# rounding error is ~sqrt(n) u of the leaf's scale for a length-n sum,
+# and 1e-4 ~ 1,700 u covers sums of up to ~3e6 terms, chained through the
+# reduced models' 2-4 layers and 16 recurrent steps.
+GRAD_RTOL = 1e-4
+
+
+def train_batch(cfg, n: int, seed: int) -> dict:
+    """Seeded numpy training inputs for the frontend with next-token
+    labels: (n, B, S, ...) when ``n`` > 1, else (B, S, ...); vision
+    positions (3, B, S), or (n, 3, B, S)."""
+    rng = np.random.RandomState(seed)
+    lead = (n, TRAIN_B) if n > 1 else (TRAIN_B,)
+    S = TRAIN_S
+    if cfg.frontend == "audio_codes":
+        c = rng.randint(0, cfg.vocab, (*lead, S + 1, cfg.n_codebooks)).astype(np.int32)
+        return {"codes": c[..., :-1, :].copy(), "labels": c[..., 1:, :].copy()}
+    if cfg.frontend == "vision_embeds":
+        pos = np.broadcast_to(np.arange(S, dtype=np.int32), (*lead[:-1], 3, TRAIN_B, S))
+        return {"embeds": rng.standard_normal((*lead, S, cfg.d_model)).astype(np.float32),
+                "positions": pos.copy(),
+                "labels": rng.randint(0, cfg.vocab, (*lead, S)).astype(np.int32)}
+    t = rng.randint(0, cfg.vocab, (*lead, S + 1)).astype(np.int32)
+    return {"tokens": t[..., :-1].copy(), "labels": t[..., 1:].copy()}
+
+
+def train_pair(arch: str, n: int = TRAIN_N):
+    """(reference config, port config, reference params, port model with
+    those weights) at ``reduced()`` size, float32, ``n`` microbatches."""
+    import dataclasses
+
+    import jax
+
+    from repro.configs import get_config as ref_get_config
+    from repro.models import transformer as RT
+    from repro_torch.configs import get_config
+
+    rcfg = dataclasses.replace(ref_get_config(arch).reduced(), train_microbatches=n)
+    cfg = dataclasses.replace(get_config(arch).reduced(), train_microbatches=n)
+    params = RT.init_params(jax.random.PRNGKey(0), rcfg)
+    return rcfg, cfg, params, lm_port_model(cfg, params)
+
+
+def ref_state(cfg, tree) -> dict:
+    """A reference tree with the params' structure as the port's
+    ``{name: CPU tensor}`` (gradients, moments, updated params)."""
+    import jax
+
+    return convert.lm_params_from_reference(cfg, jax.tree.map(np.asarray, tree))
+
+
+def torch_batch(batch: dict) -> dict:
+    import torch
+
+    return {k: torch.from_numpy(v.copy()) for k, v in batch.items()}
+
+
+def assert_grads_close(got: dict, want: dict, what: str) -> dict:
+    """Every leaf within ``GRAD_RTOL`` x its largest |reference value|;
+    returns each leaf's tolerance."""
+    assert sorted(got) == sorted(want), what
+    tols = {}
+    for k, w in want.items():
+        w64, g64 = w.double(), got[k].double()
+        tols[k] = GRAD_RTOL * float(w64.abs().max())
+        err = float((g64 - w64).abs().max())
+        assert err <= tols[k], f"{what} {k}: |diff| {err:.3g} > {tols[k]:.3g}"
+    return tols
+
+
+def assert_first_step_close(got: dict, want: dict, grads: dict, tols: dict, start: dict,
+                            opt_cfg) -> tuple[int, int]:
+    """Parameters after one AdamW step from zero moments, held where the
+    update is determined. At step 1, delta = g/(|g| + eps) + wd p (g the
+    clipped gradient, ``grads``), so a gradient error of at most T (1.1 x
+    ``tols``: headroom for the clip factor's own rounding) moves delta by
+    at most T eps / (|g| - T + eps)^2; where |g| > 2T that bound, times
+    lr, plus 4 ulp32 of |p| + lr |delta|, holds each parameter. Where
+    |g| <= 2T the sign of the update may flip (|diff| <= 2 lr + 4 ulp32):
+    returns (those beyond 4 ulp32, all parameters)."""
+    import torch
+
+    lr, eps, wd = TRAIN_LR, opt_cfg.eps, opt_cfg.weight_decay
+    flipped = total = 0
+    for k, w in want.items():
+        total += w.numel()
+        g = grads[k].abs()
+        T = 1.1 * tols[k]
+        p0 = start[k].double().abs()
+        step = lr * (g / (g + eps) + wd * p0)
+        ulp = torch.from_numpy(np.spacing((p0 + step).float().numpy()).astype(np.float64))
+        diff = (got[k].double() - w.double()).abs()
+        firm = g > 2 * T
+        bound = lr * T * eps / (g - T + eps).clamp_min(eps) ** 2 + 4 * ulp
+        bad = firm & (diff > bound)
+        assert not bad.any(), f"{k}: {int(bad.sum())} updates beyond their bound, " \
+                              f"max excess {float((diff - bound)[firm].max()):.3g}"
+        loose = ~firm
+        assert (diff[loose] <= 2 * lr + 4 * ulp[loose]).all(), k
+        flipped += int((loose & (diff > 4 * ulp)).sum())
+    return flipped, total
+
+
+def ref_train_run(arch: str):
+    """The reference's value-and-grad on microbatch 0 and one jitted
+    ``make_train_step`` over both microbatches (lr ``TRAIN_LR``), as the
+    port's ``{name: tensor}`` dicts; and the port's model, config and
+    batch for the same run. The step's clipped mean gradient is its first
+    moment over (1 - b1)."""
+    import jax
+    import jax.numpy as jnp
+
+    from repro.launch.steps import make_train_step
+    from repro.models import transformer as RT
+    from repro.optim import AdamWConfig, adamw_init
+
+    rcfg, cfg, params, model = train_pair(arch)
+    batch = train_batch(cfg, TRAIN_N, seed=1)
+    mb = {k: jnp.asarray(v[0]) for k, v in batch.items()}
+    loss, grads = jax.jit(jax.value_and_grad(lambda p: RT.loss_fn(rcfg, p, mb)))(params)
+    step = jax.jit(make_train_step(rcfg, AdamWConfig(lr=TRAIN_LR)))
+    new, opt, metrics = step(params, adamw_init(params),
+                             {k: jnp.asarray(v) for k, v in batch.items()})
+    return {"cfg": cfg, "model": model, "batch": batch, "loss": float(loss),
+            "grads": ref_state(cfg, grads),
+            "params": ref_state(cfg, new), "mu": ref_state(cfg, opt["mu"]),
+            "step_loss": float(metrics["loss"]), "grad_norm": float(metrics["grad_norm"]),
+            "start": ref_state(cfg, params)}
+
+
+def check_train_parity(arch: str, ref: dict) -> None:
+    """The port against ``ref_train_run``'s results: microbatch 0's loss
+    within 1e-6 relative (~17 u) and every gradient leaf within
+    ``GRAD_RTOL``; then one ``make_train_step`` over both microbatches: its
+    loss, the gradient norm, the first moment (0.1 x the clipped mean
+    gradient, within 0.1 x its tolerance) and the parameters
+    (``assert_first_step_close``). The updates left undetermined (|g|
+    within 2T of zero, T = ``GRAD_RTOL`` x the leaf's largest |g|) are a
+    share ~2T / max|g| x (the density of |g| / max|g| near zero): with
+    max|g| ~10-30 x rms, a few per thousand; held under 1%."""
+    import torch
+
+    from repro_torch.launch.steps import loss_and_grads, make_train_step
+    from repro_torch.optim import AdamWConfig, adamw_init
+
+    cfg, model, batch = ref["cfg"], ref["model"], ref["batch"]
+    loss, grads = loss_and_grads(cfg, model, torch_batch({k: v[0] for k, v in batch.items()}))
+    assert abs(float(loss) - ref["loss"]) <= 1e-6 * abs(ref["loss"]), (float(loss), ref["loss"])
+    assert_grads_close(grads, ref["grads"], f"{arch} microbatch 0 gradient")
+    opt_cfg = AdamWConfig(lr=TRAIN_LR)
+    model, opt, metrics = make_train_step(cfg, opt_cfg)(model, adamw_init(model),
+                                                        torch_batch(batch))
+    assert abs(float(metrics["loss"]) - ref["step_loss"]) <= 1e-6 * ref["step_loss"]
+    assert abs(float(metrics["grad_norm"]) - ref["grad_norm"]) <= 1e-5 * ref["grad_norm"]
+    clipped = {k: mu.double() / (1 - opt_cfg.b1) for k, mu in ref["mu"].items()}
+    tols = {k: GRAD_RTOL * float(g.abs().max()) for k, g in clipped.items()}
+    for k, w in ref["mu"].items():
+        err = float((opt["mu"][k].double() - w.double()).abs().max())
+        assert err <= 0.1 * 1.1 * tols[k] + 1e-12, f"{arch} mu {k}: {err:.3g}"
+    assert not any(p.requires_grad for p in model.parameters())
+    loose, total = assert_first_step_close(dict(model.state_dict()), ref["params"], clipped,
+                                           tols, ref["start"], opt_cfg)
+    assert loose <= 0.01 * total, f"{arch}: {loose} of {total} updates undetermined"
+
+
+def card_step_used(got: dict, want: dict, clipped: dict, lr: float, eps: float = 1e-8
+                   ) -> tuple[float, int]:
+    """Card against CPU after one AdamW step from the same weights and
+    zero moments (``chip_smoke.step_used``'s rule). ``clipped`` is the CPU
+    step's clipped mean gradient, its bound T = 1e-4 x its rms; where
+    |g| > 2T each parameter is held within the larger of 1e-4 x rms(p)
+    and lr T eps / (|g| - T + eps)^2 (what T can move delta = g / (|g| +
+    eps)); returns the largest share used, and the count of the rest,
+    whose update sign is open (each asserted within 2 lr + 4 ulp32)."""
+    import torch
+
+    used, loose = 0.0, 0
+    for k, w in want.items():
+        g, w64 = clipped[k].double().abs(), w.double()
+        T = 1e-4 * float(g.square().mean().sqrt())
+        diff = (got[k].double() - w64).abs()
+        firm = g > 2 * T
+        bound = torch.clamp_min(lr * T * eps / (g - T + eps).clamp_min(eps) ** 2,
+                                1e-4 * float(w64.square().mean().sqrt()))
+        if firm.any():
+            used = max(used, float((diff[firm] / bound[firm]).max()))
+        ulp = torch.from_numpy(np.spacing(w.float().abs().numpy()).astype(np.float64))
+        assert (diff[~firm] <= 2 * lr + 4 * ulp[~firm]).all(), k
+        loose += int((~firm & (diff > 4 * ulp)).sum())
+    return used, loose
