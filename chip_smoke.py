@@ -269,8 +269,9 @@ reference package ``repro``) on the card and fails on any fault:
    compression of a full-width gradient leaf on the card == the CPU bit
    for bit, ``wire_bytes`` > 3.9x, one compressed step finite; (b) the
    ``Trainer`` at full width (bf16 params, float32 moments, 8
-   microbatches of 1 x 2,048, remat): 4 steps uninterrupted, then 4 with
-   ``ckpt_every=2`` killed at step 3 and resumed from step 2's checkpoint:
+   microbatches of 1 x 2,048, remat): 4 steps without a restart (stopped
+   before a fifth, so it saves nothing), then 4 with ``ckpt_every=2``
+   killed at step 3 and resumed from step 2's checkpoint:
    the losses equal within rel_tol 1e-5 (bit-equality printed); the step
    wall, tokens/s, peak memory and 6 N tokens / wall against the bf16
    peak; (e) ``examples/torch_train_pipeline_lm.py`` at its defaults:
@@ -4131,23 +4132,22 @@ def timed_store(root, walls: dict):
     return TimedStore(root, keep=1)
 
 
-def train_full_width(dev, card) -> dict:
-    """(b) the ``Trainer`` at full width: an uninterrupted run of
-    ``TRAIN_STEPS`` steps (checkpoint at the end), then a run with
-    ``ckpt_every=TRAIN_CKPT_EVERY`` killed at step ``TRAIN_CRASH_AT``, then
-    a resume from its newest checkpoint to the end. The resumed losses
-    equal the uninterrupted run's within rel_tol 1e-5 (the reference
-    test's bound); the step wall, tokens/s, peak memory and 6 N tokens /
-    wall against the bf16 peak from the uninterrupted run's steps after
-    the first."""
+def train_full_width(dev, card, n_params: int) -> dict:
+    """(b) the ``Trainer`` at full width: a run of ``TRAIN_STEPS`` steps
+    without a restart, then a run with ``ckpt_every=TRAIN_CKPT_EVERY``
+    killed at step ``TRAIN_CRASH_AT``, then a resume from its newest
+    checkpoint to the end. The resumed losses equal the uninterrupted
+    run's within rel_tol 1e-5 (the reference test's bound); the step
+    wall, tokens/s, peak memory and 6 N tokens / wall against the bf16
+    peak from the uninterrupted run's steps after the first."""
     import math
-    import shutil
     import tempfile
 
     import torch
 
     from repro_torch.data.pipeline import SyntheticLMData
-    from repro_torch.models import transformer as T
+    from repro_torch.kernels.flash_attention import ops as FA
+    from repro_torch.kernels.ssm_scan import kernel as SK
     from repro_torch.optim import AdamWConfig
     from repro_torch.runtime.train_loop import Trainer, TrainLoopConfig
 
@@ -4156,56 +4156,58 @@ def train_full_width(dev, card) -> dict:
     opt_cfg = AdamWConfig(lr=TRAIN_LR)
     walls, out = {}, {}
 
-    def failure(step):
-        if step == TRAIN_CRASH_AT:
-            raise Crash()
+    def fail_at(at):
+        def hook(step):
+            if step == at:
+                raise Crash()
+        return hook
 
+    def crashing_run(trainer) -> list:
+        try:
+            trainer.run()
+        except Crash:
+            return trainer.history
+        raise AssertionError("the injected failure did not fire")
+
+    SK.reset_launch_count()
+    FA.reset_launch_count()
     with tempfile.TemporaryDirectory() as tmp:
         torch.cuda.reset_peak_memory_stats()
+        # the uninterrupted run: steps 0..TRAIN_STEPS-1 of a longer run,
+        # stopped before step TRAIN_STEPS, so it writes no checkpoint (each
+        # is 19.8 GB and ~40 s)
         a = Trainer(cfg, data, timed_store(Path(tmp) / "a", walls),
-                    TrainLoopConfig(total_steps=TRAIN_STEPS, ckpt_every=TRAIN_STEPS),
-                    opt_cfg=opt_cfg, device=dev)
-        t0 = time.perf_counter()
-        ref, counts = hybrid_counts(a.run)
-        out["run_s"] = time.perf_counter() - t0
+                    TrainLoopConfig(total_steps=TRAIN_STEPS + 1, ckpt_every=TRAIN_STEPS + 1),
+                    opt_cfg=opt_cfg, failure_hook=fail_at(TRAIN_STEPS), device=dev)
+        ref = crashing_run(a)
         out["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
-        n_params = T.param_count(a._final[0])
+        if a.store.steps():
+            raise AssertionError(f"the uninterrupted run saved {a.store.steps()}")
         del a
         torch.cuda.empty_cache()
-        shutil.rmtree(Path(tmp) / "a")  # ~20 GB on disk
         store = timed_store(Path(tmp) / "b", walls)
-        crashing = Trainer(cfg, data, store, TrainLoopConfig(total_steps=TRAIN_STEPS,
-                                                             ckpt_every=TRAIN_CKPT_EVERY),
-                           opt_cfg=opt_cfg, failure_hook=failure, device=dev)
-        try:
-            crashing.run()
-            raise AssertionError("the injected failure did not fire")
-        except Crash:
-            pass
-        before = crashing.history
-        del crashing
+        loop = TrainLoopConfig(total_steps=TRAIN_STEPS, ckpt_every=TRAIN_CKPT_EVERY)
+        before = crashing_run(Trainer(cfg, data, store, loop, opt_cfg=opt_cfg,
+                                      failure_hook=fail_at(TRAIN_CRASH_AT), device=dev))
         torch.cuda.empty_cache()
         if store.latest_step() != TRAIN_CKPT_EVERY:
             raise AssertionError(f"newest checkpoint {store.latest_step()}, expected "
                                  f"{TRAIN_CKPT_EVERY}")
-        resumed = Trainer(cfg, data, store, TrainLoopConfig(total_steps=TRAIN_STEPS,
-                                                            ckpt_every=TRAIN_CKPT_EVERY),
-                          opt_cfg=opt_cfg, device=dev)
-        after, counts_b = hybrid_counts(resumed.run)
-        del resumed
+        after = Trainer(cfg, data, store, loop, opt_cfg=opt_cfg, device=dev).run()
+        torch.cuda.synchronize()
         torch.cuda.empty_cache()
+    counts = {"ssd": SK.SSD_LAUNCHES, "flash": FA.FLASH_LAUNCHES}
     losses = {r.step: r.loss for r in ref}
-    if not all(math.isfinite(x) for x in losses.values()):
-        raise AssertionError(f"non-finite losses {losses}")
-    if after[0].step != TRAIN_CKPT_EVERY or [r.step for r in after] != list(
-            range(TRAIN_CKPT_EVERY, TRAIN_STEPS)):
+    if sorted(losses) != list(range(TRAIN_STEPS)) or not all(
+            math.isfinite(x) for x in losses.values()):
+        raise AssertionError(f"uninterrupted losses {losses}")
+    if [r.step for r in after] != list(range(TRAIN_CKPT_EVERY, TRAIN_STEPS)):
         raise AssertionError(f"resumed at {[r.step for r in after]}")
     gaps = [abs(r.loss - losses[r.step]) / abs(losses[r.step]) for r in before + after]
-    if any(counts.values()) or any(counts_b.values()) or max(gaps) > 1e-5:
-        raise AssertionError(f"resume gaps {gaps} (limit 1e-5), launches {counts}, {counts_b}")
+    if any(counts.values()) or max(gaps) > 1e-5:
+        raise AssertionError(f"resume gaps {gaps} (limit 1e-5), launches {counts}")
     bit_equal = all(r.loss == losses[r.step] for r in before + after)
-    steady = [r.wall_s for r in ref[1:]]
-    wall = float(np.median(steady))
+    wall = float(np.median([r.wall_s for r in ref[1:]]))
     tokens = cfg.train_microbatches * TRAIN_SEQ
     mfu = 6 * n_params * tokens / wall / BF16_FLOPS_PER_S
     print(f"  (b) {TRAIN_ARCH} full width, {TRAIN_LAYERS} of 30 layers ({n_params:,} params; "
@@ -4306,10 +4308,9 @@ def train_compression(dev, model, grads, card) -> dict:
     return {"ratio": raw / comp, "step_s": wall}
 
 
-def train_twin(card, **kw) -> dict:
-    """(e) ``examples/torch_train_pipeline_lm.py`` on the card, at its
-    defaults unless ``kw`` says otherwise: its lines, the ``LEARNING``
-    verdict, the resume, the plans."""
+def train_twin(card) -> dict:
+    """(e) ``examples/torch_train_pipeline_lm.py`` at its defaults on the
+    card: its lines, the ``LEARNING`` verdict, the resume, the plans."""
     import contextlib
     import importlib.util
     import io
@@ -4321,7 +4322,7 @@ def train_twin(card, **kw) -> dict:
     buf = io.StringIO()
     t0 = time.perf_counter()
     with contextlib.redirect_stdout(buf):
-        result = mod.main(**{"device": "cuda", **kw})
+        result = mod.main(device="cuda")
     wall = time.perf_counter() - t0
     lines = buf.getvalue().splitlines()
     for line in lines:
@@ -4332,7 +4333,7 @@ def train_twin(card, **kw) -> dict:
     if not (fell and hist[0].step == result["resumed_from"]
             and any(line.startswith("beam PP plan over infiniband") for line in lines)):
         raise AssertionError("the training twin did not learn, resume or plan")
-    print(f"  (e) the training twin ({kw or 'defaults'}): LEARNING, resumed at step "
+    print(f"  (e) the training twin at its defaults: LEARNING, resumed at step "
           f"{result['resumed_from']} after the crash at {result['crash_at']}; {wall:.1f} s, "
           f"median step {np.median(steps) * 1e3:.2f} ms [{card}]")
     return {"wall_s": wall, "step_ms": float(np.median(steps)) * 1e3}
@@ -4343,6 +4344,7 @@ def phase_training(dev, card) -> dict:
     import torch
 
     from repro_torch.configs import ARCH_IDS
+    from repro_torch.models import transformer as T
 
     t_phase = time.perf_counter()
     print("  (a) reduced train step, card == CPU (float32, 2 microbatches):")
@@ -4350,10 +4352,11 @@ def phase_training(dev, card) -> dict:
     ops_refuse_autograd(dev)
     t_a = time.perf_counter() - t_phase
     model, grads = train_remat(dev, card)
+    n_params = T.param_count(model)
     comp = train_compression(dev, model, grads, card)
     del model, grads
     torch.cuda.empty_cache()
-    full = train_full_width(dev, card)
+    full = train_full_width(dev, card, n_params)
     twin = train_twin(card)
     print(f"  phase 20: {time.perf_counter() - t_phase:.1f} s ((a) {t_a:.1f} s)")
     return {"card_cpu": card_cpu, "full": full, "compression": comp, "twin": twin}

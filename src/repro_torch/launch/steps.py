@@ -22,7 +22,7 @@ from repro_torch.optim import AdamWConfig, adamw_update
 
 
 @contextmanager
-def trainable(params: nn.Module):
+def _trainable(params: nn.Module):
     """Every parameter of ``params`` requires grad for the block; each
     flag is restored on exit (the port's models hold frozen parameters)."""
     flags = [(p, p.requires_grad) for p in params.parameters()]
@@ -44,7 +44,7 @@ def loss_and_grads(cfg: ModelConfig, params: nn.Module, batch: dict
     scope on the card. The gradients come from ``torch.autograd.grad``:
     nothing accumulates into ``.grad``."""
     names, leaves = zip(*params.named_parameters())
-    with trainable(params), torch.enable_grad(), params.float32_scope():
+    with _trainable(params), torch.enable_grad(), params.float32_scope():
         loss = T.loss_fn(cfg, params, batch)
         grads = torch.autograd.grad(loss, leaves, allow_unused=True)
     return loss.detach(), {name: torch.zeros_like(p) if g is None else g

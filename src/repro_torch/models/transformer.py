@@ -32,6 +32,10 @@ as ``params``:
   ``(logits, cache)``;
 * :func:`prefill` runs it with a cache, :func:`serve_step` with a cache
   and ``decode=True`` (MLA's absorbed path, the recurrent steps);
+* :func:`loss_fn` is the uncached forward's :func:`cross_entropy`,
+  differentiable where grad mode is on (``launch.steps.make_train_step``
+  takes its gradients), with blocks checkpointed under ``cfg.remat``;
+  :func:`param_count` counts the parameters;
 * :func:`init_params` makes a module of random weights from a seeded
   ``torch.Generator``; :func:`init_cache` a homogeneous stack's stacked
   cache of shape (L, B, Smax, ...): ``{"k", "v"}``, ``{"c_kv",
