@@ -1,4 +1,4 @@
-"""End-to-end training driver on the PyTorch / CUDA port: a ~100M-param
+"""End-to-end training run on the PyTorch / CUDA port: a ~100M-param
 LM trained for a few hundred steps with the fault-tolerant runtime, on a
 learnable synthetic stream.
 

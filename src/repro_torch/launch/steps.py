@@ -1,9 +1,9 @@
-"""Step builders: the train step, prefill and decode.
+"""Step functions: the train step, prefill and decode.
 
 The counterparts of ``make_train_step``, ``make_prefill_step`` and
 ``make_decode_step`` in the reference's ``repro.launch.steps``. PyTorch
 runs eagerly, so a step is a plain closure. The reference's mesh and
-sharding builders (``build_cell``, ``abstract_state``) are not ported:
+sharding constructors (``build_cell``, ``abstract_state``) are not ported:
 the port runs on one card."""
 
 from __future__ import annotations
