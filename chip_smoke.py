@@ -276,12 +276,34 @@ reference package ``repro``) on the card and fails on any fault:
    wall, tokens/s, peak memory and 6 N tokens / wall against the bf16
    peak; (e) ``examples/torch_train_pipeline_lm.py`` at its defaults:
    ``LEARNING``, the resume line, the plans;
-21. a JSON line of per-kernel results (the DP rows' launches by path
-   with ``"examples"``; flash with granite-34b's and zamba2's launches and
-   their prefill shapes' times; the SSD scan's launches by path and its
-   time at zamba2's prefill shape; ``"training"``: 0 for both), the
-   card's memory size, the card line, and the last line ``{"ok": true,
-   "device": {...}}``.
+21. the multi-device layer (``core.shard``, ``parallel.pipeline``):
+   (a) the sharded backend in one process at phase 5's shape (S 65,536,
+   N 5, L 54, float32, per-scenario fleet sizes), every card a shard:
+   ``sharded_optimal_dp``, ``batched_optimal_dp(backend="sharded")`` and
+   the all-k solve each node-identical to ``backend="cuda"`` (splits,
+   costs, feasibility; differing nodes printed, 0 required), and
+   ``sweep(backend="sharded")`` on phase 4's main grid equal to
+   ``backend="torch"`` (the same dense recurrence on the same ``C``),
+   with the dense launches of these calls counted; (b) the distributed
+   seam: 4 ranks (``torch.multiprocessing`` spawn, gloo, a
+   ``MeshSpec(kind="distributed", coordinator="127.0.0.1:<free port>")``)
+   on ``cuda:{rank % count}`` solve S 16,387 (padded to 16,388), N 5, L
+   54 with per-scenario fleet sizes; every rank's result equals the
+   single-process ``backend="cuda"`` solve node for node, and rank 0
+   prints the ranks' dense launches; a failed rank fails the phase; (c)
+   the pipeline at deepseek-7b's full width (d 4096, 32 heads of 128,
+   d_ff 11,008, bf16, flash kernel; 8 of 30 layers) over 4 stages on the
+   card, plans ``uniform_split(8, 4)`` and ``(3, 5, 7)``, 8 microbatches
+   of 1 x 2,048 embedded tokens: the outputs bit-equal to the same 8
+   blocks in order per microbatch, the flash launches equal to ticks x
+   stages x max depth (88 and 132), the per-tick ring payload beside the
+   plan's ``boundary_act_bytes``, the wall and tokens/s of each plan;
+22. a JSON line of per-kernel results (the DP rows' launches by path
+   with ``"examples"`` and ``"sharded"``; flash with granite-34b's and
+   zamba2's launches and their prefill shapes' times and ``"pipeline"``;
+   the SSD scan's launches by path and its time at zamba2's prefill
+   shape; ``"training"``: 0 for both), the card's memory size, the card
+   line, and the last line ``{"ok": true, "device": {...}}``.
 
 Exits non-zero, printing no result, when no card is present.
 """
@@ -295,6 +317,7 @@ import time
 from concurrent.futures import ThreadPoolExecutor
 from dataclasses import replace
 from pathlib import Path
+from types import SimpleNamespace
 
 import numpy as np
 
@@ -4362,6 +4385,242 @@ def phase_training(dev, card) -> dict:
     return {"card_cpu": card_cpu, "full": full, "compression": comp, "twin": twin}
 
 
+# --------------------------------------------------------------------------
+# Phase 21: the multi-device layer
+# --------------------------------------------------------------------------
+
+SHARD_S, SHARD_N, SHARD_L = 65536, 5, 54
+RANKS, RANK_S = 4, 16387  # no multiple of 4: the last shard is padded
+PIPE_LAYERS, PIPE_M, PIPE_SEQ = 8, 8, 2048
+RANK_DEADLINE_S = 300
+
+
+def shard_inputs(S, N, L, seed):
+    """A tie-rich float64 ``C`` and per-scenario fleet sizes, from a seed."""
+    C = tie_rich_C(S, N, L, seed)
+    return C, np.random.RandomState(seed + 1).randint(1, N + 1, size=S)
+
+
+def differing_nodes(got, want) -> int:
+    """Scenarios whose splits, cost or feasibility differ."""
+    return int(((got.splits != want.splits).any(axis=1) | (got.cost_s != want.cost_s)
+                | (got.feasible != want.feasible)).sum())
+
+
+def shard_solves_in_one_process(card) -> int:
+    """(a): the sharded backend on every card of this process; returns the
+    dense launches of the sharded calls."""
+    import torch
+
+    from repro_torch.core import cuda_dp as CD
+    from repro_torch.core import shard as SH
+    from repro_torch.core.sweep import batched_optimal_dp, sweep
+
+    t0 = time.perf_counter()
+    g = torch.Generator(device="cuda").manual_seed(21)
+    shape = (SHARD_S, SHARD_N, SHARD_L, SHARD_L)
+    C_t = torch.randint(1, 41, shape, generator=g, device="cuda").float() / 4
+    C_t.masked_fill_(torch.rand(shape, generator=g, device="cuda") < 0.15, float("inf"))
+    C = C_t.cpu().double().numpy()
+    del C_t
+    ns = np.random.RandomState(21).randint(1, SHARD_N + 1, size=SHARD_S)
+    main = grids()[0]
+    t_inputs = time.perf_counter() - t0
+    want = batched_optimal_dp(C, backend="cuda", n_devices=ns)
+    want_k = batched_optimal_dp(C, backend="cuda", return_all_k=True)
+    want_sweep = sweep(main, backend="torch")
+    CD.reset_launch_counts()
+    t0 = time.perf_counter()
+    got = {"sharded_optimal_dp": SH.sharded_optimal_dp(C, n_devices=ns),
+           "batched_optimal_dp(backend='sharded')": batched_optimal_dp(
+               C, backend="sharded", n_devices=ns)}
+    got_k = SH.sharded_optimal_dp(C, return_all_k=True)
+    got_sweep = sweep(main, backend="sharded")
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches, fused = CD.DENSE_LAUNCHES, CD.FUSED_LAUNCHES
+    shards = SH.scenario_shards()
+    print(f"  (a) {shards} shard(s), one per card, S={SHARD_S} N={SHARD_N} L={SHARD_L} "
+          f"float32 (C {C.size * 4 / 1e9:.2f} GB on the card), per-scenario fleet sizes; "
+          f"inputs in {t_inputs:.1f} s")
+    for name, res in got.items():
+        diff = differing_nodes(res, want)
+        print(f"  {name}: {diff} nodes differ from backend='cuda' "
+              f"(wall {res.wall_time_s:.3f} s vs {want.wall_time_s:.3f} s)")
+        if diff or res.backend != "sharded":
+            raise AssertionError(f"{name} != backend='cuda'")
+    diff_k = sum(differing_nodes(got_k[n], want_k[n]) for n in want_k)
+    print(f"  all-k (fleets 1..{SHARD_N}): {diff_k} nodes differ from backend='cuda'")
+    if diff_k:
+        raise AssertionError("sharded all-k != backend='cuda'")
+    if not rows_equal(got_sweep, want_sweep):
+        raise AssertionError("sweep(backend='sharded') != sweep(backend='torch')")
+    print(f"  sweep(main, backend='sharded') on {main.size} scenarios == backend='torch' "
+          f"(the same dense recurrence on the same C; the default 'cuda' sweep runs the "
+          f"fused kernel, phase 4)")
+    expected = shards * (len(got) + 1 + 2)  # two solves, all-k, the sweep's two models
+    print(f"  dense launches of the sharded calls: {launches} (expected {expected}), "
+          f"fused {fused}; {wall:.1f} s for the four calls [{card}]")
+    if launches != expected or fused:
+        raise AssertionError("the sharded calls did not launch one dense kernel per shard")
+    return launches
+
+
+def shard_rank(rank, world, port, out_dir):
+    """One rank of (b): the distributed sharded solve on ``cuda:{rank % count}``."""
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.core import cuda_dp as CD
+    from repro_torch.core import shard as SH
+    from repro_torch.core.spec import MeshSpec
+
+    C, ns = shard_inputs(RANK_S, SHARD_N, SHARD_L, seed=2100)
+    CD.reset_launch_counts()
+    spec = MeshSpec(kind="distributed", coordinator=f"127.0.0.1:{port}",
+                    num_processes=world, process_id=rank)
+    res = SH.sharded_optimal_dp(C, n_devices=ns, mesh_spec=spec)
+    torch.cuda.synchronize()
+    counts = [None] * world
+    dist.all_gather_object(counts, (CD.DENSE_LAUNCHES, str(SH.mesh_from_spec(spec).devices[rank])))
+    if rank == 0:
+        print(f"  rank 0: the ranks' dense launches and devices {counts}", flush=True)
+    np.savez(Path(out_dir) / f"rank{rank}.npz", splits=res.splits, cost_s=res.cost_s,
+             feasible=res.feasible, n_devices_s=res.n_devices_s,
+             launches=CD.DENSE_LAUNCHES)
+    dist.barrier()
+    dist.destroy_process_group()
+
+
+def shard_ranks(card) -> int:
+    """(b): 4 ranks of a gloo group on the card(s); every rank's result ==
+    the single-process ``backend="cuda"`` solve. Returns the ranks' dense
+    launches."""
+    import socket
+    import tempfile
+
+    import torch.multiprocessing as mp
+
+    from repro_torch.core.sweep import batched_optimal_dp
+
+    C, ns = shard_inputs(RANK_S, SHARD_N, SHARD_L, seed=2100)
+    want = batched_optimal_dp(C, backend="cuda", n_devices=ns)
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as out:
+        ctx = mp.spawn(shard_rank, args=(RANKS, port, out), nprocs=RANKS, join=False)
+        deadline = time.monotonic() + RANK_DEADLINE_S
+        while not ctx.join(timeout=1):  # a failed rank raises here
+            if time.monotonic() > deadline:
+                for p in ctx.processes:
+                    p.kill()
+                raise AssertionError(f"the ranks did not finish in {RANK_DEADLINE_S} s")
+        ranks = [dict(np.load(Path(out) / f"rank{r}.npz")) for r in range(RANKS)]
+    wall = time.perf_counter() - t0
+    launches = 0
+    for r, got in enumerate(ranks):
+        diff = differing_nodes(SimpleNamespace(**got), want)
+        if diff or not np.array_equal(got["n_devices_s"], want.n_devices_s):
+            raise AssertionError(f"rank {r}: {diff} nodes differ from backend='cuda'")
+        launches += int(got["launches"])
+    print(f"  (b) {RANKS} ranks (gloo, tcp://127.0.0.1:{port}), S={RANK_S} padded to "
+          f"{RANK_S + (-RANK_S) % RANKS}: every rank == single-process backend='cuda' "
+          f"node for node; {launches} dense launches in all; {wall:.1f} s with the spawn "
+          f"[{card}]")
+    if launches != RANKS:
+        raise AssertionError(f"the ranks launched {launches} dense kernels, not {RANKS}")
+    return launches
+
+
+def pipeline_at_full_width(dev, card) -> dict:
+    """(c): deepseek-7b's blocks (8 of 30) through the 4-stage pipeline."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.core.planner import stage_cost_profile, uniform_split
+    from repro_torch.kernels.flash_attention import ops as FA
+    from repro_torch.models import transformer as T
+    from repro_torch.models.graph import arch_layer_graph
+    from repro_torch.parallel import pipeline as PP
+
+    S = 4
+    cfg = replace(get_config("deepseek-7b"), n_layers=PIPE_LAYERS, use_flash_kernel=True)
+    model = T.init_params(cfg, generator=torch.Generator(device=dev).manual_seed(21),
+                          device=dev)
+    stacked = PP.stack_blocks(model)
+    tokens = torch.randint(0, cfg.vocab, (PIPE_M, PIPE_SEQ),
+                           generator=torch.Generator(device=dev).manual_seed(22), device=dev)
+    with torch.no_grad():
+        x = model.embed(tokens)[:, None]  # (M, 1, 2048, 4096)
+    pos = torch.arange(PIPE_SEQ, dtype=torch.int32, device=dev).expand(1, PIPE_SEQ)
+    apply = PP.transformer_block_apply(model, cfg, pos)
+    block_mb = sum(t[0].numel() * t.element_size() for t in stacked.values()) / 1e6
+    print(f"  (c) deepseek-7b {PIPE_LAYERS} of {get_config('deepseek-7b').n_layers} layers "
+          f"(d {cfg.d_model}, {cfg.n_heads} heads of {cfg.head_dim}, d_ff {cfg.d_ff}, "
+          f"{cfg.dtype}): {block_mb:.1f} MB a block, {PIPE_LAYERS * block_mb / 1e3:.2f} GB "
+          f"stacked; {PIPE_M} microbatches of 1 x {PIPE_SEQ} tokens over {S} stages")
+    want = []
+    with torch.no_grad(), model.float32_scope():
+        for h in x:
+            for block in model.blocks:
+                h = block(cfg, h, pos, None, 0, False)
+            want.append(h)
+    want = torch.stack(want)
+    prof = stage_cost_profile(arch_layer_graph(cfg, 1, PIPE_SEQ))
+    payload = x[0].numel() * x.element_size()
+    out = {"launches": 0}
+    for name, splits in (("uniform", uniform_split(PIPE_LAYERS, S)), ("uneven", (3, 5, 7))):
+        plan = SimpleNamespace(splits=splits)
+        ranges = PP.stage_assignment(plan, PIPE_LAYERS)
+        depth = max(b - a + 1 for a, b in ranges)
+        FA.reset_launch_count()
+        got = PP.run_pipeline(plan, apply, stacked, PIPE_LAYERS, x, devices=[dev] * S)
+        torch.cuda.synchronize()
+        launches, wgmma = FA.FLASH_LAUNCHES, FA.FLASH_WGMMA_LAUNCHES
+        expected = (PIPE_M + S - 1) * S * depth
+        err = float((got.float() - want.float()).abs().max())
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        PP.run_pipeline(plan, apply, stacked, PIPE_LAYERS, x, devices=[dev] * S)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        # block b of the pipeline is node b + 1 of the graph (node 0 embeds)
+        bounds = [prof.boundary_act_bytes(b + 1) for b in splits]
+        print(f"  {name} plan {splits} (stage depths {[b - a + 1 for a, b in ranges]}, "
+              f"max {depth}): {launches} flash launches ({wgmma} wgmma; expected "
+              f"{PIPE_M + S - 1} ticks x {S} stages x {depth} = {expected}); output vs the "
+              f"8 blocks in order: bit-equal {torch.equal(got, want)}, max abs diff {err}; "
+              f"ring payload {payload:,} B a tick, boundary_act_bytes {bounds}; "
+              f"{wall * 1e3:.1f} ms, {PIPE_M * PIPE_SEQ / wall:,.0f} tokens/s [{card}]")
+        if launches != expected or wgmma != expected:
+            raise AssertionError(f"pipeline {name}: {launches} flash launches, not {expected}")
+        if not torch.equal(got, want):
+            raise AssertionError(f"pipeline {name}: output != the blocks in order")
+        if any(b != payload for b in bounds):
+            raise AssertionError(f"pipeline {name}: payload != boundary_act_bytes")
+        out[name] = {"ms": wall * 1e3, "launches": launches}
+        out["launches"] += launches
+    return out
+
+
+def phase_multi_device(dev, card) -> dict:
+    """Phase 21: (a) the sharded backend in one process, (b) over 4 ranks,
+    (c) the pipeline at deepseek-7b's full width."""
+    import torch
+
+    t0 = time.perf_counter()
+    torch.cuda.empty_cache()
+    sharded = shard_solves_in_one_process(card)
+    t_a = time.perf_counter() - t0
+    sharded += shard_ranks(card)
+    t_b = time.perf_counter() - t0 - t_a
+    pipe = pipeline_at_full_width(dev, card)
+    print(f"  phase 21: {time.perf_counter() - t0:.1f} s ((a) {t_a:.1f} s, (b) {t_b:.1f} s)")
+    return {"sharded": sharded, "pipeline": pipe["launches"], "pipe": pipe}
+
+
 def main() -> int:
     import torch
 
@@ -4476,6 +4735,13 @@ def main() -> int:
     train_launches = {k: sum(r["counts"][k] for r in training["card_cpu"].values())
                       for k in ("ssd", "flash")}
 
+    card = card_line()
+    print(f"== 21 the multi-device layer: the sharded DP backend in one process and over "
+          f"{RANKS} ranks, the pipeline at deepseek-7b's full width [{card}]")
+    multi = phase_multi_device(dev, card)
+    flash_launches += multi["pipeline"]
+    wgmma_launches += multi["pipeline"]
+
     kernels = []
     by_variant = {"tiled": path["by_variant"]["tiled"] + planner["tiled"] + replan["tiled"]
                   + twins["tiled"],
@@ -4490,12 +4756,15 @@ def main() -> int:
             "replaces": f"src/repro/core/pallas_dp.py:{line}",
             "launches": (path["launches"][name] + planner["launches"][name]
                          + replan["launches"][name] + cnn["launches"][name]
-                         + twins["launches"][name]),
+                         + twins["launches"][name]
+                         + (multi["sharded"] if name == "dense_dp" else 0)),
             "launches_by_path": {"sweep": path["launches"][name],
                                  **{k: v[name] for k, v in planner["by_path"].items()},
                                  **{k: v[name] for k, v in replan["by_path"].items()},
                                  "cnn_plans": cnn["launches"][name],
-                                 "examples": twins["launches"][name]},
+                                 "examples": twins["launches"][name],
+                                 **({"sharded": multi["sharded"]} if name == "dense_dp"
+                                    else {})},
             "max_abs_err": errs[name], **times[name], "library_ms": None,
             **({"launches_by_variant": by_variant} if name == "fused_dp" else {}),
         })
@@ -4507,7 +4776,8 @@ def main() -> int:
         "launches_by_variant": {"wgmma": wgmma_launches,
                                 "simt": flash_launches - wgmma_launches},
         "launches_by_path": {"deepseek-7b": deepseek_launches, **families["launches"],
-                             "zamba2-1.2b": zamba["flash"], "training": train_launches["flash"]},
+                             "zamba2-1.2b": zamba["flash"], "training": train_launches["flash"],
+                             "pipeline": multi["pipeline"]},
         **times["flash_attention"],
         "by_config": {**families["by_config"], "zamba2-1.2b": hybrids["flash_at"]},
     })

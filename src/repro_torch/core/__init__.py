@@ -17,6 +17,9 @@ wherever the port has them:
   cuda_dp      — the dense and fused split-DP kernels on the card
                  (backend="cuda"; the counterpart of the reference's
                  pallas_dp)
+  shard        — the scenario axis sharded over cards, simulated CPU
+                 shards or the ranks of a torch.distributed group
+                 (backend="sharded")
   surface      — precomputed degradation surfaces for O(1) replanning
   async_replan — stale-while-revalidate surface rebuilds
   adaptive     — LinkEstimator + AdaptiveSplitManager runtime replanning;
@@ -27,8 +30,7 @@ wherever the port has them:
                  hardware and the NVLink / InfiniBand links
   quantization — int8 PTQ + activation wire format
 
-The reference's ``shard`` (the sharded backend) is not ported yet; its
-``tpu_cost_profile`` is ``stage_cost_profile`` here. As in the
+The reference's ``tpu_cost_profile`` is ``stage_cost_profile`` here. As in the
 reference, only names are re-exported here: ``repro_torch.core.sweep``,
 ``.surface``, ``.async_replan`` and ``.adaptive`` stay the submodules
 (get the function with ``from repro_torch.core.sweep import sweep``).
@@ -112,6 +114,13 @@ from repro_torch.core.cuda_dp import (  # noqa: F401
     cuda_fused_dp_tables,
     cuda_fused_optimal_dp,
     cuda_optimal_dp,
+)
+# NOTE: `shard` imports cuda_dp and sweep, so it comes after them.
+from repro_torch.core.shard import (  # noqa: F401
+    mesh_from_spec,
+    scenario_shards,
+    sharded_dp_tables,
+    sharded_optimal_dp,
 )
 from repro_torch.core.solvers import (  # noqa: F401
     SOLVERS,

@@ -264,9 +264,11 @@ def _plan_split_batch_impl(
     dense CUDA kernel; ``"numpy"`` for beam and greedy, which run on the
     host and take no other backend), or a
     :data:`repro_torch.core.sweep.DP_BACKENDS` key for ``batched_dp``:
-    ``"cuda"``, ``"torch"`` (its plain PyTorch version) or ``"numpy"``
-    (the float64 oracle). ``device`` / ``dtype`` reach the ``"cuda"`` and
-    ``"torch"`` backends (``device=None`` is the card).
+    ``"cuda"``, ``"torch"`` (its plain PyTorch version), ``"sharded"``
+    (the dense kernel per shard of the scenario axis; ``mesh_spec`` names
+    the shards) or ``"numpy"`` (the float64 oracle). ``device`` /
+    ``dtype`` reach the ``"cuda"``, ``"torch"`` and ``"sharded"`` backends
+    (``device=None`` is the card).
 
     ``energy_budget``: optional per-device Joule cap — a scalar for all
     scenarios or one per cost model. Segments whose energy (each

@@ -31,10 +31,14 @@ dispatch:
 * Backends resolve through the port's own dispatch
   (:func:`repro_torch.core.sweep._resolve_backend`): ``None`` means
   ``"cuda"`` for ``batched_dp`` and ``"numpy"`` for the batched
-  heuristics; ``"jax"``, ``"pallas"`` and ``"sharded"`` are refused by
-  name (``ValueError``), also in a spec the reference wrote. Every
-  builder here defaults to ``backend=None``. A spec carrying a
-  :class:`MeshSpec` is refused: the sharded backend is not ported.
+  heuristics; ``"jax"`` and ``"pallas"`` are refused by name
+  (``ValueError``), also in a spec the reference wrote. Every builder
+  here defaults to ``backend=None``.
+
+* :class:`MeshSpec` — the multi-host seam for ``backend="sharded"``: the
+  shard devices are built from the spec
+  (:func:`repro_torch.core.shard.mesh_from_spec`); any other backend
+  refuses a spec that carries one, with the reference's message.
 
 * :func:`build_surfaces_from_spec` — the module-level (hence picklable)
   worker a :class:`~repro_torch.core.async_replan.SurfaceRebuilder`
@@ -83,14 +87,18 @@ __all__ = [
 
 @dataclass(frozen=True)
 class MeshSpec:
-    """The reference's description of a ``backend="sharded"`` device
-    mesh, kept so that a spec's JSON schema is the reference's.
+    """How to build the ``backend="sharded"`` shards (the reference's
+    fields and JSON schema).
 
-    The port has no sharded backend: every solve refuses a spec whose
-    ``mesh`` is not ``None`` (``ValueError``). ``kind="local"`` is the
-    first ``n_shards`` local devices; ``kind="distributed"`` is the
-    multi-host form with its ``coordinator``/``num_processes``/
-    ``process_id`` fields."""
+    ``kind="local"`` (default): the first ``n_shards`` cards of this
+    process (``None`` = all of them; simulated shards on the CPU).
+    ``kind="distributed"``: one shard per rank of the default
+    ``torch.distributed`` group, brought up once per process with the
+    ``gloo`` backend from ``coordinator`` (``host:port``, or a URL such as
+    ``file:///path``) / ``num_processes`` / ``process_id``; a
+    ``coordinator`` of ``None`` means the caller already initialised the
+    group (:func:`repro_torch.core.shard.mesh_from_spec`). ``axis`` names
+    the scenario axis. Hashable, as in the reference."""
 
     kind: str = "local"  # "local" | "distributed"
     n_shards: int | None = None

@@ -7,7 +7,9 @@ the device-local stack and the transmission vectors, so the stacked
 tensor ``C`` never goes to the card (the twin of the reference's
 ``pallas`` branch); a budgeted build takes the dense kernel on the masked
 ``C``; ``backend="torch"`` runs the dense plain version (the twin of the
-reference's ``jax``). ``build_surfaces`` is a shim over the planner tier
+reference's ``jax``), ``backend="sharded"`` the dense kernel per shard of
+the node axis (:mod:`repro_torch.core.shard`, with an optional
+``mesh_spec``). ``build_surfaces`` is a shim over the planner tier
 (:class:`repro_torch.core.spec.PlannerService`), as in the reference.
 
 The adaptive manager's ``observe()`` used to re-solve Beam Search over
@@ -515,9 +517,10 @@ def build_surface(
         or a :data:`repro_torch.core.sweep.DP_BACKENDS` key for
         ``batched_dp``: ``"cuda"`` (the fused CUDA kernel solves straight
         from the local stack + transmission vectors; the dense kernel
-        when a budget is set), ``"torch"`` (the dense plain version) or
-        ``"numpy"`` (the node-exact ``==`` parity path). ``"cuda"`` and
-        ``"torch"`` run in ``dtype`` (float32 by default), so their node
+        when a budget is set), ``"torch"`` (the dense plain version),
+        ``"sharded"`` (the dense kernel per shard) or ``"numpy"`` (the
+        node-exact ``==`` parity path). ``"cuda"``, ``"torch"`` and
+        ``"sharded"`` run in ``dtype`` (float32 by default), so their node
         decisions are cost-close rather than bit-identical to the
         float64 re-solve oracle.
       beam_width: Algorithm-1 width when ``solver="batched_beam"``.
@@ -541,8 +544,9 @@ def build_surface(
         ``accuracy_proxy`` is below the floor before the solve
         (:func:`repro_torch.core.sweep.apply_accuracy_floor`) — every node
         then minimizes latency subject to the accuracy constraint.
-      device / dtype: where and in which type the ``"cuda"`` and
-        ``"torch"`` backends run (``device=None`` is the card).
+      device / dtype: where and in which type the ``"cuda"``,
+        ``"torch"`` and ``"sharded"`` backends run (``device=None`` is the
+        card).
 
     Returns the surface for ``n_devices`` (node decisions bit-identical
     to the legacy re-solve at every grid node on the default NumPy
@@ -652,7 +656,7 @@ def _build_surfaces_impl(
     suite asserts exact ``==``). ``build_time_s``/``solve_time_s`` on
     each surface record the SHARED family build (one pass), not a
     per-size cost. ``backend`` selects the DP backend (``"cuda"`` /
-    ``"torch"`` for ``solver="batched_dp"`` only — see
+    ``"torch"`` / ``"sharded"`` for ``solver="batched_dp"`` only — see
     :func:`build_surface` for the parity caveat; an unbudgeted ``"cuda"``
     build hands the fused kernel ``local`` + ``TX`` and never ships the
     stacked tensor to the card). Args otherwise as in
@@ -665,8 +669,8 @@ def _build_surfaces_impl(
     (:func:`repro_torch.core.sweep._fold_variant_axis`, the same
     lowest-index tie-break as every other joint solve)."""
     backend = SW._resolve_backend(solver, backend)
-    SW._refuse_mesh(mesh_spec)
-    if backend in ("cuda", "torch"):
+    SW._check_mesh(mesh_spec, backend, solver)
+    if backend in SW.DEVICE_BACKENDS:
         device, dtype = resolve_device(device), resolve_dtype(dtype)
     sizes = tuple(n_devices)
     if not sizes:
@@ -756,6 +760,7 @@ def _build_surfaces_impl(
             all_k = SW.batched_optimal_dp(C, combine=combine,
                                           backend=backend,
                                           return_all_k=True,
+                                          mesh_spec=mesh_spec,
                                           device=device, dtype=dtype)
         res_by_n = {n: all_k[n] for n in sizes}
         solve_time = all_k[n_max].wall_time_s

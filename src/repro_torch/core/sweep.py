@@ -6,7 +6,9 @@ The port's counterpart of ``repro.core.sweep``:
   scenario axis, on one of :data:`DP_BACKENDS`: ``"cuda"`` (the dense
   CUDA kernel, :mod:`repro_torch.core.cuda_dp`), ``"torch"`` (its plain
   PyTorch version, the counterpart of the reference's vmapped
-  ``lax.scan``) or ``"numpy"`` (float64, the bit-parity oracle).
+  ``lax.scan``), ``"sharded"`` (the dense kernel per shard of the
+  scenario axis, :mod:`repro_torch.core.shard`) or ``"numpy"`` (float64,
+  the bit-parity oracle).
 * :func:`batched_beam_search` / :func:`batched_greedy_search` (and their
   ``_all_k`` forms) — the paper's Algorithm 1/2 heuristics vectorized
   over scenarios: numpy on the host, as in the reference, line for line.
@@ -32,9 +34,11 @@ and ``"numpy"`` for ``batched_beam`` / ``batched_greedy``, which are host
 numpy algorithms and refuse any other backend (``ValueError``), as the
 reference does. The DP's ``"cuda"`` and ``"torch"`` backends take
 ``device=None`` (the card; ``RuntimeError`` without one) and
-``dtype=torch.float32`` (or ``torch.float64``); ``"numpy"`` is float64 on
-the host and uses neither. The reference's ``"jax"``, ``"pallas"`` and
-``"sharded"`` backends are refused by name (:data:`NOT_PORTED`).
+``dtype=torch.float32`` (or ``torch.float64``), and so does
+``"sharded"``, which also takes a ``mesh_spec`` (a
+:class:`repro_torch.core.spec.MeshSpec`; any other backend refuses one);
+``"numpy"`` is float64 on the host and uses neither. The reference's
+``"jax"`` and ``"pallas"`` backends are refused by name (:data:`NOT_PORTED`).
 
 ``solve_batched``, ``solve_multi_channel`` and ``solve_variant_bank``
 are shims over the planner tier, as in the reference: each builds a
@@ -103,7 +107,7 @@ __all__ = [
 
 # Backends of the reference that the port does not have; asking for one
 # raises ValueError naming it.
-NOT_PORTED = ("jax", "pallas", "sharded")
+NOT_PORTED = ("jax", "pallas")
 
 
 # ---------------------------------------------------------------------------
@@ -439,6 +443,13 @@ def _dp_tables_cuda(C, combine, ns, device, dtype):
     return cuda_dp.cuda_dp_tables(C, combine, ns, device=device, dtype=dtype)
 
 
+def _dp_tables_sharded(C, combine, ns, device, dtype, mesh_spec=None):
+    from repro_torch.core import shard  # lazy: shard imports this module
+
+    return shard.sharded_dp_tables(C, combine, ns=ns, mesh_spec=mesh_spec,
+                                   device=device, dtype=dtype)
+
+
 # DP backend registry: each entry maps (C, combine, ns, device, dtype) ->
 # (dp_per_k, parents) with the shared frozen-row ``ns`` contract; result
 # selection is common (:func:`_results_from_dp_tables`).
@@ -446,7 +457,11 @@ DP_BACKENDS: dict[str, Callable] = {
     "numpy": _dp_tables_numpy,  # float64 on the host, the bit-parity oracle
     "torch": _dp_tables_torch,  # the dense kernel's plain PyTorch version
     "cuda": _dp_tables_cuda,    # the dense CUDA kernel
+    "sharded": _dp_tables_sharded,  # the dense kernel per scenario shard
 }
+
+# Backends that run on a torch device (``device`` / ``dtype`` apply).
+DEVICE_BACKENDS = ("cuda", "torch", "sharded")
 
 
 def _check_backend(backend: str) -> None:
@@ -459,12 +474,25 @@ def _check_backend(backend: str) -> None:
                      f"options: {sorted(DP_BACKENDS)}")
 
 
+def _check_mesh(mesh_spec, backend: str, solver: str = "batched_dp") -> None:
+    """A mesh is a ``backend="sharded"`` knob: any other backend refuses
+    one with the reference's message."""
+    if mesh_spec is None or backend == "sharded":
+        return
+    if solver != "batched_dp":
+        raise ValueError(f"mesh_spec is a backend='sharded' knob; {solver} "
+                         f"runs on numpy only")
+    raise ValueError(f"mesh_spec is a backend='sharded' knob; got "
+                     f"backend={backend!r}")
+
+
 def batched_optimal_dp(
     C: np.ndarray,
     combine: str = "sum",
     backend: str = "cuda",
     return_all_k: bool = False,
     n_devices: np.ndarray | Sequence[int] | int | None = None,
+    mesh_spec=None,
     *,
     device=None,
     dtype: torch.dtype = torch.float32,
@@ -479,16 +507,25 @@ def batched_optimal_dp(
         ``n = 1..N`` from the one solve.
       n_devices: optional per-scenario fleet sizes (see
         :func:`_normalize_ns`); mutually exclusive with ``return_all_k``.
-      device / dtype: where and in which type the ``"cuda"`` and
-        ``"torch"`` backends run (``C`` is cast after assembly in float64).
+      mesh_spec: optional :class:`repro_torch.core.spec.MeshSpec` naming
+        the shards of ``backend="sharded"`` (other backends refuse it).
+      device / dtype: where and in which type the ``"cuda"``, ``"torch"``
+        and ``"sharded"`` backends run (``C`` is cast after assembly in
+        float64).
 
     ``backend="numpy"`` is the float64 oracle; ``"torch"`` and ``"cuda"``
     in float64 are bit-identical to it, and in float32 bit-identical to
-    each other (and to the reference's ``"jax"``/``"pallas"`` backends)."""
+    each other (and to the reference's ``"jax"``/``"pallas"`` backends);
+    ``"sharded"`` is node-identical to ``"cuda"`` by construction."""
     Sn, N, L, ns = _validate_dp_inputs(C, return_all_k, n_devices)
     t0 = time.perf_counter()
     _check_backend(backend)
-    dp_per_k, parents = DP_BACKENDS[backend](C, combine, ns, device, dtype)
+    _check_mesh(mesh_spec, backend)
+    if mesh_spec is not None:
+        dp_per_k, parents = DP_BACKENDS[backend](C, combine, ns, device, dtype,
+                                                 mesh_spec=mesh_spec)
+    else:
+        dp_per_k, parents = DP_BACKENDS[backend](C, combine, ns, device, dtype)
     return _results_from_dp_tables(dp_per_k, parents, L, N, Sn, backend,
                                    ns, return_all_k, t0)
 
@@ -980,12 +1017,6 @@ def _resolve_backend(solver: str, backend: str | None) -> str:
     return backend
 
 
-def _refuse_mesh(mesh_spec) -> None:
-    if mesh_spec is not None:
-        raise ValueError("mesh_spec is a backend='sharded' knob; 'sharded' "
-                         "is not ported")
-
-
 def solve_batched(
     C: np.ndarray,
     solver: str = "batched_dp",
@@ -1002,7 +1033,8 @@ def solve_batched(
     (used by :func:`sweep`, ``planner.plan_split_batch`` and the surface
     builder). ``n_devices`` (optional per-scenario fleet sizes) is
     threaded to every solver; ``device`` / ``dtype`` reach the DP's
-    ``"cuda"`` and ``"torch"`` backends.
+    ``"cuda"``, ``"torch"`` and ``"sharded"`` backends, ``mesh_spec`` the
+    last.
 
     A thin shim over the planner tier: it builds a
     :func:`repro_torch.core.spec.tensor_spec` and resolves it through
@@ -1031,11 +1063,11 @@ def _solve_batched_impl(
     only by :meth:`repro_torch.core.spec.PlannerService.solve`, so the
     spec path and the kwargs path cannot diverge."""
     backend = _resolve_backend(solver, backend)
-    _refuse_mesh(mesh_spec)
+    _check_mesh(mesh_spec, backend, solver)
     if solver == "batched_dp":
         return batched_optimal_dp(C, combine=combine, backend=backend,
-                                  n_devices=n_devices, device=device,
-                                  dtype=dtype, **solver_kwargs)
+                                  n_devices=n_devices, mesh_spec=mesh_spec,
+                                  device=device, dtype=dtype, **solver_kwargs)
     fn = batched_beam_search if solver == "batched_beam" else batched_greedy_search
     return fn(C, combine=combine, n_devices=n_devices, **solver_kwargs)
 
@@ -1850,9 +1882,11 @@ def sweep(
         kernel builds ``C[s,k] = bank[idx] + TX[s]`` inside its
         reduction, ``C`` never materialised; energy-budgeted groups mask
         a materialised ``C`` and run the dense kernel), ``"torch"`` (the
-        dense plain version on a materialised ``C``) or ``"numpy"``
-        (float64 oracle on the host). Beam and greedy run numpy on the
-        host and refuse any other backend.
+        dense plain version on a materialised ``C``), ``"sharded"`` (the
+        dense kernel per shard of a materialised ``C``, on every card:
+        the reference's route for that backend) or ``"numpy"`` (float64
+        oracle on the host). Beam and greedy run numpy on the host and
+        refuse any other backend.
       beam_width: beam width when ``solver="batched_beam"``.
       device / dtype: see the module docstring.
 
@@ -1862,7 +1896,7 @@ def sweep(
     pair, smaller fleets ride the per-scenario ``n_devices`` vector).
     Row order equals ``grid.scenarios()`` order."""
     backend = _resolve_backend(solver, backend)
-    if backend in ("cuda", "torch"):
+    if backend in DEVICE_BACKENDS:
         device, dtype = resolve_device(device), resolve_dtype(dtype)
     combine = "max" if grid.objective == "bottleneck" else "sum"
     order = grid.scenarios()

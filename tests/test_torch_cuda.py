@@ -1055,3 +1055,59 @@ def test_bf16_checkpoint_roundtrip_on_card(card, tmp_path):
         assert v.dtype == want[0][k].dtype and torch.equal(v.cpu(), want[0][k]), k
     for k, v in got_opt["nu"].items():
         assert torch.equal(v.cpu(), want[1][k]), k
+
+
+# --------------------------------------------------------------------------
+# The sharded backend and the pipeline runtime on the card
+# --------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("n_shards", [None, 1])
+def test_sharded_on_card_equals_cuda(card, n_shards):
+    """``backend="sharded"`` on every card (or one) == ``backend="cuda"``
+    node for node, one dense launch per shard; padding where S is no
+    multiple of the card count."""
+    from repro_torch.core import shard as SH
+    from repro_torch.core.sweep import batched_optimal_dp
+
+    C, ns = tie_rich(257, 5, 54, seed=21)
+    want = batched_optimal_dp(C, backend="cuda", n_devices=ns)
+    before = CD.DENSE_LAUNCHES
+    got = SH.sharded_optimal_dp(C, n_devices=ns, n_shards=n_shards)
+    shards = n_shards or torch.cuda.device_count()
+    assert CD.DENSE_LAUNCHES - before == shards
+    for k in ("splits", "cost_s", "feasible", "n_devices_s"):
+        assert np.array_equal(getattr(got, k), getattr(want, k)), k
+
+
+def test_pipeline_on_card_equals_cpu(card):
+    """The pipeline over 4 stages on the card (reduced deepseek-7b, 8
+    layers, float32) == its own sequential blocks bit for bit, and == the
+    CPU pipeline within 1e-4 x rms."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import transformer as T
+    from repro_torch.parallel import pipeline as PPL
+
+    class Plan:
+        splits = (3, 5, 7)
+
+    cfg = get_config("deepseek-7b").reduced(n_layers=8)
+    outs = {}
+    for dev in ("cpu", "cuda"):
+        model = T.init_params(cfg, generator=torch.Generator().manual_seed(0), device="cpu")
+        model = model.to(dev)
+        pos = torch.arange(16, dtype=torch.int32, device=dev).expand(2, 16)
+        x = torch.randn(5, 2, 16, cfg.d_model, generator=torch.Generator().manual_seed(1))
+        x = x.to(dev)
+        apply = PPL.transformer_block_apply(model, cfg, pos)
+        outs[dev] = PPL.run_pipeline(Plan(), apply, PPL.stack_blocks(model), 8, x,
+                                     devices=[dev] * 4)
+        want = []
+        with torch.no_grad(), model.float32_scope():
+            for h in x:
+                for block in model.blocks:
+                    h = block(cfg, h, pos, None, 0, False)
+                want.append(h)
+        assert torch.equal(outs[dev], torch.stack(want)), dev
+    err = float((outs["cuda"].cpu() - outs["cpu"]).abs().max())
+    assert err <= 1e-4 * float(outs["cpu"].pow(2).mean().sqrt()), err

@@ -264,8 +264,7 @@ def test_wrappers_reject_what_the_kernels_do_not_take(case):
 
 @pytest.mark.parametrize("kwargs", [dict(solver="batched_beam", backend="cuda"),
                                     dict(solver="batched_greedy", backend="cuda"),
-                                    dict(backend="pallas"),
-                                    dict(backend="sharded")],
+                                    dict(backend="pallas")],
                          ids=lambda kw: next(iter(kw.values())))
 def test_unported_solvers_and_backends_raise_by_name(kwargs):
     """The reference's backends the port lacks, and the host heuristics
@@ -278,7 +277,7 @@ def test_unported_solvers_and_backends_raise_by_name(kwargs):
 def test_unported_surfaces_raise():
     """Surfaces are ported; the reference's backends the port lacks are
     refused by name."""
-    for backend in ("pallas", "jax", "sharded"):
+    for backend in ("pallas", "jax"):
         with pytest.raises(ValueError, match=backend):
             small_grid().degradation_surface(solver="batched_dp", backend=backend)
 
@@ -308,7 +307,7 @@ def test_host_heuristics_refuse_card_backends(entry, solver):
             refusing_calls(solver, backend)[entry]()
 
 
-@pytest.mark.parametrize("backend", ["jax", "pallas", "sharded"])
+@pytest.mark.parametrize("backend", ["jax", "pallas"])
 @pytest.mark.parametrize("entry", sorted(refusing_calls("batched_dp", "jax")))
 def test_reference_backends_refused_by_name(entry, backend):
     with pytest.raises(ValueError, match=f"backend {backend!r} is not ported"):

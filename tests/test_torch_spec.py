@@ -8,7 +8,8 @@
   both (with ``backend`` passed, as the port's default is ``None`` and
   the reference's ``"numpy"``); a JSON the reference wrote solves in the
   port equal to the reference's own solve; the reference's backends the
-  port lacks, and a mesh, are refused by name.
+  port lacks are refused by name, and a mesh on a backend other than
+  ``"sharded"`` with the reference's message.
 * Two faults the shims fixed: ``np.float32`` surface axes price the
   nodes as the reference does, and ``plan_split_batch(models, None)``
   raises the reference's ``ValueError``.
@@ -250,7 +251,7 @@ def test_a_reference_json_solves_as_in_the_reference(combine):
     assert family_fields(PSP.build_surfaces_from_spec(surf.to_json())) == family_fields(want)
 
 
-@pytest.mark.parametrize("backend", ["jax", "pallas", "sharded"])
+@pytest.mark.parametrize("backend", ["jax", "pallas"])
 def test_reference_backends_in_a_spec_are_refused(backend):
     C = rand_tensor(np.random.default_rng(5))
     payload = RSP.tensor_spec(C, backend=backend).to_json()
@@ -263,11 +264,15 @@ def test_reference_backends_in_a_spec_are_refused(backend):
 
 
 def test_a_mesh_is_refused():
+    """A mesh is a ``backend="sharded"`` knob: a spec or a call that pairs
+    one with another backend is refused with the reference's message."""
     C = rand_tensor(np.random.default_rng(5))
     payload = RSP.tensor_spec(C, mesh=RSP.MeshSpec(kind="local")).to_json()
-    with pytest.raises(ValueError, match="'sharded' is not ported"):
+    with pytest.raises(ValueError, match="mesh_spec is a backend='sharded' knob; "
+                                         "got backend='numpy'"):
         PSP.solve_from_json(payload, C)
-    with pytest.raises(ValueError, match="'sharded' is not ported"):
+    with pytest.raises(ValueError, match="mesh_spec is a backend='sharded' knob; "
+                                         "batched_beam runs on numpy only"):
         PSF.build_surfaces(PP.paper_cost_model("mobilenet_v2", "ble"), PP.PROTOCOLS, (2,),
                            backend="numpy", mesh_spec=PSP.MeshSpec(), **GRID)
 
@@ -312,9 +317,6 @@ def test_plan_split_batch_without_fleet_sizes_raises_the_references_error():
 
 # names ``repro.core`` exports that the port lacks, by what they wait on
 NOT_YET = {
-    # the sharded backend (ROADMAP queue 1, sharding)
-    "mesh_from_spec": "shard", "scenario_shards": "shard",
-    "sharded_dp_tables": "shard", "sharded_optimal_dp": "shard",
     # the TPU pipeline planner's cost profile; counterpart: stage_cost_profile
     "tpu_cost_profile": "planner",
     # the Pallas backend: the port's kernels are core.cuda_dp, exported
