@@ -70,12 +70,11 @@ KERNELS = ("cuda", "torch")
 
 @dataclass(frozen=True)
 class ShardMesh:
-    """The 1-D scenario mesh: one device per shard, the axis name, and
+    """The 1-D scenario mesh: one device per shard and
     (``kind="distributed"``) the process group whose rank ``r`` owns shard
     ``r``; ``group`` is ``None`` for shards of this process."""
 
     devices: tuple[torch.device, ...]
-    axis: str = "s"
     group: object | None = None
 
 
@@ -149,7 +148,6 @@ def mesh_from_spec(mesh_spec: MeshSpec | None = None,
     ``n_shards`` wins over the spec's. ``kind="distributed"``: one device
     per rank of the default group (initialised here from the spec if it
     has a coordinator), ``n_shards`` defaulting to the world size."""
-    axis = "s" if mesh_spec is None else mesh_spec.axis
     dev = resolve_device(device)
     want = n_shards if n_shards is not None else (
         None if mesh_spec is None else mesh_spec.n_shards)
@@ -157,7 +155,7 @@ def mesh_from_spec(mesh_spec: MeshSpec | None = None,
         n = scenario_shards(want, device=dev)
         devices = (dev,) * n if dev.type == "cpu" else tuple(
             torch.device("cuda", i) for i in range(n))
-        return ShardMesh(devices, axis)
+        return ShardMesh(devices)
     import torch.distributed as dist
 
     _ensure_distributed(mesh_spec)
@@ -168,7 +166,7 @@ def mesh_from_spec(mesh_spec: MeshSpec | None = None,
         raise ValueError(
             f"n_shards={want} out of range [1, {world}] "
             f"(global ranks: {world})")
-    return ShardMesh(tuple(_rank_device(r, dev) for r in range(want)), axis,
+    return ShardMesh(tuple(_rank_device(r, dev) for r in range(want)),
                      group=dist.group.WORLD)
 
 

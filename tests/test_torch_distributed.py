@@ -29,6 +29,7 @@ import torch_dist_worker as W
 from repro_torch.core import shard as SH
 from repro_torch.core import sweep as PS
 from repro_torch.parallel import pipeline as PP
+from torch_parity import one_torch_thread  # noqa: F401
 
 JOIN_DEADLINE_S = 120
 

@@ -30,7 +30,7 @@ from repro_torch.configs import get_config
 from repro_torch.core.planner import uniform_split
 from repro_torch.models import transformer as PT
 from repro_torch.parallel import pipeline as PP
-from torch_parity import LM_F32_TOL, lm_port_model
+from torch_parity import LM_F32_TOL, lm_port_model, one_torch_thread  # noqa: F401
 
 L, D, M, MB = 8, 16, 6, 2
 SPLITS = {"uniform": uniform_split(L, 4), "uneven": (3, 5, 7)}

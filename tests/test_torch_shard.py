@@ -33,7 +33,7 @@ from repro_torch.core import surface as PSF
 from repro_torch.core import sweep as PS
 from repro_torch.core.latency import bottleneck_variants
 from repro_torch.core.spec import MeshSpec
-from torch_parity import batched_fields, family_fields, plan_fields, row_fields
+from torch_parity import batched_fields, family_fields, one_torch_thread, plan_fields, row_fields  # noqa: F401
 
 INF = float("inf")
 CPU = dict(device="cpu")
@@ -180,10 +180,9 @@ def test_scenario_shards_rules():
 
 def test_the_mesh_of_a_spec():
     mesh = SH.mesh_from_spec(device="cpu")
-    assert mesh.devices == (torch.device("cpu"),) and mesh.axis == "s" and mesh.group is None
+    assert mesh.devices == (torch.device("cpu"),) and mesh.group is None
     spec = MeshSpec(kind="local", n_shards=3, axis="scen")
     assert SH.mesh_from_spec(spec, device="cpu").devices == (torch.device("cpu"),) * 3
-    assert SH.mesh_from_spec(spec, device="cpu").axis == "scen"
     assert len(SH.mesh_from_spec(spec, n_shards=2, device="cpu").devices) == 2
     with pytest.raises(ValueError, match="unknown shard kernel 'pallas'"):
         SH.sharded_dp_tables(make_C(2, 2, 4, seed=0), kernel="pallas", device="cpu")

@@ -14,9 +14,23 @@ from dataclasses import asdict, fields
 from pathlib import Path
 
 import numpy as np
+import pytest
+import torch
 
 from repro_torch import convert
 from repro_torch.core.surface import ProtocolSurface
+
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """Autouse where imported: the module's torch ops on one thread, the
+    process's count restored after it. Tiny CPU ops gain nothing from a
+    thread pool, and a pool per xdist worker oversubscribes the cores
+    that the other workers' tests run on."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
 
 SURFACE_ARRAYS = ("splits", "chunk_bytes", "latency_s", "runner_splits",
                   "runner_latency_s", "variant")
