@@ -30,6 +30,15 @@ over one tick loop:
   ``all_reduce(SUM)`` (``x + 0`` is exact), the reference's masked
   ``psum``. With ``gloo`` the tensors live on the CPU.
 
+The one-process form is differentiable, as the reference's (a plain JAX
+function that ``jax.grad`` goes through): the ``.to`` ring, the masked
+``torch.where`` and the indexed writes into the outputs all record, so
+a loss on the outputs reaches the stage parameters and the microbatches.
+The bubble ticks' results never reach the outputs, so the backward never
+visits them, and they are freed when the call returns. The group form
+raises ``RuntimeError`` where autograd would record: ``batch_isend_irecv``
+and ``all_reduce`` have no backward.
+
 :func:`stack_blocks` and :func:`transformer_block_apply` run a
 homogeneous :class:`~repro_torch.models.transformer.Transformer`'s
 blocks through the pipeline at any width: one block applied to
@@ -112,35 +121,48 @@ def pipelined_forward(
     ``devices[s]`` (``None``: the card for each; ``RuntimeError`` without
     one). With ``group``: this process is stage ``group.rank()`` of
     ``group.size()`` stages; every rank passes the same ``stage_params``,
-    ``layer_mask`` and ``microbatches`` and gets the whole output back."""
-    with torch.no_grad():
-        if group is not None:
-            return _forward_group(block_apply, stage_params, layer_mask,
-                                  microbatches, group)
-        S = layer_mask.shape[0]
-        devices = [resolve_device(None)] * S if devices is None \
-            else [resolve_device(d) for d in devices]
-        if len(devices) != S:
-            raise ValueError(f"{len(devices)} devices for {S} stages")
-        M = microbatches.shape[0]
-        stages = [_stage_slice(stage_params, s, devices[s]) for s in range(S)]
-        masks = [layer_mask[s].to(devices[s]) for s in range(S)]
-        bufs = [torch.zeros_like(microbatches[0], device=d) for d in devices]
-        outputs = torch.zeros_like(microbatches, device=devices[-1])
-        for t in range(M + S - 1):
-            bufs[0] = microbatches[min(t, M - 1)].to(devices[0])
-            bufs = [_apply_stage(block_apply, stages[s], masks[s], bufs[s])
-                    for s in range(S)]
-            if t >= S - 1:
-                outputs[t - (S - 1)] = bufs[-1]
-            # rotate the ring: s -> s + 1 (the Eq. 7-priced activation hop)
-            bufs = [bufs[s - 1].to(devices[s]) for s in range(S)]
-        return outputs.to(microbatches.device)
+    ``layer_mask`` and ``microbatches`` and gets the whole output back.
+    Differentiable without ``group``; with one, ``RuntimeError`` where
+    autograd would record."""
+    if group is not None:
+        return _forward_group(block_apply, stage_params, layer_mask,
+                              microbatches, group)
+    S = layer_mask.shape[0]
+    devices = [resolve_device(None)] * S if devices is None \
+        else [resolve_device(d) for d in devices]
+    if len(devices) != S:
+        raise ValueError(f"{len(devices)} devices for {S} stages")
+    M = microbatches.shape[0]
+    stages = [_stage_slice(stage_params, s, devices[s]) for s in range(S)]
+    masks = [layer_mask[s].to(devices[s]) for s in range(S)]
+    bufs = [torch.zeros_like(microbatches[0], device=d) for d in devices]
+    outputs = torch.zeros_like(microbatches, device=devices[-1])
+    for t in range(M + S - 1):
+        bufs[0] = microbatches[min(t, M - 1)].to(devices[0])
+        bufs = [_apply_stage(block_apply, stages[s], masks[s], bufs[s])
+                for s in range(S)]
+        if t >= S - 1:
+            outputs[t - (S - 1)] = bufs[-1]
+        # rotate the ring: s -> s + 1 (the Eq. 7-priced activation hop)
+        bufs = [bufs[s - 1].to(devices[s]) for s in range(S)]
+    return outputs.to(microbatches.device)
+
+
+def _refuse_autograd(stage_params: dict[str, torch.Tensor], microbatches: torch.Tensor):
+    """Raise ``RuntimeError`` when autograd would record the group form:
+    grad mode is on and a stage parameter or the input requires grad."""
+    if torch.is_grad_enabled() and any(
+            t.requires_grad for t in (*stage_params.values(), microbatches)):
+        raise RuntimeError(
+            "pipelined_forward over a process group has no backward (batch_isend_irecv "
+            "and all_reduce record none): run it under torch.no_grad(), or "
+            "differentiate the one-process form (devices=...)")
 
 
 def _forward_group(block_apply, stage_params, layer_mask, microbatches, group):
     import torch.distributed as dist
 
+    _refuse_autograd(stage_params, microbatches)
     S, s = group.size(), group.rank()
     if layer_mask.shape[0] != S:
         raise ValueError(f"{layer_mask.shape[0]} stages on a group of {S} ranks")
@@ -184,7 +206,10 @@ def run_pipeline(plan, block_apply: Callable, stacked_params: dict[str, torch.Te
 
 def stack_blocks(model) -> dict[str, torch.Tensor]:
     """A homogeneous ``Transformer``'s blocks as ``{name: (L, ...)}``
-    stacked parameters (a copy, on the model's device)."""
+    stacked parameters (a copy, on the model's device). The stack records
+    autograd where the parameters require grad, so a loss on the
+    pipeline's outputs reaches them; ``torch.stack`` saves nothing for its
+    backward."""
     from repro_torch.models.transformer import Block
 
     blocks = list(model.blocks)
@@ -192,7 +217,7 @@ def stack_blocks(model) -> dict[str, torch.Tensor]:
         raise ValueError("stack_blocks takes a homogeneous attention stack")
     names = [n for n, _ in blocks[0].named_parameters()]
     per = [dict(b.named_parameters()) for b in blocks]
-    return {n: torch.stack([p[n].detach() for p in per]) for n in names}
+    return {n: torch.stack([p[n] for p in per]) for n in names}
 
 
 def transformer_block_apply(model, cfg, positions: torch.Tensor) -> Callable:

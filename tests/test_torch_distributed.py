@@ -16,7 +16,8 @@ with the ranks' stderr.
   ``backend="torch"`` and 4 simulated shards in one process, node for node.
 * The pipeline with rank = stage (uniform and ``(3, 5, 7)`` splits, and
   ``reduced()`` deepseek-7b through its blocks): every rank's output is
-  bit-equal to the pipeline over ``["cpu"] * 4`` in one process."""
+  bit-equal to the pipeline over ``["cpu"] * 4`` in one process; under
+  autograd the group form raises ``RuntimeError`` on every rank."""
 
 import pickle
 import time
@@ -116,6 +117,21 @@ def test_pipeline_over_ranks(ranks, name):
                            devices=["cpu"] * W.WORLD)
     for res in ranks:
         assert torch.equal(res["pipeline"][name], want)
+
+
+def test_the_group_form_refuses_autograd(ranks):
+    """Over the ranks, ``batch_isend_irecv`` has no backward: stage
+    parameters or an input that require grad raise ``RuntimeError`` on
+    every rank; under ``torch.no_grad()`` the same call runs and equals
+    the one-process form."""
+    params, x = W.toy_inputs()
+    want = PP.run_pipeline(W.Plan(W.TOY_SPLITS["uniform"]), W.toy_block, params, W.TOY["L"], x,
+                           devices=["cpu"] * W.WORLD)
+    for res in ranks:
+        got = res["pipeline refuses autograd"]
+        for case in ("params", "input"):
+            assert got[case] is not None and "has no backward" in got[case], case
+        assert torch.equal(got["no_grad"], want)
 
 
 def test_deepseek_pipeline_over_ranks(ranks):

@@ -165,3 +165,118 @@ def test_stack_blocks_takes_a_homogeneous_stack():
     model = PT.init_params(cfg, generator=torch.Generator().manual_seed(0), device="cpu")
     with pytest.raises(ValueError, match="homogeneous"):
         PP.stack_blocks(model)
+
+
+# --------------------------------------------------------------------------
+# gradients through the one-process form (the reference's pipelined_forward
+# is a plain JAX function that jax.grad goes through)
+# --------------------------------------------------------------------------
+
+GRAD_SPLITS = {2: (3,), 3: (3, 5)}  # uneven: padded layers on the later stages
+
+
+def per_microbatch_grads(block_apply, stacked: dict, n_layers: int, x, head):
+    """Each microbatch's gradients alone (blocks in order): the terms that
+    every accumulation order sums."""
+    out = []
+    for m in range(x.shape[0]):
+        xm = x[m:m + 1].detach().requires_grad_(True)
+        loss = torch.sum(sequential_per_microbatch(block_apply, stacked, n_layers, xm) * head[m])
+        out.append(torch.autograd.grad(loss, [*stacked.values(), xm]))
+    return out
+
+
+def sequential_per_microbatch(block_apply, stacked: dict, n_layers: int, x):
+    """The blocks in order, microbatch by microbatch (the pipeline's shapes)."""
+    outs = []
+    for xm in x:
+        for i in range(n_layers):
+            xm = block_apply({k: v[i] for k, v in stacked.items()}, xm)
+        outs.append(xm)
+    return torch.stack(outs)
+
+
+def assert_grads_match_in_order(block_apply, stacked: dict, n_layers: int, x, plan, devices):
+    """Gradients of sum(outputs * head) with respect to every stacked
+    parameter and the input, through ``run_pipeline`` and through the
+    blocks in order. A layer's weight gradient sums M per-microbatch terms
+    g_m in autograd's order, which the two graphs need not share: any two
+    orders of an M-term sum differ by at most 2 (M - 1) u sum_m |g_m| (u
+    the unit roundoff), the bound held here. The input's gradient has one
+    term per microbatch and must be equal."""
+    head = torch.randn(x.shape, generator=torch.Generator().manual_seed(7), dtype=x.dtype)
+    leaves = [*stacked.values(), x]
+    got = torch.autograd.grad(
+        torch.sum(PP.run_pipeline(plan, block_apply, stacked, n_layers, x, devices=devices)
+                  * head), leaves)
+    want = torch.autograd.grad(
+        torch.sum(sequential_per_microbatch(block_apply, stacked, n_layers, x) * head), leaves)
+    terms = per_microbatch_grads(block_apply, stacked, n_layers, x, head)
+    M, u = x.shape[0], torch.finfo(x.dtype).eps / 2
+    for i, name in enumerate(stacked):
+        size = sum(t[i].abs() for t in terms)
+        gap = (got[i] - want[i]).abs()
+        assert bool((gap <= 2 * (M - 1) * u * size).all()), (name, float(gap.max()))
+        assert float(got[i].abs().max()) > 0, name
+    assert torch.equal(got[-1], want[-1])
+
+
+@pytest.mark.parametrize("stages", sorted(GRAD_SPLITS))
+def test_gradients_through_the_pipeline_equal_the_blocks_in_order(stages):
+    """The toy blocks in float64: every stacked weight's gradient within
+    the M-term sum bound of the blocks in order's, the input's equal."""
+    w, x = toy_weights(stages)
+    w = torch.from_numpy(w).double().requires_grad_(True)
+    x = torch.from_numpy(x).double().requires_grad_(True)
+    assert_grads_match_in_order(toy_block, {"w": w}, L, x, Plan(GRAD_SPLITS[stages]),
+                                ["cpu"] * stages)
+
+
+@pytest.mark.parametrize("stages", sorted(GRAD_SPLITS))
+def test_deepseek_gradients_through_the_pipeline(deepseek, stages):
+    """reduced() deepseek-7b's blocks (float32, 8 layers): the stacked
+    parameters come from ``stack_blocks`` of a model whose parameters
+    require grad, so the gradient also reaches the model's own leaves."""
+    cfg, model, x, positions, _ = deepseek
+    pos = torch.from_numpy(positions.copy())
+    apply = PP.transformer_block_apply(model, cfg, pos)
+    for p in model.parameters():
+        p.requires_grad_(True)
+    try:
+        stacked = PP.stack_blocks(model)
+        assert all(t.requires_grad for t in stacked.values())
+        xt = torch.from_numpy(x).requires_grad_(True)
+        assert_grads_match_in_order(apply, stacked, N_LAYERS, xt, Plan(GRAD_SPLITS[stages]),
+                                    ["cpu"] * stages)
+        leaf = model.blocks[0].attn.wq
+        (g,) = torch.autograd.grad(torch.sum(PP.run_pipeline(
+            Plan(GRAD_SPLITS[stages]), apply, stacked, N_LAYERS, xt,
+            devices=["cpu"] * stages)), [leaf])
+        assert g.shape == leaf.shape and float(g.abs().max()) > 0
+    finally:
+        for p in model.parameters():
+            p.requires_grad_(False)
+
+
+def test_the_bubble_ticks_keep_nothing_past_the_backward():
+    """Every tensor the pipeline's graph saved for its backward is freed
+    once the backward has run and the outputs are dropped, but for the
+    caller's own leaves: the fill ticks (stage s at t < s on zeros) and
+    the drain ticks (microbatch M - 1 again) never reach the outputs."""
+    import weakref
+
+    w, x = toy_weights(5)
+    w = torch.from_numpy(w).requires_grad_(True)
+    x = torch.from_numpy(x).requires_grad_(True)
+    saved = []
+
+    def pack(t):
+        saved.append(weakref.ref(t))
+        return t
+
+    with torch.autograd.graph.saved_tensors_hooks(pack, lambda t: t):
+        out = PP.run_pipeline(Plan((3, 5)), toy_block, {"w": w}, L, x, devices=["cpu"] * 3)
+    torch.sum(out).backward()
+    del out
+    alive = [r() for r in saved if r() is not None]
+    assert saved and all(t is w or t is x for t in alive), len(alive)

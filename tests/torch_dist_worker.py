@@ -65,6 +65,30 @@ def deepseek_inputs():
     return PP.stack_blocks(model), PP.transformer_block_apply(model, cfg, pos), x
 
 
+def pipeline_refusals(group) -> dict:
+    """The group form under autograd, each case's ``RuntimeError`` message
+    (``None`` if it ran): stage parameters that require grad, an input
+    that does, and the same under ``torch.no_grad()`` (which runs). Every
+    rank refuses before its first send, so no rank waits on another."""
+    from repro_torch.parallel import pipeline as PP
+
+    params, x = toy_inputs()
+    plan = Plan(TOY_SPLITS["uniform"])
+    cases = {"params": ({"w": params["w"].clone().requires_grad_(True)}, x),
+             "input": (params, x.clone().requires_grad_(True))}
+    out = {}
+    for name, (p, xin) in cases.items():
+        try:
+            PP.run_pipeline(plan, toy_block, p, TOY["L"], xin, group=group)
+            out[name] = None
+        except RuntimeError as e:
+            out[name] = str(e)
+    with torch.no_grad():
+        p, xin = cases["params"]
+        out["no_grad"] = PP.run_pipeline(plan, toy_block, p, TOY["L"], xin, group=group)
+    return out
+
+
 def nodes(res) -> dict:
     if isinstance(res, dict):
         return {n: nodes(r) for n, r in res.items()}
@@ -114,6 +138,7 @@ def run_rank(rank: int, world: int, url: str, out_dir: str) -> None:
     stacked, apply, x = deepseek_inputs()
     results["pipeline"]["deepseek-7b"] = PP.run_pipeline(
         Plan(TOY_SPLITS["uneven"]), apply, stacked, 8, x, group=dist.group.WORLD)
+    results["pipeline refuses autograd"] = pipeline_refusals(dist.group.WORLD)
     with open(os.path.join(out_dir, f"rank{rank}.pkl"), "wb") as f:
         pickle.dump(results, f)
     dist.barrier()
