@@ -1,24 +1,56 @@
-"""Step functions: the train step, prefill and decode.
+"""Step functions: the train step, prefill and decode, and the cells that
+lay them out on a mesh.
 
-The counterparts of ``make_train_step``, ``make_prefill_step`` and
-``make_decode_step`` in the reference's ``repro.launch.steps``. PyTorch
-runs eagerly, so a step is a plain closure. The reference's mesh and
-sharding constructors (``build_cell``, ``abstract_state``) are not ported:
-the port runs on one card."""
+The counterparts of ``make_train_step``, ``make_prefill_step``,
+``make_decode_step``, ``abstract_state`` and ``build_cell`` in the
+reference's ``repro.launch.steps``. PyTorch runs eagerly, so a step is a
+plain closure.
+
+A cell (:func:`build_cell`) is one (arch x shape) step on a
+``DeviceMesh``: the step, its example arguments (``meta`` tensors: the
+dry run's stand-ins) and the
+:class:`~repro_torch.parallel.sharding.NamedSharding` of every argument,
+by the reference's rules. Its caller lays real tensors out with
+:func:`~repro_torch.parallel.sharding.distribute`, and the step takes
+those DTensors:
+
+* the weights are stored by their specs; the step gathers them whole
+  (``full_tensor()``; on a mesh of one rank the local shard is the whole
+  tensor, so nothing is copied) and runs the unsharded code on the rank's
+  share of the batch (its DP shard; the ranks of a model group compute
+  the same). XLA partitions the reference's compute itself from the same
+  specs; a tensor-parallel compute plan is not ported;
+* the training cell's gradient accumulator is kept DP-sharded (ZeRO,
+  :func:`zero_accumulated_grads`): each microbatch's gradient is cast to
+  ``grad_accum_dtype``, summed over the DP ranks with ``all_reduce`` (one
+  code path for NCCL and gloo, whose CPU form lacks reduce-scatter: the
+  same sum as a reduce-scatter, at twice its wire bytes) and the rank's
+  slice added to its shard, in microbatch order. AdamW then updates each
+  moment shard and the matching slice of the weight, and the new weight
+  is gathered back to its own layout;
+* decode gathers each cache entry but for its DP batch shard, runs the
+  step and writes the rank's shard back.
+
+On one rank every gather, reduction and slice is an identity, and a cell
+is bit-equal to the step without a mesh."""
 
 from __future__ import annotations
 
 import dataclasses
+import math
 from contextlib import contextmanager
 
 import torch
 from torch import nn
 
+from repro_torch.configs import ShapeSpec, cache_specs, effective_microbatches, input_specs
+from repro_torch.configs import to_meta
 from repro_torch.core.quantization import true_divide
 from repro_torch.models import transformer as T
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import torch_dtype
-from repro_torch.optim import AdamWConfig, adamw_update
+from repro_torch.optim import AdamWConfig, adamw_init, adamw_update
+from repro_torch.parallel import sharding as SH
 
 
 @contextmanager
@@ -64,14 +96,18 @@ def make_train_step(cfg: ModelConfig, opt_cfg: AdamWConfig | None = None,
     added to an accumulator in microbatch order, and the sum divided by
     N; the loss is the microbatches' mean. Letting autograd accumulate
     ``.grad`` over N backward passes would sum in the parameters' type
-    (bfloat16), a different result. ``accum_shardings`` (the reference's
-    ZeRO layout for the accumulator) is not ported: a value other than
-    ``None`` raises ``NotImplementedError``."""
-    if accum_shardings is not None:
-        raise NotImplementedError("accum_shardings: sharded gradient accumulation is not "
-                                  "ported (ROADMAP item 16, parallel/sharding.py)")
+    (bfloat16), a different result.
+
+    ``accum_shardings`` (``{name: NamedSharding}`` on a ``DeviceMesh``,
+    ``build_cell``'s moment layout) pins the accumulator to the ZeRO
+    layout: the step then takes a cell's DTensors (``params`` ``{name:
+    DTensor}``, the moments as ``adamw_init``'s tree of DTensors, the batch
+    by ``input_sharding``), accumulates with :func:`zero_accumulated_grads`
+    and updates every shard in place (the module docstring says how)."""
     opt_cfg = opt_cfg or AdamWConfig()
     N = cfg.train_microbatches if n_microbatches is None else n_microbatches
+    if accum_shardings is not None:
+        return _zero_train_step(cfg, opt_cfg, N, accum_shardings)
 
     def train_step(params, opt_state, batch):
         if N <= 1:
@@ -131,3 +167,290 @@ def make_decode_step(cfg: ModelConfig):
         return T.serve_step(cfg, params, inputs, cache)
 
     return decode_step
+
+
+# --------------------------------------------------------------------------
+# cells: the steps on a mesh
+# --------------------------------------------------------------------------
+
+
+def abstract_state(cfg: ModelConfig, with_opt: bool = True):
+    """``meta`` stand-ins for the parameters (``{name: tensor}``, the
+    ``Transformer``'s names) and, with ``with_opt``, the AdamW state
+    (``{"mu", "nu", "step"}``, moments in ``cfg.opt_moments_dtype``): the
+    model is built under ``FakeTensorMode``, so nothing is allocated."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+
+    with FakeTensorMode():
+        model = T.Transformer(cfg, device="cpu")
+        params = dict(model.named_parameters())
+        opt = adamw_init(params, moments_dtype=torch_dtype(cfg.opt_moments_dtype)) \
+            if with_opt else None
+    params = to_meta(params)
+    return (params, to_meta(opt)) if with_opt else params
+
+
+def _dp_size(mesh) -> int:
+    shape = SH.mesh_shape(mesh)
+    return math.prod(shape[a] for a in SH.dp_axes(mesh))
+
+
+def build_cell(cfg: ModelConfig, shape: ShapeSpec, mesh, opt_cfg: AdamWConfig | None = None):
+    """``(step, example_args, shardings)`` for one (arch x shape) cell on
+    ``mesh`` (a ``DeviceMesh``; a ``{axis: size}`` mapping gives the
+    shardings without a process group, but the step needs the mesh).
+    ``example_args`` are ``meta`` tensors and ``shardings`` has their
+    structure, a ``NamedSharding`` per tensor:
+
+    * train: ``(params, opt_state, batch)``; parameters by
+      ``params_sharding(fsdp=cfg.fsdp)``, the moments always
+      ``fsdp=True`` (ZeRO-1), and the step's ``accum_shardings`` the
+      moments' layout; ``effective_microbatches(cfg, shape, dp)``
+      microbatches;
+    * prefill: ``(params, batch)``, parameters by ``cfg.fsdp_inference``;
+      the step returns the last position's logits, gathered whole;
+    * decode: ``(params, inputs, cache)``, the cache by
+      ``cache_sharding``; the step returns ``(logits, cache)``, the cache
+      updated in place.
+
+    The inputs are laid out by ``input_sharding``."""
+    dp = _dp_size(mesh)
+    batch = input_specs(cfg, shape, dp_size=dp)
+    b_shard = SH.input_sharding(cfg, mesh, batch)
+
+    if shape.kind == "train":
+        params, opt = abstract_state(cfg, with_opt=True)
+        p_shard = SH.params_sharding(params, mesh, fsdp=cfg.fsdp)
+        # optimizer moments always DP-sharded (ZeRO-1), the accumulator too
+        o_shard = SH.params_sharding(opt, mesh, fsdp=True)
+        step = make_train_step(cfg, opt_cfg, n_microbatches=effective_microbatches(cfg, shape, dp),
+                               accum_shardings=o_shard["mu"])
+        return step, (params, opt, batch), (p_shard, o_shard, b_shard)
+
+    params = abstract_state(cfg, with_opt=False)
+    p_shard = SH.params_sharding(params, mesh, fsdp=cfg.fsdp_inference)
+    if shape.kind == "prefill":
+        return _sharded_prefill_step(cfg), (params, batch), (p_shard, b_shard)
+
+    cache = cache_specs(cfg, shape)
+    c_shard = SH.cache_sharding(cfg, cache, mesh, shape.global_batch)
+    return _sharded_decode_step(cfg), (params, batch, cache), (p_shard, b_shard, c_shard)
+
+
+def _one_rank(t) -> bool:
+    return t.device_mesh.size() == 1
+
+
+def _whole(t: torch.Tensor) -> torch.Tensor:
+    """A DTensor's full value (a plain tensor as it is)."""
+    from torch.distributed.tensor import DTensor
+
+    if not isinstance(t, DTensor):
+        return t
+    return t.to_local() if _one_rank(t) else t.full_tensor()
+
+
+def _local(t: torch.Tensor) -> torch.Tensor:
+    from torch.distributed.tensor import DTensor
+
+    return t.to_local() if isinstance(t, DTensor) else t
+
+
+def _dp_placements(t) -> tuple:
+    """``t``'s placements with every mesh dim but the DP axes replicated."""
+    from torch.distributed.tensor import Replicate
+
+    dp = SH.dp_axes(t.device_mesh)
+    return tuple(p if name in dp else Replicate()
+                 for name, p in zip(t.device_mesh.mesh_dim_names, t.placements))
+
+
+def _relayout(t, placements) -> torch.Tensor:
+    """The local tensor of DTensor ``t`` laid out as ``placements``."""
+    if _one_rank(t) or tuple(t.placements) == tuple(placements):
+        return t.to_local()
+    return t.redistribute(t.device_mesh, placements).to_local()
+
+
+def _store(t, local: torch.Tensor, placements) -> None:
+    """Write ``local`` (laid out as ``placements``) into DTensor ``t``."""
+    from torch.distributed.tensor import DTensor
+
+    mine = t.to_local()
+    if local.data_ptr() == mine.data_ptr() and local.shape == mine.shape:
+        return  # the step wrote the shard in place
+    if not _one_rank(t) and tuple(t.placements) != tuple(placements):
+        local = DTensor.from_local(local, t.device_mesh, placements, run_check=False
+                                   ).redistribute(t.device_mesh, t.placements).to_local()
+    mine.copy_(local)
+
+
+def _gather_rows(x: torch.Tensor, like) -> torch.Tensor:
+    """Rows of ``x`` (dim 0) computed on the DP batch shard of the input
+    DTensor ``like``, gathered whole."""
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+
+    placements = tuple(Shard(0) if isinstance(p, Shard) else Replicate()
+                       for p in _dp_placements(like))
+    if _one_rank(like) or all(isinstance(p, Replicate) for p in placements):
+        return x
+    return DTensor.from_local(x, like.device_mesh, placements, run_check=False).full_tensor()
+
+
+class _Gathered:
+    """A ``Transformer`` whose parameters are a cell's gathered weights:
+    built once (under ``FakeTensorMode``, nothing allocated) and given the
+    whole tensors on each call, so the unsharded code runs unchanged."""
+
+    def __init__(self, cfg: ModelConfig):
+        self.cfg, self.model = cfg, None
+
+    def __call__(self, params: dict) -> T.Transformer:
+        from torch._subclasses.fake_tensor import FakeTensorMode
+
+        whole = {k: _whole(v) for k, v in params.items()}
+        if self.model is None:
+            dev = next(iter(whole.values())).device
+            with FakeTensorMode():
+                self.model = T.Transformer(self.cfg, device=dev)
+        for name, t in whole.items():
+            owner, _, leaf = name.rpartition(".")
+            self.model.get_submodule(owner)._parameters[leaf] = nn.Parameter(
+                t, requires_grad=False)
+        return self.model
+
+
+def _sharded_prefill_step(cfg: ModelConfig):
+    step, gathered = make_prefill_step(cfg), _Gathered(cfg)
+
+    def prefill_step(params, batch):
+        logits = step(gathered(params), {k: _local(v) for k, v in batch.items()})
+        main = next(v for k, v in batch.items() if k in ("tokens", "codes", "embeds"))
+        return _gather_rows(logits, main)
+
+    return prefill_step
+
+
+def _sharded_decode_step(cfg: ModelConfig):
+    step, gathered = make_decode_step(cfg), _Gathered(cfg)
+
+    def decode_step(params, inputs, cache):
+        from torch.distributed.tensor import Replicate, Shard
+
+        main = next(v for k, v in inputs.items() if k in ("tokens", "codes", "embeds"))
+        # the batch dim is DP-sharded in the inputs and the cache alike, or
+        # in neither (then a long-context cache's sequence shards are gathered)
+        by_batch = any(isinstance(p, Shard) for p in _dp_placements(main))
+        keep = SH.tree_map_with_path(
+            lambda _, t: _dp_placements(t) if by_batch else (Replicate(),) * t.device_mesh.ndim,
+            cache)
+        local = _zip_map(_relayout, cache, keep)
+        logits, new = step(gathered(params), {k: _local(v) for k, v in inputs.items()}, local)
+        _zip_map(_store, cache, new, keep)
+        return _gather_rows(logits, main), cache
+
+    return decode_step
+
+
+def _zip_map(fn, tree, *others):
+    """``fn`` over the leaves of ``tree`` and the same places of ``others``."""
+    if isinstance(tree, dict):
+        return {k: _zip_map(fn, v, *(o[k] for o in others)) for k, v in tree.items()}
+    if isinstance(tree, (tuple, list)):
+        return type(tree)(_zip_map(fn, v, *(o[i] for o in others)) for i, v in enumerate(tree))
+    return fn(tree, *others)
+
+
+def _dp_sum_(t: torch.Tensor, mesh) -> torch.Tensor:
+    """Sum ``t`` over the DP ranks of ``mesh`` in place (one ``all_reduce``
+    per DP mesh dim; none on a DP width of 1)."""
+    import torch.distributed as dist
+
+    for axis in SH.dp_axes(mesh):
+        if SH.mesh_shape(mesh)[axis] > 1:
+            dist.all_reduce(t, group=mesh.get_group(axis))
+    return t
+
+
+def _slice(full: torch.Tensor, sharding: SH.NamedSharding) -> torch.Tensor:
+    """This rank's shard of ``full`` (identical on every rank) by ``sharding``."""
+    if sharding.mesh.size() == 1:
+        return full
+    return SH.distribute(full, sharding).to_local()
+
+
+def zero_accumulated_grads(cfg: ModelConfig, model: nn.Module, batch: dict, n: int,
+                           shardings: dict, dtype: torch.dtype | None = None
+                           ) -> tuple[dict, torch.Tensor]:
+    """The ZeRO accumulator of a training cell: ``({name: DTensor laid out
+    by shardings[name]}, loss)``. ``batch`` holds this rank's local
+    microbatches ((n, b, ...), its DP share); ``model`` the whole weights.
+    Microbatch by microbatch, each gradient is cast to ``dtype`` (default
+    ``cfg.grad_accum_dtype``; the gradient's own type when ``n`` is 1, as
+    the step without microbatches keeps it), summed over the DP ranks
+    and this rank's slice added to its shard. The sum is not divided: the
+    caller divides by n x the DP width. The loss is the microbatches'
+    mean, averaged over the DP ranks."""
+    from torch.distributed.tensor import DTensor
+
+    mesh = next(iter(shardings.values())).mesh
+    dt = dtype or torch_dtype(cfg.grad_accum_dtype)
+    accum, losses = {}, []
+    for i in range(n):
+        loss, grads = loss_and_grads(cfg, model, {k: v[i] for k, v in batch.items()}
+                                     if n > 1 else batch)
+        for k, g in grads.items():
+            part = _slice(_dp_sum_(g.to(dt) if n > 1 else g, mesh), shardings[k])
+            if n == 1:
+                accum[k] = part
+                continue
+            if k not in accum:
+                accum[k] = torch.zeros(part.shape, dtype=dt, device=part.device)
+            accum[k] += part
+        losses.append(loss)
+        del grads
+    loss = torch.mean(torch.stack(losses)) if n > 1 else losses[0]
+    dp = _dp_size(mesh)
+    if dp > 1:
+        loss = true_divide(_dp_sum_(loss.clone(), mesh), float(dp))
+    return ({k: DTensor.from_local(a, mesh, shardings[k].placements, run_check=False)
+             for k, a in accum.items()}, loss)
+
+
+def _zero_train_step(cfg: ModelConfig, opt_cfg: AdamWConfig, N: int, shardings: dict):
+    from torch.distributed.tensor import DTensor
+
+    gathered = _Gathered(cfg)
+    mesh = next(iter(shardings.values())).mesh
+
+    def train_step(params, opt_state, batch):
+        model = gathered(params)
+        local = {k: _local(v) for k, v in batch.items()}
+        accum, loss = zero_accumulated_grads(cfg, model, local, max(N, 1), shardings)
+        del model
+        scale = float(max(N, 1) * _dp_size(mesh))
+        grads = {k: DTensor.from_local(true_divide(a.to_local(), scale), mesh, a.placements,
+                                       run_check=False) if scale != 1 else a
+                 for k, a in accum.items()}
+        del accum
+        # the global norm: each leaf's float32 sum of squares over its shards
+        sums = [torch.sum(torch.square(g.float())).full_tensor() for g in grads.values()]
+        gnorm = torch.sqrt(torch.sum(torch.stack(sums)))
+        mu, nu = opt_state["mu"], opt_state["nu"]
+        # each weight's slice at its moments' layout, updated, then stored back
+        p_local = {k: _relayout(p, mu[k].placements) for k, p in params.items()}
+        _, new_state, metrics = adamw_update(
+            {k: g.to_local() for k, g in grads.items()},
+            {"mu": {k: m.to_local() for k, m in mu.items()},
+             "nu": {k: v.to_local() for k, v in nu.items()},
+             "step": _local(opt_state["step"])},
+            p_local, opt_cfg, grad_norm=gnorm)
+        for k, p in params.items():
+            _store(p, p_local[k], mu[k].placements)
+        step = opt_state["step"]
+        step = DTensor.from_local(new_state["step"], step.device_mesh, step.placements,
+                                  run_check=False) if isinstance(step, DTensor) \
+            else new_state["step"]
+        return params, {"mu": mu, "nu": nu, "step": step}, {"loss": loss, **metrics}
+
+    return train_step

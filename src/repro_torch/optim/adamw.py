@@ -61,13 +61,15 @@ def adamw_init(params, moments_dtype: torch.dtype = torch.float32) -> dict:
 
 
 @torch.no_grad()
-def adamw_update(grads: Mapping[str, torch.Tensor], state: dict, params, cfg: AdamWConfig
-                 ) -> tuple[object, dict, dict]:
+def adamw_update(grads: Mapping[str, torch.Tensor], state: dict, params, cfg: AdamWConfig,
+                 grad_norm: torch.Tensor | None = None) -> tuple[object, dict, dict]:
     """One AdamW step. Returns ``(params, state, {"grad_norm", "lr"})``:
-    ``params`` and the moments updated in place, a new step counter."""
+    ``params`` and the moments updated in place, a new step counter.
+    ``grad_norm`` (default: :func:`global_norm` of ``grads``) is the norm
+    to clip by, for a caller whose ``grads`` are shards of the gradient."""
     leaves = named_leaves(params)
     step = state["step"] + 1
-    gnorm = global_norm(grads)
+    gnorm = global_norm(grads) if grad_norm is None else grad_norm
     scale = None
     if cfg.grad_clip_norm is not None:
         # a tensor numerator: ``number / tensor`` multiplies by a reciprocal

@@ -140,3 +140,129 @@ def test_deepseek_pipeline_over_ranks(ranks):
                            devices=["cpu"] * W.WORLD)
     for res in ranks:
         assert torch.equal(res["pipeline"]["deepseek-7b"], want)
+
+
+# --------------------------------------------------------------------------
+# the cells on a 2 x 2 ("data", "model") mesh of the 4 ranks
+# --------------------------------------------------------------------------
+
+
+@pytest.fixture(scope="module")
+def cell_reference():
+    """The unsharded model of the ranks' cells, with their inputs."""
+    cfg, model = W.cell_model()
+    return cfg, model, W.cell_inputs(cfg)
+
+
+def dp_rows(batch: dict, i: int, n: int = 2) -> dict:
+    """Rows ``i`` of ``n`` equal DP shards of every batched entry (dim 0,
+    or dim 1 of a microbatched one)."""
+    out = {}
+    for k, v in batch.items():
+        if v.dim() == 0:
+            out[k] = v
+        else:
+            d = 1 if v.dim() == 3 else 0
+            out[k] = v.chunk(n, dim=d)[i]
+    return out
+
+
+def shard_of(full: torch.Tensor, spec: tuple, coordinate: tuple) -> torch.Tensor:
+    """The block of ``full`` that the mesh coordinate holds under ``spec``
+    (even splits; a tuple entry splits major axis first)."""
+    axes = list(W.CELL_MESH)
+    for d, entry in enumerate(spec):
+        if entry is None:
+            continue
+        names = (entry,) if isinstance(entry, str) else entry
+        index, n = 0, 1
+        for a in names:
+            index = index * W.CELL_MESH[a] + coordinate[axes.index(a)]
+            n *= W.CELL_MESH[a]
+        full = full.chunk(n, dim=d)[index]
+    return full
+
+
+@pytest.mark.parametrize("name", ["prefill 1", "prefill 2"])
+def test_prefill_cell_on_a_mesh_equals_the_unsharded_model(ranks, cell_reference, name):
+    """Placements applied: every rank's gathered logits equal the unsharded
+    prefill step's, bit for bit (batch 2 is DP-sharded: each DP shard's
+    rows against the step on those rows)."""
+    from repro_torch.launch.steps import make_prefill_step
+
+    cfg, model, inputs = cell_reference
+    step = make_prefill_step(cfg)
+    batch = inputs[name]
+    n = batch["tokens"].shape[0]
+    want = torch.cat([step(model, dp_rows(batch, i, n)) for i in range(n)])
+    for res in ranks:
+        assert torch.equal(res["cells"][name], want)
+
+
+def test_decode_cell_on_a_mesh_equals_the_unsharded_model(ranks, cell_reference):
+    """The decode cell's logits and the cache row it wrote equal the
+    unsharded decode step's on each DP shard of the batch and cache."""
+    from repro_torch.launch.steps import make_decode_step
+
+    cfg, model, inputs = cell_reference
+    inp, cache = inputs["decode"]
+    step = make_decode_step(cfg)
+    logits, rows = [], []
+    for i in range(2):
+        c = {k: v.chunk(2, dim=1)[i].clone() for k, v in cache.items()}
+        out, c = step(model, dp_rows(inp, i), c)
+        logits.append(out)
+        rows.append({k: v[:, :, W.CELL_INDEX] for k, v in c.items()})
+    for res in ranks:
+        got, got_rows = res["cells"]["decode"]
+        assert torch.equal(got, torch.cat(logits))
+        for k in cache:
+            assert torch.equal(got_rows[k], torch.cat([r[k] for r in rows], dim=1)), k
+
+
+def test_zero_accumulator_shards_equal_the_single_process_composition(ranks, cell_reference):
+    """Each rank's accumulator shard is bit-equal to its block of an
+    accumulator summed in one process, microbatch by microbatch in order,
+    as (DP shard 0's gradient + DP shard 1's gradient) in float32: a
+    two-term sum does not depend on its order. The moments' ZeRO rule
+    shards the large leaves over "data" too; the loss is the mean over
+    microbatches and DP shards."""
+    from repro_torch.launch.steps import loss_and_grads
+    from repro_torch.optim import adamw_init
+    from repro_torch.parallel.sharding import params_sharding
+
+    cfg, model, inputs = cell_reference
+    batch = inputs["train"]
+    accum, losses = None, []
+    for i in range(2):
+        mb = {k: v[i] for k, v in batch.items()}
+        parts = [loss_and_grads(cfg, model, dp_rows(mb, r)) for r in range(2)]
+        step_sum = {k: parts[0][1][k].float() + parts[1][1][k].float() for k in parts[0][1]}
+        accum = step_sum if accum is None else {k: accum[k] + g for k, g in step_sum.items()}
+        losses.append((parts[0][0] + parts[1][0]) / 2)
+    specs = params_sharding(adamw_init(dict(model.named_parameters())), W.CELL_MESH,
+                            fsdp=True)["mu"]
+    assert any("data" in s.spec for s in specs.values())  # ZeRO shards some leaves over DP
+    for res in ranks:
+        cells = res["cells"]
+        for k, got in cells["accum"].items():
+            want = shard_of(accum[k], specs[k].spec, cells["coordinate"])
+            assert got.shape == want.shape and torch.equal(got, want), k
+        assert abs(float(cells["accum loss"]) - float(sum(losses) / 2)) <= 1e-6
+
+
+def test_train_cell_leaves_the_ranks_equal(ranks, cell_reference):
+    """After one train step with ``accum_shardings``, every rank holds the
+    same parameters (each gathered from the updated shards), different
+    from the initial ones and finite, and the same loss and norm."""
+    _, model, _ = cell_reference
+    first = ranks[0]["cells"]["train"]
+    init = dict(model.named_parameters())
+    for k, p in first["params"].items():
+        assert torch.isfinite(p).all() and not torch.equal(p, init[k]), k
+    for res in ranks[1:]:
+        got = res["cells"]["train"]
+        for k, p in got["params"].items():
+            assert torch.equal(p, first["params"][k]), k
+        for m in ("loss", "grad_norm", "lr"):
+            assert torch.equal(got["metrics"][m], first["metrics"][m]), m

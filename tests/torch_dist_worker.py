@@ -89,6 +89,85 @@ def pipeline_refusals(group) -> dict:
     return out
 
 
+# the 2 x 2 ("data", "model") cells: a reduced deepseek-7b wide enough that
+# the ZeRO rule (leaves of >= 2^22 bytes at 4 bytes an element) shards the
+# embedding, the head and the stacked MLP weights' moments over "data"
+CELL_MESH = {"data": 2, "model": 2}
+CELL_SEQ, CELL_CACHE, CELL_INDEX = 8, 16, 6
+
+
+def cell_model():
+    from repro_torch.configs import get_config
+    from repro_torch.models import transformer as PT
+
+    cfg = get_config("deepseek-7b").reduced(n_layers=4, d_model=256, d_ff=1024, vocab=4096,
+                                            train_microbatches=2)
+    return cfg, PT.init_params(cfg, generator=torch.Generator().manual_seed(5), device="cpu")
+
+
+def cell_inputs(cfg) -> dict:
+    """Seeded inputs of the cells: prefill at batch 1 (not DP-sharded) and
+    2, decode at batch 2 over a random cache, train as 2 microbatches of 2."""
+    from repro_torch.models import transformer as PT
+
+    g = torch.Generator().manual_seed(6)
+    tok = lambda *shape: torch.randint(0, cfg.vocab, shape, generator=g, dtype=torch.int32)  # noqa: E731
+    cache = PT.init_cache(cfg, 2, CELL_CACHE, device="cpu")
+    for t in cache.values():
+        t.normal_(generator=g)
+    return {"prefill 1": {"tokens": tok(1, CELL_SEQ)},
+            "prefill 2": {"tokens": tok(2, CELL_SEQ)},
+            "decode": ({"tokens": tok(2, 1), "cur_index": torch.tensor(CELL_INDEX, dtype=torch.int32)},
+                       cache),
+            "train": {"tokens": tok(2, 2, CELL_SEQ), "labels": tok(2, 2, CELL_SEQ)}}
+
+
+def cell_shapes():
+    from repro_torch.configs import ShapeSpec
+
+    return {"prefill 1": ShapeSpec("prefill", "prefill", CELL_SEQ, 1),
+            "prefill 2": ShapeSpec("prefill", "prefill", CELL_SEQ, 2),
+            "decode": ShapeSpec("decode", "decode", CELL_CACHE, 2),
+            "train": ShapeSpec("train", "train", CELL_SEQ, 4)}
+
+
+def cell_cases() -> dict:
+    """The cells on a 2 x 2 mesh of the 4 ranks, every argument laid out by
+    its sharding: gathered prefill and decode logits, the cache row the
+    decode wrote, this rank's ZeRO accumulator shards (two microbatches),
+    and the parameters after one train step."""
+    from repro_torch.launch import steps as ST
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.optim import adamw_init
+    from repro_torch.parallel import sharding as SH
+
+    mesh = make_host_mesh(model_parallel=2, device="cpu")
+    cfg, model = cell_model()
+    inputs, shapes = cell_inputs(cfg), cell_shapes()
+    params = dict(model.named_parameters())
+    out = {"coordinate": tuple(mesh.get_coordinate())}
+    for name in ("prefill 1", "prefill 2"):
+        step, _, (p_sh, b_sh) = ST.build_cell(cfg, shapes[name], mesh)
+        out[name] = step(SH.distribute(params, p_sh), SH.distribute(inputs[name], b_sh))
+    step, _, (p_sh, b_sh, c_sh) = ST.build_cell(cfg, shapes["decode"], mesh)
+    inp, cache = inputs["decode"]
+    cache = SH.distribute(cache, c_sh)
+    logits, cache = step(SH.distribute(params, p_sh), SH.distribute(inp, b_sh), cache)
+    out["decode"] = (logits, {k: v.full_tensor()[:, :, CELL_INDEX] for k, v in cache.items()})
+    step, _, (p_sh, o_sh, b_sh) = ST.build_cell(cfg, shapes["train"], mesh)
+    batch = SH.distribute(inputs["train"], b_sh)
+    local = {k: v.to_local() for k, v in batch.items()}
+    accum, loss = ST.zero_accumulated_grads(cfg, model, local, 2, o_sh["mu"])
+    out["accum"] = {k: a.to_local() for k, a in accum.items()}
+    out["accum loss"] = loss
+    p_d = SH.distribute(params, p_sh)
+    p_d, o_d, metrics = step(p_d, SH.distribute(adamw_init(params), o_sh), batch)
+    out["train"] = {"params": {k: v.full_tensor() for k, v in p_d.items()},
+                    "mu": {k: v.to_local() for k, v in o_d["mu"].items()},
+                    "metrics": metrics}
+    return out
+
+
 def nodes(res) -> dict:
     if isinstance(res, dict):
         return {n: nodes(r) for n, r in res.items()}
@@ -139,6 +218,7 @@ def run_rank(rank: int, world: int, url: str, out_dir: str) -> None:
     results["pipeline"]["deepseek-7b"] = PP.run_pipeline(
         Plan(TOY_SPLITS["uneven"]), apply, stacked, 8, x, group=dist.group.WORLD)
     results["pipeline refuses autograd"] = pipeline_refusals(dist.group.WORLD)
+    results["cells"] = cell_cases()
     with open(os.path.join(out_dir, f"rank{rank}.pkl"), "wb") as f:
         pickle.dump(results, f)
     dist.barrier()
