@@ -298,9 +298,33 @@ reference package ``repro``) on the card and fails on any fault:
    blocks in order per microbatch, the flash launches equal to ticks x
    stages x max depth (88 and 132), the per-tick ring payload beside the
    plan's ``boundary_act_bytes``, the wall and tokens/s of each plan;
-22. a JSON line of per-kernel results (the DP rows' launches by path
+22. the launch tooling (``parallel.sharding``, ``launch.mesh``,
+   ``launch.steps.build_cell``, ``launch.dryrun``) and the pipeline's
+   gradients: (a) deepseek-7b's cells at full width on a 1 x 1 ("data",
+   "model") mesh over a one-rank NCCL group (an in-memory store, no
+   rendezvous), every argument laid out by its sharding: prefill_32k
+   (30 layers, 32,768 tokens, batch cut from 32 to 1: 30 flash launches,
+   all wgmma), decode_32k (a 32,768-row cache of random rows, batch cut
+   from 128 to 2: 32.2 GB of bf16 cache) and train_4k (4 of 30 layers,
+   batch cut from 256 to 8: 8 microbatches of 1 x 4,096, the cell's
+   ``accum_shardings``), each bit-equal to the same step without a mesh
+   on the same weights and inputs (the train step on a copy: loss, norm,
+   weights and moments), each wall beside the meshless step's, and the
+   peak allocated bytes beside ``run_cell``'s argument bytes on this mesh;
+   (b) in a ``spawn`` process that holds the fake backend (run beside (a)
+   and (c); the main process never holds it), ``run_cell`` for every
+   config x its applicable shapes on both production meshes: 64 records,
+   each one's per-device argument and resident bytes against the card's
+   ``total_memory``; (c) deepseek-7b's blocks at full width (4 of 30, bf16,
+   attention on the chunked core as in training) through the pipeline over
+   2 stages, 4 microbatches of 1 x 2,048: every stacked weight's gradient
+   within 2 (M - 1) u sum_m |g_m| of the blocks in order's, the input's
+   bit-equal, 0 flash launches; the group form refuses autograd on the
+   one-rank group and, under ``no_grad``, equals the blocks in order;
+23. a JSON line of per-kernel results (the DP rows' launches by path
    with ``"examples"`` and ``"sharded"``; flash with granite-34b's and
-   zamba2's launches and their prefill shapes' times and ``"pipeline"``;
+   zamba2's launches and their prefill shapes' times, ``"pipeline"`` and
+   ``"build_cell"``;
    the SSD scan's launches by path and its time at zamba2's prefill
    shape; ``"training"``: 0 for both), the card's memory size, the card
    line, and the last line ``{"ok": true, "device": {...}}``.
@@ -4627,6 +4651,355 @@ def phase_multi_device(dev, card) -> dict:
     return {"sharded": sharded, "pipeline": pipe["launches"], "pipe": pipe}
 
 
+CELL_ARCH = "deepseek-7b"
+# the three cells of phase 22 (a), each cut to one card: (shape, batch,
+# layers); the reference's batches are 32, 128 and 256, its depth 30
+CELL_CUTS = {"prefill_32k": (1, 30), "decode_32k": (2, 30), "train_4k": (8, 4)}
+GRAD_LAYERS, GRAD_M, GRAD_SEQ = 4, 4, 2048  # (c): 2 stages of 2 layers
+
+
+def one_rank_mesh():
+    """A (1, 1) ("data", "model") mesh over a one-rank NCCL group brought up
+    from an in-memory store (no rendezvous on the network)."""
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import make_host_mesh
+
+    dist.init_process_group("nccl", store=dist.HashStore(), rank=0, world_size=1)
+    return make_host_mesh(model_parallel=1)
+
+
+def cell_shape(name):
+    from repro_torch.configs import SHAPES, ShapeSpec
+
+    full = SHAPES[name]
+    return ShapeSpec(name, full.kind, full.seq_len, CELL_CUTS[name][0])
+
+
+def timed(fn):
+    import torch
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def cell_memory(args, shardings) -> tuple[int, float]:
+    """(``run_cell``'s argument bytes of these arguments on this mesh, the
+    step's peak allocated bytes so far)."""
+    import torch
+
+    from repro_torch.launch.dryrun import argument_bytes
+
+    return (sum(argument_bytes(a, s) for a, s in zip(args, shardings)),
+            torch.cuda.max_memory_allocated())
+
+
+def serving_cells(dev, mesh, card) -> dict:
+    """(a) prefill_32k and decode_32k at full width on the 1 x 1 mesh, each
+    bit-equal to the same step without a mesh on the same weights."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attention import ops as FA
+    from repro_torch.launch.steps import build_cell, make_decode_step, make_prefill_step
+    from repro_torch.models import transformer as T
+    from repro_torch.parallel.sharding import distribute
+
+    cfg = replace(get_config(CELL_ARCH), use_flash_kernel=True)
+    model, t_init = timed(lambda: T.init_params(
+        cfg, generator=torch.Generator(device=dev).manual_seed(2200), device=dev))
+    weights = dict(model.named_parameters())
+    g = torch.Generator(device=dev).manual_seed(2201)
+    out = {}
+
+    shape = cell_shape("prefill_32k")
+    step, args, sh = build_cell(cfg, shape, mesh)
+    batch = {"tokens": torch.randint(0, cfg.vocab, (shape.global_batch, shape.seq_len),
+                                     generator=g, device=dev, dtype=torch.int32)}
+    params = distribute(weights, sh[0])
+    torch.cuda.reset_peak_memory_stats()
+    FA.reset_launch_count()
+    got, wall = timed(lambda: step(params, distribute(batch, sh[1])))
+    launches, wgmma = FA.FLASH_LAUNCHES, FA.FLASH_WGMMA_LAUNCHES
+    arg_bytes, peak = cell_memory(args, sh)
+    want, wall_ref = timed(lambda: make_prefill_step(cfg)(model, batch))
+    equal = torch.equal(got, want)
+    _, warm = timed(lambda: step(params, distribute(batch, sh[1])))
+    print(f"  (a) {CELL_ARCH} at full width ({cfg.n_layers} layers, {cfg.dtype}, flash kernel), weights "
+          f"made in {t_init:.1f} s; mesh {tuple(mesh.shape)} {mesh.mesh_dim_names} on a one-rank "
+          f"NCCL group")
+    print(f"  prefill_32k (batch {shape.global_batch} of 32, {shape.seq_len} tokens): logits "
+          f"{tuple(got.shape)} bit-equal to make_prefill_step without a mesh: {equal}; "
+          f"{launches} flash launches ({wgmma} wgmma) in the cell; walls: the cell's first call "
+          f"{wall:.3f} s, no mesh {wall_ref:.3f} s, the cell again {warm:.3f} s; peak "
+          f"allocated {peak / 1e9:.2f} GB beside run_cell's argument bytes "
+          f"{arg_bytes / 1e9:.3f} GB [{card}]")
+    if not equal or launches != cfg.n_layers or wgmma != cfg.n_layers:
+        raise AssertionError(f"prefill cell: equal {equal}, {launches} flash launches "
+                             f"({wgmma} wgmma), expected {cfg.n_layers}")
+    out["prefill_32k"] = {"wall_s": wall, "wall_no_mesh_s": wall_ref, "wall_again_s": warm,
+                          "peak_bytes": peak, "argument_bytes": arg_bytes, "launches": launches}
+    del got, want, params
+    torch.cuda.empty_cache()
+
+    shape = cell_shape("decode_32k")
+    step, args, sh = build_cell(cfg, shape, mesh)
+    cache, t_cache = timed(lambda: T.init_cache(cfg, shape.global_batch, shape.seq_len,
+                                                device=dev))
+    for t in cache.values():
+        t.normal_(generator=g)
+    last = shape.seq_len - 1
+    inputs = {"tokens": torch.randint(0, cfg.vocab, (shape.global_batch, 1), generator=g,
+                                      device=dev, dtype=torch.int32),
+              "cur_index": torch.tensor(last, dtype=torch.int32, device=dev)}
+    before = cache["k"][:, :, last].clone()
+    params = distribute(weights, sh[0])
+    torch.cuda.reset_peak_memory_stats()
+    FA.reset_launch_count()
+    (got, _), wall = timed(lambda: step(params, distribute(inputs, sh[1]),
+                                        distribute(cache, sh[2])))
+    arg_bytes, peak = cell_memory(args, sh)
+    written = {k: v[:, :, last].clone() for k, v in cache.items()}
+    # the step without a mesh on the same cache writes the same row again
+    (want, _), wall_ref = timed(lambda: make_decode_step(cfg)(model, inputs, cache))
+    equal = torch.equal(got, want) and all(torch.equal(written[k], cache[k][:, :, last])
+                                           for k in cache)
+    _, warm = timed(lambda: step(params, distribute(inputs, sh[1]), distribute(cache, sh[2])))
+    cache_gb = sum(t.numel() * t.element_size() for t in cache.values()) / 1e9
+    print(f"  decode_32k (batch {shape.global_batch} of 128, a {shape.seq_len}-row cache of "
+          f"{cache_gb:.1f} GB made in {t_cache:.1f} s, random rows, the step at row {last}): "
+          f"logits and the written cache row bit-equal to make_decode_step without a mesh: "
+          f"{equal}; the row changed: {not torch.equal(before, written['k'])}; flash launches "
+          f"{FA.FLASH_LAUNCHES}; walls: the cell's first call {wall * 1e3:.1f} ms, no mesh "
+          f"{wall_ref * 1e3:.1f} ms, the cell again {warm * 1e3:.1f} ms; peak allocated "
+          f"{peak / 1e9:.2f} GB beside run_cell's argument bytes {arg_bytes / 1e9:.3f} GB "
+          f"[{card}]")
+    if not equal or torch.equal(before, written["k"]):
+        raise AssertionError("decode cell != make_decode_step without a mesh")
+    out["decode_32k"] = {"wall_s": wall, "wall_no_mesh_s": wall_ref, "wall_again_s": warm,
+                         "peak_bytes": peak, "argument_bytes": arg_bytes}
+    return out
+
+
+def training_cell(dev, mesh, card) -> tuple[dict, object]:
+    """(a) train_4k at full width, 4 of 30 layers, 8 microbatches of 1 x
+    4,096 with the cell's ``accum_shardings``: loss, norm, every weight
+    and moment bit-equal to ``make_train_step(accum_shardings=None)`` on
+    a copy of the same weights. Returns the record and the copy."""
+    import torch
+
+    from repro_torch.configs import effective_microbatches, get_config
+    from repro_torch.kernels.flash_attention import ops as FA
+    from repro_torch.launch.steps import build_cell, make_train_step
+    from repro_torch.models import transformer as T
+    from repro_torch.optim import adamw_init
+    from repro_torch.parallel.sharding import distribute
+
+    layers = CELL_CUTS["train_4k"][1]
+    cfg = replace(get_config(CELL_ARCH), n_layers=layers)
+    shape = cell_shape("train_4k")
+    n = effective_microbatches(cfg, shape, 1)
+    models = [T.init_params(cfg, generator=torch.Generator(device=dev).manual_seed(2202),
+                            device=dev) for _ in range(2)]
+    opts = [adamw_init(dict(m.named_parameters())) for m in models]
+    g = torch.Generator(device=dev).manual_seed(2203)
+    batch = {k: torch.randint(0, cfg.vocab, (n, shape.global_batch // n, shape.seq_len),
+                              generator=g, device=dev, dtype=torch.int32)
+             for k in ("tokens", "labels")}
+    step, args, sh = build_cell(cfg, shape, mesh)
+    params = distribute(dict(models[0].named_parameters()), sh[0])
+    opt = distribute(opts[0], sh[1])
+    torch.cuda.reset_peak_memory_stats()
+    FA.reset_launch_count()
+    (_, opt, got), wall = timed(lambda: step(params, opt, distribute(batch, sh[2])))
+    arg_bytes, peak = cell_memory(args, sh)
+    (_, opt_ref, want), wall_ref = timed(lambda: make_train_step(cfg, n_microbatches=n)(
+        models[1], opts[1], batch))
+    same = {"metrics": all(torch.equal(got[k], want[k]) for k in want),
+            "weights": all(torch.equal(a, b) for a, b in zip(models[0].parameters(),
+                                                              models[1].parameters())),
+            "moments": all(torch.equal(opt[m][k].to_local(), opt_ref[m][k])
+                           for m in ("mu", "nu") for k in opt_ref[m])}
+    # a second step of the cell, timed warm (the first built its template
+    # and met the allocator's growth and the group's first collective)
+    _, warm = timed(lambda: step(params, opt, distribute(batch, sh[2])))
+    print(f"  train_4k ({layers} of 30 layers, {T.param_count(models[0]):,} params, {cfg.dtype}, "
+          f"float32 moments, remat; batch {shape.global_batch} of 256 as {n} microbatches of "
+          f"{shape.global_batch // n} x {shape.seq_len}, the cell's accum_shardings): loss "
+          f"{float(got['loss']):.6f}, grad norm {float(got['grad_norm']):.6f}; bit-equal to "
+          f"make_train_step(accum_shardings=None) on a copy: {same}; flash launches "
+          f"{FA.FLASH_LAUNCHES}; walls: the cell's first step {wall:.3f} s, no mesh "
+          f"{wall_ref:.3f} s, the cell's second step {warm:.3f} s; peak allocated "
+          f"{peak / 1e9:.2f} GB (both copies) beside run_cell's argument bytes "
+          f"{arg_bytes / 1e9:.3f} GB [{card}]")
+    if not all(same.values()):
+        raise AssertionError(f"train cell != the step without a mesh: {same}")
+    model = models[1]
+    del models, opts, opt, opt_ref, params
+    torch.cuda.empty_cache()
+    return {"wall_s": wall, "wall_no_mesh_s": wall_ref, "wall_again_s": warm,
+            "peak_bytes": peak, "argument_bytes": arg_bytes}, model
+
+
+def pipeline_gradients(dev, model, card) -> dict:
+    """(c) the pipeline's gradients at full width: ``model``'s blocks (4 of
+    30) over 2 stages, 4 microbatches of 1 x 2,048, attention on the
+    chunked core as in training. Each stacked weight's gradient within
+    2 (M - 1) u sum_m |g_m| (bf16's u, M per-microbatch terms) of the
+    blocks in order's, the input's equal; the group form refuses
+    autograd on the one-rank group and, under no_grad, equals the blocks
+    in order."""
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attention import ops as FA
+    from repro_torch.parallel import pipeline as PP
+
+    cfg = replace(get_config(CELL_ARCH), n_layers=GRAD_LAYERS)
+    assert not cfg.use_flash_kernel
+    for p in model.parameters():
+        p.requires_grad_(True)
+    stacked = PP.stack_blocks(model)
+    g = torch.Generator(device=dev).manual_seed(2204)
+    with torch.no_grad():
+        x = model.embed(torch.randint(0, cfg.vocab, (GRAD_M, GRAD_SEQ), generator=g,
+                                      device=dev))[:, None].clone()
+    x.requires_grad_(True)
+    head = torch.randn(x.shape, generator=g, device=dev)
+    pos = torch.arange(GRAD_SEQ, dtype=torch.int32, device=dev).expand(1, GRAD_SEQ)
+    apply = PP.transformer_block_apply(model, cfg, pos)
+    plan = SimpleNamespace(splits=(GRAD_LAYERS // 2,))
+    leaves = [*stacked.values(), x]
+
+    def in_order(xs):
+        outs = []
+        for h in xs:
+            for i in range(GRAD_LAYERS):
+                h = apply({k: v[i] for k, v in stacked.items()}, h)
+            outs.append(h)
+        return torch.stack(outs)
+
+    FA.reset_launch_count()
+    torch.cuda.reset_peak_memory_stats()
+    got, wall = timed(lambda: torch.autograd.grad(torch.sum(PP.run_pipeline(
+        plan, apply, stacked, GRAD_LAYERS, x, devices=[dev] * 2).float() * head), leaves))
+    peak = torch.cuda.max_memory_allocated()
+    want, wall_ref = timed(lambda: torch.autograd.grad(
+        torch.sum(in_order(x).float() * head), leaves))
+    sizes = [torch.zeros(t.shape, device=dev) for t in stacked.values()]
+    for m in range(GRAD_M):
+        xm = x[m:m + 1].detach().requires_grad_(True)
+        terms = torch.autograd.grad(torch.sum(in_order(xm).float() * head[m:m + 1]),
+                                    list(stacked.values()))
+        for s, t in zip(sizes, terms):
+            s += t.float().abs()
+    u = torch.finfo(x.dtype).eps / 2
+    shares = []
+    for name, a, b, s in zip(stacked, got, want, sizes):
+        limit = 2 * (GRAD_M - 1) * u * s
+        gap = (a.float() - b.float()).abs()
+        if not bool((gap <= limit).all()):
+            raise AssertionError(f"pipeline gradient of {name} beyond 2 (M - 1) u sum |g_m|")
+        shares.append(float((gap / limit.clamp_min(torch.finfo(torch.float32).tiny)).max()))
+    input_equal = torch.equal(got[-1], want[-1])
+    grad_equal = sum(torch.equal(a, b) for a, b in zip(got, want))
+    refused = None
+    try:
+        PP.run_pipeline(SimpleNamespace(splits=()), apply, stacked, GRAD_LAYERS, x,
+                        group=dist.group.WORLD)
+    except RuntimeError as e:
+        refused = str(e)
+    with torch.no_grad():
+        fwd = PP.run_pipeline(SimpleNamespace(splits=()), apply, stacked, GRAD_LAYERS, x,
+                              group=dist.group.WORLD)
+        fwd_equal = torch.equal(fwd, in_order(x))
+    for p in model.parameters():
+        p.requires_grad_(False)
+    print(f"  (c) pipeline gradients: {CELL_ARCH} blocks at full width, {GRAD_LAYERS} of 30 "
+          f"layers over 2 stages, {GRAD_M} microbatches of 1 x {GRAD_SEQ}, {cfg.dtype}, chunked "
+          f"attention (flash launches {FA.FLASH_LAUNCHES}): every stacked weight's gradient "
+          f"within 2 (M - 1) u sum_m |g_m| of the blocks in order's (largest share of the "
+          f"limit {max(shares):.4f}; {grad_equal - input_equal} of {len(stacked)} bit-equal), "
+          f"the input's bit-equal: {input_equal}; forward + backward {wall:.3f} s (pipeline) vs "
+          f"{wall_ref:.3f} s (in order), peak {peak / 1e9:.2f} GB; the group form under "
+          f"autograd raised: {refused is not None}; under no_grad (1 stage on the one-rank "
+          f"group) bit-equal to the blocks in order: {fwd_equal} [{card}]")
+    if not input_equal or refused is None or "has no backward" not in refused or not fwd_equal \
+            or FA.FLASH_LAUNCHES:
+        raise AssertionError("pipeline gradients on the card")
+    return {"max_share": max(shares), "wall_s": wall, "wall_in_order_s": wall_ref}
+
+
+def dryrun_records(capacity: int) -> list:
+    """(b), in a ``spawn`` process: every config x applicable shape on both
+    production meshes under the fake backend (its lines kept from stdout)."""
+    import contextlib
+    import io
+
+    import torch
+
+    from repro_torch.launch import dryrun
+
+    torch.set_num_threads(1)
+    with contextlib.redirect_stdout(io.StringIO()):
+        return dryrun.run_cells(dryrun.all_cells(), [False, True], capacity_bytes=capacity)
+
+
+def print_dryrun(records: list, capacity: int, card) -> None:
+    from repro_torch.launch.dryrun import all_cells
+
+    want = {(a, s, m) for a, s in all_cells() for m in ("16x16", "2x16x16")}
+    got = {(r["arch"], r["shape"], r["mesh"]) for r in records}
+    print(f"  (b) the dry run in a spawn process holding the fake backend: {len(records)} "
+          f"records (every config x its applicable shapes on 16x16 and 2x16x16); per-device "
+          f"argument / resident GB against total_memory {capacity / 1e9:.2f} GB [{card}]")
+    for arch in dict.fromkeys(r["arch"] for r in records):
+        row = [f"{r['shape']}@{r['mesh']} {r['memory']['argument_bytes'] / 1e9:.3f}/"
+               f"{r['memory']['resident_bytes'] / 1e9:.3f}{'' if r['fits'] else ' OVER'}"
+               for r in records if r["arch"] == arch]
+        print(f"    {arch}: {'; '.join(row)}")
+    if got != want or len(records) != 64:
+        raise AssertionError(f"dry run: {len(records)} records, missing {sorted(want - got)}")
+    print(f"    {sum(r['fits'] for r in records)} of {len(records)} fit; build walls "
+          f"{min(r['build_s'] for r in records):.2f}-{max(r['build_s'] for r in records):.2f} s")
+
+
+def phase_launch_tooling(dev, card) -> dict:
+    """Phase 22: (a) the cells on a 1 x 1 mesh, (b) the dry run (in a spawn
+    process beside (a) and (c)), (c) the pipeline's gradients."""
+    import multiprocessing as mp
+    from concurrent.futures import ProcessPoolExecutor
+
+    import torch
+    import torch.distributed as dist
+
+    t0 = time.perf_counter()
+    torch.cuda.empty_cache()
+    capacity = torch.cuda.get_device_properties(0).total_memory
+    with ProcessPoolExecutor(max_workers=1, mp_context=mp.get_context("spawn")) as pool:
+        dry = pool.submit(dryrun_records, capacity)
+        mesh = one_rank_mesh()
+        try:
+            cells = serving_cells(dev, mesh, card)
+            torch.cuda.empty_cache()
+            cells["train_4k"], model = training_cell(dev, mesh, card)
+            grads = pipeline_gradients(dev, model, card)
+            del model
+            torch.cuda.empty_cache()
+        finally:
+            dist.destroy_process_group()
+        t_ac = time.perf_counter() - t0
+        records = dry.result()
+    print_dryrun(records, capacity, card)
+    print(f"  phase 22: {time.perf_counter() - t0:.1f} s ((a) and (c) {t_ac:.1f} s)")
+    return {"cells": cells, "grads": grads, "records": len(records),
+            "launches": cells["prefill_32k"]["launches"]}
+
+
 def main() -> int:
     import torch
 
@@ -4748,6 +5121,14 @@ def main() -> int:
     flash_launches += multi["pipeline"]
     wgmma_launches += multi["pipeline"]
 
+    card = card_line()
+    print(f"== 22 the launch tooling: {CELL_ARCH}'s cells on a 1 x 1 mesh (build_cell: "
+          f"prefill_32k, decode_32k, train_4k), the dry run on the production meshes, the "
+          f"pipeline's gradients [{card}]")
+    launch = phase_launch_tooling(dev, card)
+    flash_launches += launch["launches"]
+    wgmma_launches += launch["launches"]
+
     kernels = []
     by_variant = {"tiled": path["by_variant"]["tiled"] + planner["tiled"] + replan["tiled"]
                   + twins["tiled"],
@@ -4783,7 +5164,7 @@ def main() -> int:
                                 "simt": flash_launches - wgmma_launches},
         "launches_by_path": {"deepseek-7b": deepseek_launches, **families["launches"],
                              "zamba2-1.2b": zamba["flash"], "training": train_launches["flash"],
-                             "pipeline": multi["pipeline"]},
+                             "pipeline": multi["pipeline"], "build_cell": launch["launches"]},
         **times["flash_attention"],
         "by_config": {**families["by_config"], "zamba2-1.2b": hybrids["flash_at"]},
     })

@@ -1,1 +1,2 @@
-"""Step builders for the serving path."""
+"""Step builders (train, prefill, decode), the cells that lay them out on
+a mesh, the production meshes and the dry run."""

@@ -65,17 +65,12 @@ def fake_world(world_size: int):
 
 def argument_bytes(tree, shardings) -> int:
     """Bytes of this rank's shards of ``tree`` laid out by ``shardings``."""
-    from repro_torch.parallel.sharding import distribute
+    from repro_torch.parallel.sharding import distribute, tree_map
 
-    def walk(t, s) -> int:
-        if isinstance(t, dict):
-            return sum(walk(v, s[k]) for k, v in t.items())
-        if isinstance(t, (tuple, list)):
-            return sum(walk(v, o) for v, o in zip(t, s))
-        local = distribute(t, s).to_local()
-        return local.numel() * local.element_size()
-
-    return walk(tree, shardings)
+    sizes = []
+    tree_map(lambda d: sizes.append(d.to_local().numel() * d.to_local().element_size()),
+             distribute(tree, shardings))
+    return sum(sizes)
 
 
 def _logits_bytes(cfg, batch: int, seq: int) -> int:

@@ -43,8 +43,8 @@ from contextlib import contextmanager
 import torch
 from torch import nn
 
-from repro_torch.configs import ShapeSpec, cache_specs, effective_microbatches, input_specs
-from repro_torch.configs import to_meta
+from repro_torch.configs import (ShapeSpec, cache_specs, effective_microbatches, input_specs,
+                                 to_meta)
 from repro_torch.core.quantization import true_divide
 from repro_torch.models import transformer as T
 from repro_torch.models.config import ModelConfig
@@ -107,6 +107,10 @@ def make_train_step(cfg: ModelConfig, opt_cfg: AdamWConfig | None = None,
     opt_cfg = opt_cfg or AdamWConfig()
     N = cfg.train_microbatches if n_microbatches is None else n_microbatches
     if accum_shardings is not None:
+        if not isinstance(accum_shardings, dict) or not all(
+                isinstance(s, SH.NamedSharding) for s in accum_shardings.values()):
+            raise TypeError("accum_shardings: a {name: NamedSharding} mapping (build_cell's "
+                            f"moment layout), got {type(accum_shardings).__name__}")
         return _zero_train_step(cfg, opt_cfg, N, accum_shardings)
 
     def train_step(params, opt_state, batch):
@@ -298,14 +302,16 @@ def _gather_rows(x: torch.Tensor, like) -> torch.Tensor:
 
 
 class _Gathered:
-    """A ``Transformer`` whose parameters are a cell's gathered weights:
-    built once (under ``FakeTensorMode``, nothing allocated) and given the
-    whole tensors on each call, so the unsharded code runs unchanged."""
+    """A ``Transformer`` whose parameters are a cell's gathered weights for
+    the duration of a ``with`` block: built once (under ``FakeTensorMode``,
+    nothing allocated), given the whole tensors on entry and let go of
+    them on exit, so the unsharded code runs unchanged."""
 
     def __init__(self, cfg: ModelConfig):
         self.cfg, self.model = cfg, None
 
-    def __call__(self, params: dict) -> T.Transformer:
+    @contextmanager
+    def __call__(self, params: dict):
         from torch._subclasses.fake_tensor import FakeTensorMode
 
         whole = {k: _whole(v) for k, v in params.items()}
@@ -313,18 +319,23 @@ class _Gathered:
             dev = next(iter(whole.values())).device
             with FakeTensorMode():
                 self.model = T.Transformer(self.cfg, device=dev)
-        for name, t in whole.items():
-            owner, _, leaf = name.rpartition(".")
-            self.model.get_submodule(owner)._parameters[leaf] = nn.Parameter(
-                t, requires_grad=False)
-        return self.model
+        slots = [(self.model.get_submodule(owner)._parameters, leaf, whole[name])
+                 for name in whole for owner, _, leaf in [name.rpartition(".")]]
+        try:
+            for slots_of, leaf, t in slots:
+                slots_of[leaf] = nn.Parameter(t, requires_grad=False)
+            yield self.model
+        finally:
+            for slots_of, leaf, _ in slots:
+                slots_of[leaf] = None
 
 
 def _sharded_prefill_step(cfg: ModelConfig):
     step, gathered = make_prefill_step(cfg), _Gathered(cfg)
 
     def prefill_step(params, batch):
-        logits = step(gathered(params), {k: _local(v) for k, v in batch.items()})
+        with gathered(params) as model:
+            logits = step(model, {k: _local(v) for k, v in batch.items()})
         main = next(v for k, v in batch.items() if k in ("tokens", "codes", "embeds"))
         return _gather_rows(logits, main)
 
@@ -341,24 +352,16 @@ def _sharded_decode_step(cfg: ModelConfig):
         # the batch dim is DP-sharded in the inputs and the cache alike, or
         # in neither (then a long-context cache's sequence shards are gathered)
         by_batch = any(isinstance(p, Shard) for p in _dp_placements(main))
-        keep = SH.tree_map_with_path(
-            lambda _, t: _dp_placements(t) if by_batch else (Replicate(),) * t.device_mesh.ndim,
+        keep = SH.tree_map(
+            lambda t: _dp_placements(t) if by_batch else (Replicate(),) * t.device_mesh.ndim,
             cache)
-        local = _zip_map(_relayout, cache, keep)
-        logits, new = step(gathered(params), {k: _local(v) for k, v in inputs.items()}, local)
-        _zip_map(_store, cache, new, keep)
+        local = SH.tree_map(_relayout, cache, keep)
+        with gathered(params) as model:
+            logits, new = step(model, {k: _local(v) for k, v in inputs.items()}, local)
+        SH.tree_map(_store, cache, new, keep)
         return _gather_rows(logits, main), cache
 
     return decode_step
-
-
-def _zip_map(fn, tree, *others):
-    """``fn`` over the leaves of ``tree`` and the same places of ``others``."""
-    if isinstance(tree, dict):
-        return {k: _zip_map(fn, v, *(o[k] for o in others)) for k, v in tree.items()}
-    if isinstance(tree, (tuple, list)):
-        return type(tree)(_zip_map(fn, v, *(o[i] for o in others)) for i, v in enumerate(tree))
-    return fn(tree, *others)
 
 
 def _dp_sum_(t: torch.Tensor, mesh) -> torch.Tensor:
@@ -380,36 +383,31 @@ def _slice(full: torch.Tensor, sharding: SH.NamedSharding) -> torch.Tensor:
 
 
 def zero_accumulated_grads(cfg: ModelConfig, model: nn.Module, batch: dict, n: int,
-                           shardings: dict, dtype: torch.dtype | None = None
-                           ) -> tuple[dict, torch.Tensor]:
+                           shardings: dict) -> tuple[dict, torch.Tensor]:
     """The ZeRO accumulator of a training cell: ``({name: DTensor laid out
-    by shardings[name]}, loss)``. ``batch`` holds this rank's local
-    microbatches ((n, b, ...), its DP share); ``model`` the whole weights.
-    Microbatch by microbatch, each gradient is cast to ``dtype`` (default
-    ``cfg.grad_accum_dtype``; the gradient's own type when ``n`` is 1, as
-    the step without microbatches keeps it), summed over the DP ranks
-    and this rank's slice added to its shard. The sum is not divided: the
-    caller divides by n x the DP width. The loss is the microbatches'
-    mean, averaged over the DP ranks."""
+    by shardings[name]}, loss)``. ``batch`` holds this rank's DP share of
+    the microbatches ((n, b, ...); (b, ...) when ``n`` is 1); ``model``
+    the whole weights. Microbatch by microbatch, each gradient is cast to
+    ``cfg.grad_accum_dtype``, summed over the DP ranks and this rank's
+    slice added to its shard. The sum is not divided: the caller divides
+    by n x the DP width. The loss is the microbatches' mean, averaged over
+    the DP ranks."""
     from torch.distributed.tensor import DTensor
 
     mesh = next(iter(shardings.values())).mesh
-    dt = dtype or torch_dtype(cfg.grad_accum_dtype)
+    dt = torch_dtype(cfg.grad_accum_dtype)
     accum, losses = {}, []
     for i in range(n):
         loss, grads = loss_and_grads(cfg, model, {k: v[i] for k, v in batch.items()}
                                      if n > 1 else batch)
         for k, g in grads.items():
-            part = _slice(_dp_sum_(g.to(dt) if n > 1 else g, mesh), shardings[k])
-            if n == 1:
-                accum[k] = part
-                continue
+            part = _slice(_dp_sum_(g.to(dt), mesh), shardings[k])
             if k not in accum:
                 accum[k] = torch.zeros(part.shape, dtype=dt, device=part.device)
             accum[k] += part
         losses.append(loss)
         del grads
-    loss = torch.mean(torch.stack(losses)) if n > 1 else losses[0]
+    loss = torch.mean(torch.stack(losses))
     dp = _dp_size(mesh)
     if dp > 1:
         loss = true_divide(_dp_sum_(loss.clone(), mesh), float(dp))
@@ -424,14 +422,12 @@ def _zero_train_step(cfg: ModelConfig, opt_cfg: AdamWConfig, N: int, shardings: 
     mesh = next(iter(shardings.values())).mesh
 
     def train_step(params, opt_state, batch):
-        model = gathered(params)
         local = {k: _local(v) for k, v in batch.items()}
-        accum, loss = zero_accumulated_grads(cfg, model, local, max(N, 1), shardings)
-        del model
+        with gathered(params) as model:
+            accum, loss = zero_accumulated_grads(cfg, model, local, max(N, 1), shardings)
         scale = float(max(N, 1) * _dp_size(mesh))
         grads = {k: DTensor.from_local(true_divide(a.to_local(), scale), mesh, a.placements,
-                                       run_check=False) if scale != 1 else a
-                 for k, a in accum.items()}
+                                       run_check=False) for k, a in accum.items()}
         del accum
         # the global norm: each leaf's float32 sum of squares over its shards
         sums = [torch.sum(torch.square(g.float())).full_tensor() for g in grads.values()]
@@ -443,14 +439,13 @@ def _zero_train_step(cfg: ModelConfig, opt_cfg: AdamWConfig, N: int, shardings: 
             {k: g.to_local() for k, g in grads.items()},
             {"mu": {k: m.to_local() for k, m in mu.items()},
              "nu": {k: v.to_local() for k, v in nu.items()},
-             "step": _local(opt_state["step"])},
+             "step": opt_state["step"].to_local()},
             p_local, opt_cfg, grad_norm=gnorm)
         for k, p in params.items():
             _store(p, p_local[k], mu[k].placements)
-        step = opt_state["step"]
-        step = DTensor.from_local(new_state["step"], step.device_mesh, step.placements,
-                                  run_check=False) if isinstance(step, DTensor) \
-            else new_state["step"]
+        old = opt_state["step"]
+        step = DTensor.from_local(new_state["step"], old.device_mesh, old.placements,
+                                  run_check=False)
         return params, {"mu": mu, "nu": nu, "step": step}, {"loss": loss, **metrics}
 
     return train_step

@@ -59,7 +59,7 @@ from repro_torch.models.config import ModelConfig
 
 __all__ = ["NamedSharding", "batch_sharding", "cache_sharding", "distribute", "dp_axes",
            "input_sharding", "mesh_shape", "param_spec", "params_sharding", "reference_leaf",
-           "replicated", "to_placements", "tree_map_with_path"]
+           "replicated", "stack_depths", "to_placements", "tree_map", "tree_map_with_path"]
 
 # (regex on the param path, candidate shard dims counted from the END of
 # the shape, e.g. -1 = last dim). The first divisible candidate wins.
@@ -98,14 +98,9 @@ _MOE_RULES: list[tuple[str, list[int]]] = [
 
 
 def mesh_shape(mesh) -> dict[str, int]:
-    """``{axis: size}`` of a ``DeviceMesh``, a mapping, or any mesh with a
-    ``shape`` mapping (JAX's ``Mesh`` / ``AbstractMesh``)."""
+    """``{axis: size}`` of a ``DeviceMesh`` or of such a mapping."""
     names = getattr(mesh, "mesh_dim_names", None)
-    if names is not None:
-        return dict(zip(names, mesh.shape))
-    if isinstance(mesh, Mapping):
-        return dict(mesh)
-    return dict(mesh.shape)
+    return dict(mesh) if names is None else dict(zip(names, mesh.shape))
 
 
 @dataclass(frozen=True)
@@ -158,18 +153,27 @@ def param_spec(path_s: str, shape: tuple[int, ...], model_axis: str,
 _STACKED = re.compile(r"^((?:[^.]+\.)*?)blocks\.(?:(\w+)\.)?(\d+)\.(.+)$")
 
 
+def _stack_path(name: str) -> tuple[str, int | None]:
+    """(the reference's path of port leaf ``name``, its layer index or
+    ``None`` when the leaf is not per-layer)."""
+    m = _STACKED.match(name)
+    if m is None:
+        return name.replace(".", "/"), None
+    prefix, kind, i, rest = m.groups()
+    path = (prefix.replace(".", "/") + "blocks/" + (f"{kind}/" if kind else "")
+            + rest.replace(".", "/"))
+    return path, int(i)
+
+
 def reference_leaf(name: str, shape: tuple[int, ...], depths: Mapping[str, int]
                    ) -> tuple[str, tuple[int, ...], bool]:
     """``(reference path, reference shape, stacked)`` of the port leaf
     ``name`` of ``shape``: a per-layer leaf (``blocks.<i>.<path>``,
     ``blocks.<kind>.<i>.<path>``, under any prefix such as ``mu.``) maps
     to its stack, of depth ``depths[<its stack path>]``."""
-    m = _STACKED.match(name)
-    if m is None:
-        return name.replace(".", "/"), tuple(shape), False
-    prefix, kind, _, rest = m.groups()
-    path = (prefix.replace(".", "/") + "blocks/" + (f"{kind}/" if kind else "")
-            + rest.replace(".", "/"))
+    path, i = _stack_path(name)
+    if i is None:
+        return path, tuple(shape), False
     return path, (depths[path], *shape), True
 
 
@@ -177,12 +181,9 @@ def stack_depths(names) -> dict[str, int]:
     """``{reference stack path: layer count}`` read off the port's names."""
     layers: dict[str, set] = {}
     for name in names:
-        m = _STACKED.match(name)
-        if m is not None:
-            prefix, kind, i, rest = m.groups()
-            path = (prefix.replace(".", "/") + "blocks/" + (f"{kind}/" if kind else "")
-                    + rest.replace(".", "/"))
-            layers.setdefault(path, set()).add(int(i))
+        path, i = _stack_path(name)
+        if i is not None:
+            layers.setdefault(path, set()).add(i)
     return {p: len(ix) for p, ix in layers.items()}
 
 
@@ -196,6 +197,16 @@ def tree_map_with_path(fn, tree, path: str = "", sep: str = "/"):
         return type(tree)(tree_map_with_path(fn, v, f"{path}{sep}{i}" if path else str(i), sep)
                           for i, v in enumerate(tree))
     return fn(path, tree)
+
+
+def tree_map(fn, tree, *others):
+    """``fn(leaf, *others' leaves)`` over a tree of dicts, tuples and lists
+    and the same places of ``others``."""
+    if isinstance(tree, Mapping):
+        return {k: tree_map(fn, v, *(o[k] for o in others)) for k, v in tree.items()}
+    if isinstance(tree, (tuple, list)):
+        return type(tree)(tree_map(fn, v, *(o[i] for o in others)) for i, v in enumerate(tree))
+    return fn(tree, *others)
 
 
 def _named_leaves(params) -> dict[str, torch.Tensor]:
@@ -371,8 +382,4 @@ def distribute(tree, shardings):
             return DTensor.from_local(t, s.mesh, placements, run_check=False)
         return distribute_tensor(t, s.mesh, placements, src_data_rank=None)
 
-    if isinstance(tree, Mapping):
-        return {k: distribute(v, shardings[k]) for k, v in tree.items()}
-    if isinstance(tree, (tuple, list)):
-        return type(tree)(distribute(v, s) for v, s in zip(tree, shardings))
-    return one(tree, shardings)
+    return tree_map(one, tree, shardings)

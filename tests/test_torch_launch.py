@@ -30,13 +30,13 @@ import torch
 from jax.sharding import AbstractMesh, NamedSharding
 
 from repro.configs import ARCH_IDS
-from repro.configs.shapes import LONG_CONTEXT_ARCHS as REF_LONG
 from repro.configs import SHAPES as REF_SHAPES
 from repro.configs import applicable_shapes as ref_applicable
 from repro.configs import cache_specs as ref_cache_specs
 from repro.configs import effective_microbatches as ref_effective
 from repro.configs import get_config as ref_get_config
 from repro.configs import input_specs as ref_input_specs
+from repro.configs.shapes import LONG_CONTEXT_ARCHS as REF_LONG
 from repro.launch.steps import abstract_state as ref_abstract_state
 from repro.parallel import sharding as RS
 from repro_torch.configs import SHAPES, applicable_shapes, cache_specs, effective_microbatches

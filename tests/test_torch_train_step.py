@@ -114,8 +114,18 @@ def test_microbatch_gradients_accumulate_in_float32():
 
 
 def test_train_step_refuses_sharded_accumulation():
-    with pytest.raises(NotImplementedError, match="item 16"):
-        make_train_step(get_config("deepseek-7b").reduced(), accum_shardings=object())
+    """Sharded accumulation is ported: a ``{name: NamedSharding}`` mapping
+    (``build_cell``'s moment layout) gives the ZeRO step (run over gloo
+    ranks in ``tests/test_torch_distributed.py``); anything else is refused."""
+    from repro_torch.launch.steps import abstract_state
+    from repro_torch.parallel.sharding import params_sharding
+
+    cfg = get_config("deepseek-7b").reduced()
+    with pytest.raises(TypeError, match="accum_shardings"):
+        make_train_step(cfg, accum_shardings=object())
+    _, opt = abstract_state(cfg)
+    mu = params_sharding(opt, {"data": 1, "model": 1}, fsdp=True)["mu"]
+    assert callable(make_train_step(cfg, accum_shardings=mu))
 
 
 def test_loss_fn_is_the_uncached_forward_cross_entropy():
