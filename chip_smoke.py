@@ -4727,7 +4727,9 @@ def serving_cells(dev, mesh, card) -> dict:
     arg_bytes, peak = cell_memory(args, sh)
     want, wall_ref = timed(lambda: make_prefill_step(cfg)(model, batch))
     equal = torch.equal(got, want)
-    _, warm = timed(lambda: step(params, distribute(batch, sh[1])))
+    # the step returns a view of the whole (1, 32,768, Vp) float32 logits:
+    # keep no result of the timed call
+    warm = timed(lambda: step(params, distribute(batch, sh[1])))[1]
     print(f"  (a) {CELL_ARCH} at full width ({cfg.n_layers} layers, {cfg.dtype}, flash kernel), weights "
           f"made in {t_init:.1f} s; mesh {tuple(mesh.shape)} {mesh.mesh_dim_names} on a one-rank "
           f"NCCL group")
@@ -4767,7 +4769,7 @@ def serving_cells(dev, mesh, card) -> dict:
     (want, _), wall_ref = timed(lambda: make_decode_step(cfg)(model, inputs, cache))
     equal = torch.equal(got, want) and all(torch.equal(written[k], cache[k][:, :, last])
                                            for k in cache)
-    _, warm = timed(lambda: step(params, distribute(inputs, sh[1]), distribute(cache, sh[2])))
+    warm = timed(lambda: step(params, distribute(inputs, sh[1]), distribute(cache, sh[2])))[1]
     cache_gb = sum(t.numel() * t.element_size() for t in cache.values()) / 1e9
     print(f"  decode_32k (batch {shape.global_batch} of 128, a {shape.seq_len}-row cache of "
           f"{cache_gb:.1f} GB made in {t_cache:.1f} s, random rows, the step at row {last}): "
@@ -4825,7 +4827,7 @@ def training_cell(dev, mesh, card) -> tuple[dict, object]:
                            for m in ("mu", "nu") for k in opt_ref[m])}
     # a second step of the cell, timed warm (the first built its template
     # and met the allocator's growth and the group's first collective)
-    _, warm = timed(lambda: step(params, opt, distribute(batch, sh[2])))
+    warm = timed(lambda: step(params, opt, distribute(batch, sh[2])))[1]
     print(f"  train_4k ({layers} of 30 layers, {T.param_count(models[0]):,} params, {cfg.dtype}, "
           f"float32 moments, remat; batch {shape.global_batch} of 256 as {n} microbatches of "
           f"{shape.global_batch // n} x {shape.seq_len}, the cell's accum_shardings): loss "
@@ -4883,13 +4885,17 @@ def pipeline_gradients(dev, model, card) -> dict:
             outs.append(h)
         return torch.stack(outs)
 
+    def through_pipeline():
+        out = PP.run_pipeline(plan, apply, stacked, GRAD_LAYERS, x, devices=[dev] * 2)
+        return torch.autograd.grad(torch.sum(out.float() * head), leaves)
+
     FA.reset_launch_count()
     torch.cuda.reset_peak_memory_stats()
-    got, wall = timed(lambda: torch.autograd.grad(torch.sum(PP.run_pipeline(
-        plan, apply, stacked, GRAD_LAYERS, x, devices=[dev] * 2).float() * head), leaves))
+    got, wall = timed(through_pipeline)
     peak = torch.cuda.max_memory_allocated()
     want, wall_ref = timed(lambda: torch.autograd.grad(
         torch.sum(in_order(x).float() * head), leaves))
+    again = timed(through_pipeline)[1]
     sizes = [torch.zeros(t.shape, device=dev) for t in stacked.values()]
     for m in range(GRAD_M):
         xm = x[m:m + 1].detach().requires_grad_(True)
@@ -4924,14 +4930,17 @@ def pipeline_gradients(dev, model, card) -> dict:
           f"attention (flash launches {FA.FLASH_LAUNCHES}): every stacked weight's gradient "
           f"within 2 (M - 1) u sum_m |g_m| of the blocks in order's (largest share of the "
           f"limit {max(shares):.4f}; {grad_equal - input_equal} of {len(stacked)} bit-equal), "
-          f"the input's bit-equal: {input_equal}; forward + backward {wall:.3f} s (pipeline) vs "
-          f"{wall_ref:.3f} s (in order), peak {peak / 1e9:.2f} GB; the group form under "
+          f"the input's bit-equal: {input_equal}; forward + backward: the pipeline {wall:.3f} s, "
+          f"in order {wall_ref:.3f} s, the pipeline again {again:.3f} s ({(GRAD_M + 1) * 2 * 2} "
+          f"block applications to {GRAD_M * GRAD_LAYERS}); peak {peak / 1e9:.2f} GB; the group "
+          f"form under "
           f"autograd raised: {refused is not None}; under no_grad (1 stage on the one-rank "
           f"group) bit-equal to the blocks in order: {fwd_equal} [{card}]")
     if not input_equal or refused is None or "has no backward" not in refused or not fwd_equal \
             or FA.FLASH_LAUNCHES:
         raise AssertionError("pipeline gradients on the card")
-    return {"max_share": max(shares), "wall_s": wall, "wall_in_order_s": wall_ref}
+    return {"max_share": max(shares), "wall_s": wall, "wall_in_order_s": wall_ref,
+            "wall_again_s": again}
 
 
 def dryrun_records(capacity: int) -> list:
