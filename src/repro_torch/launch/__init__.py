@@ -1,2 +1,2 @@
-"""Step builders (train, prefill, decode), the cells that lay them out on
+"""Step functions (train, prefill, decode), the cells that lay them out on
 a mesh, the production meshes and the dry run."""

@@ -1,7 +1,7 @@
 """Dry run: lay out every (arch x shape x mesh) cell on the production mesh.
 
-The port's counterpart of ``repro.launch.dryrun``. For each cell this
-driver, in a process that holds the ``fake`` process-group backend (one
+The port's counterpart of ``repro.launch.dryrun``. For each cell the dry
+run, in a process that holds the ``fake`` process-group backend (one
 process stands for every rank of a 256- or 512-rank world; no data
 moves):
 
