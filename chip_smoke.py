@@ -309,13 +309,18 @@ reference package ``repro``) on the card and fails on any fault:
    batch cut from 256 to 8: 8 microbatches of 1 x 4,096, the cell's
    ``accum_shardings``), each bit-equal to the same step without a mesh
    on the same weights and inputs (the train step on a copy: loss, norm,
-   weights and moments), each wall beside the meshless step's, and the
-   peak allocated bytes beside ``run_cell``'s argument bytes on this mesh;
+   weights and moments, as the step returns them, gathered whole), each
+   wall beside the meshless step's, and the peak allocated bytes beside
+   ``run_cell``'s argument bytes on this mesh and what it counts the step
+   as gathering (``launch.steps.gathered_bytes``); the collectives run on
+   the one-rank group as on a larger mesh (``full_tensor``,
+   ``all_reduce``), but ``_relayout`` takes the local tensor there;
    (b) in a ``spawn`` process that holds the fake backend (run beside (a)
    and (c); the main process never holds it), ``run_cell`` for every
    config x its applicable shapes on both production meshes: 64 records,
-   each one's per-device argument and resident bytes against the card's
-   ``total_memory``; (c) deepseek-7b's blocks at full width (4 of 30, bf16,
+   each one's per-device argument, resident and step bytes (the step's:
+   with what it gathers) against the card's ``total_memory``; (c)
+   deepseek-7b's blocks at full width (4 of 30, bf16,
    attention on the chunked core as in training) through the pipeline over
    2 stages, 4 microbatches of 1 x 2,048: every stacked weight's gradient
    within 2 (M - 1) u sum_m |g_m| of the blocks in order's, the input's
@@ -4686,20 +4691,27 @@ def timed(fn):
     return out, time.perf_counter() - t0
 
 
-def cell_memory(args, shardings) -> tuple[int, float]:
+def cell_memory(cfg, kind, args, shardings) -> tuple[int, int, float]:
     """(``run_cell``'s argument bytes of these arguments on this mesh, the
-    step's peak allocated bytes so far)."""
+    bytes it counts the step as gathering beyond them, the step's peak
+    allocated bytes so far)."""
     import torch
 
     from repro_torch.launch.dryrun import argument_bytes
+    from repro_torch.launch.steps import gathered_bytes
 
     return (sum(argument_bytes(a, s) for a, s in zip(args, shardings)),
+            sum(gathered_bytes(cfg, kind, args, shardings).values()),
             torch.cuda.max_memory_allocated())
 
 
 def serving_cells(dev, mesh, card) -> dict:
     """(a) prefill_32k and decode_32k at full width on the 1 x 1 mesh, each
-    bit-equal to the same step without a mesh on the same weights."""
+    bit-equal to the same step without a mesh on the same weights. On one
+    rank ``distribute`` copies every sharded leaf, so the model takes the
+    DTensors' local tensors as its parameters (one copy of the weights on
+    the card), and the cache is laid out one entry at a time, each
+    original let go as its copy is made."""
     import torch
 
     from repro_torch.configs import get_config
@@ -4711,7 +4723,6 @@ def serving_cells(dev, mesh, card) -> dict:
     cfg = replace(get_config(CELL_ARCH), use_flash_kernel=True)
     model, t_init = timed(lambda: T.init_params(
         cfg, generator=torch.Generator(device=dev).manual_seed(2200), device=dev))
-    weights = dict(model.named_parameters())
     g = torch.Generator(device=dev).manual_seed(2201)
     out = {}
 
@@ -4719,12 +4730,16 @@ def serving_cells(dev, mesh, card) -> dict:
     step, args, sh = build_cell(cfg, shape, mesh)
     batch = {"tokens": torch.randint(0, cfg.vocab, (shape.global_batch, shape.seq_len),
                                      generator=g, device=dev, dtype=torch.int32)}
-    params = distribute(weights, sh[0])
+    params = distribute(dict(model.named_parameters()), sh[0])
+    left = model.load_state_dict({k: v.to_local() for k, v in params.items()}, strict=False,
+                                 assign=True)
+    if left.missing_keys or left.unexpected_keys:
+        raise AssertionError(f"the model's parameters != the cell's: {left}")
     torch.cuda.reset_peak_memory_stats()
     FA.reset_launch_count()
     got, wall = timed(lambda: step(params, distribute(batch, sh[1])))
     launches, wgmma = FA.FLASH_LAUNCHES, FA.FLASH_WGMMA_LAUNCHES
-    arg_bytes, peak = cell_memory(args, sh)
+    arg_bytes, gathered, peak = cell_memory(cfg, shape.kind, args, sh)
     want, wall_ref = timed(lambda: make_prefill_step(cfg)(model, batch))
     equal = torch.equal(got, want)
     # the step returns a view of the whole (1, 32,768, Vp) float32 logits:
@@ -4738,17 +4753,20 @@ def serving_cells(dev, mesh, card) -> dict:
           f"{launches} flash launches ({wgmma} wgmma) in the cell; walls: the cell's first call "
           f"{wall:.3f} s, no mesh {wall_ref:.3f} s, the cell again {warm:.3f} s; peak "
           f"allocated {peak / 1e9:.2f} GB beside run_cell's argument bytes "
-          f"{arg_bytes / 1e9:.3f} GB [{card}]")
+          f"{arg_bytes / 1e9:.3f} GB + gathered {gathered / 1e9:.3f} GB [{card}]")
     if not equal or launches != cfg.n_layers or wgmma != cfg.n_layers:
         raise AssertionError(f"prefill cell: equal {equal}, {launches} flash launches "
                              f"({wgmma} wgmma), expected {cfg.n_layers}")
     out["prefill_32k"] = {"wall_s": wall, "wall_no_mesh_s": wall_ref, "wall_again_s": warm,
-                          "peak_bytes": peak, "argument_bytes": arg_bytes, "launches": launches}
-    del got, want, params
+                          "peak_bytes": peak, "argument_bytes": arg_bytes,
+                          "gathered_bytes": gathered, "launches": launches}
+    del got, want
     torch.cuda.empty_cache()
 
     shape = cell_shape("decode_32k")
     step, args, sh = build_cell(cfg, shape, mesh)
+    if any(tuple(sh[0][k].placements) != tuple(p.placements) for k, p in params.items()):
+        raise AssertionError("decode_32k lays the weights out unlike prefill_32k")
     cache, t_cache = timed(lambda: T.init_cache(cfg, shape.global_batch, shape.seq_len,
                                                 device=dev))
     for t in cache.values():
@@ -4758,19 +4776,19 @@ def serving_cells(dev, mesh, card) -> dict:
                                       device=dev, dtype=torch.int32),
               "cur_index": torch.tensor(last, dtype=torch.int32, device=dev)}
     before = cache["k"][:, :, last].clone()
-    params = distribute(weights, sh[0])
+    cache = {k: distribute({k: cache.pop(k)}, {k: sh[2][k]})[k] for k in list(cache)}
     torch.cuda.reset_peak_memory_stats()
     FA.reset_launch_count()
-    (got, _), wall = timed(lambda: step(params, distribute(inputs, sh[1]),
-                                        distribute(cache, sh[2])))
-    arg_bytes, peak = cell_memory(args, sh)
-    written = {k: v[:, :, last].clone() for k, v in cache.items()}
+    (got, _), wall = timed(lambda: step(params, distribute(inputs, sh[1]), cache))
+    arg_bytes, gathered, peak = cell_memory(cfg, shape.kind, args, sh)
+    local = {k: v.to_local() for k, v in cache.items()}
+    written = {k: v[:, :, last].clone() for k, v in local.items()}
     # the step without a mesh on the same cache writes the same row again
-    (want, _), wall_ref = timed(lambda: make_decode_step(cfg)(model, inputs, cache))
-    equal = torch.equal(got, want) and all(torch.equal(written[k], cache[k][:, :, last])
-                                           for k in cache)
-    warm = timed(lambda: step(params, distribute(inputs, sh[1]), distribute(cache, sh[2])))[1]
-    cache_gb = sum(t.numel() * t.element_size() for t in cache.values()) / 1e9
+    (want, _), wall_ref = timed(lambda: make_decode_step(cfg)(model, inputs, local))
+    equal = torch.equal(got, want) and all(torch.equal(written[k], local[k][:, :, last])
+                                           for k in local)
+    warm = timed(lambda: step(params, distribute(inputs, sh[1]), cache))[1]
+    cache_gb = sum(t.numel() * t.element_size() for t in local.values()) / 1e9
     print(f"  decode_32k (batch {shape.global_batch} of 128, a {shape.seq_len}-row cache of "
           f"{cache_gb:.1f} GB made in {t_cache:.1f} s, random rows, the step at row {last}): "
           f"logits and the written cache row bit-equal to make_decode_step without a mesh: "
@@ -4778,19 +4796,20 @@ def serving_cells(dev, mesh, card) -> dict:
           f"{FA.FLASH_LAUNCHES}; walls: the cell's first call {wall * 1e3:.1f} ms, no mesh "
           f"{wall_ref * 1e3:.1f} ms, the cell again {warm * 1e3:.1f} ms; peak allocated "
           f"{peak / 1e9:.2f} GB beside run_cell's argument bytes {arg_bytes / 1e9:.3f} GB "
-          f"[{card}]")
+          f"+ gathered {gathered / 1e9:.3f} GB [{card}]")
     if not equal or torch.equal(before, written["k"]):
         raise AssertionError("decode cell != make_decode_step without a mesh")
     out["decode_32k"] = {"wall_s": wall, "wall_no_mesh_s": wall_ref, "wall_again_s": warm,
-                         "peak_bytes": peak, "argument_bytes": arg_bytes}
+                         "peak_bytes": peak, "argument_bytes": arg_bytes, "gathered_bytes": gathered}
     return out
 
 
 def training_cell(dev, mesh, card) -> tuple[dict, object]:
     """(a) train_4k at full width, 4 of 30 layers, 8 microbatches of 1 x
     4,096 with the cell's ``accum_shardings``: loss, norm, every weight
-    and moment bit-equal to ``make_train_step(accum_shardings=None)`` on
-    a copy of the same weights. Returns the record and the copy."""
+    and moment the step returns (gathered whole) bit-equal to
+    ``make_train_step(accum_shardings=None)`` on a copy of the same
+    weights. Returns the record and the copy."""
     import torch
 
     from repro_torch.configs import effective_microbatches, get_config
@@ -4814,21 +4833,23 @@ def training_cell(dev, mesh, card) -> tuple[dict, object]:
     step, args, sh = build_cell(cfg, shape, mesh)
     params = distribute(dict(models[0].named_parameters()), sh[0])
     opt = distribute(opts[0], sh[1])
+    model, opt_ref = models[1], opts[1]
+    del models, opts  # the cell's arguments are copies where they are sharded
     torch.cuda.reset_peak_memory_stats()
     FA.reset_launch_count()
-    (_, opt, got), wall = timed(lambda: step(params, opt, distribute(batch, sh[2])))
-    arg_bytes, peak = cell_memory(args, sh)
+    (params, opt, got), wall = timed(lambda: step(params, opt, distribute(batch, sh[2])))
+    arg_bytes, gathered, peak = cell_memory(cfg, shape.kind, args, sh)
     (_, opt_ref, want), wall_ref = timed(lambda: make_train_step(cfg, n_microbatches=n)(
-        models[1], opts[1], batch))
+        model, opt_ref, batch))
     same = {"metrics": all(torch.equal(got[k], want[k]) for k in want),
-            "weights": all(torch.equal(a, b) for a, b in zip(models[0].parameters(),
-                                                              models[1].parameters())),
-            "moments": all(torch.equal(opt[m][k].to_local(), opt_ref[m][k])
+            "weights": all(torch.equal(params[k].full_tensor(), p)
+                           for k, p in model.named_parameters()),
+            "moments": all(torch.equal(opt[m][k].full_tensor(), opt_ref[m][k])
                            for m in ("mu", "nu") for k in opt_ref[m])}
     # a second step of the cell, timed warm (the first built its template
     # and met the allocator's growth and the group's first collective)
     warm = timed(lambda: step(params, opt, distribute(batch, sh[2])))[1]
-    print(f"  train_4k ({layers} of 30 layers, {T.param_count(models[0]):,} params, {cfg.dtype}, "
+    print(f"  train_4k ({layers} of 30 layers, {T.param_count(model):,} params, {cfg.dtype}, "
           f"float32 moments, remat; batch {shape.global_batch} of 256 as {n} microbatches of "
           f"{shape.global_batch // n} x {shape.seq_len}, the cell's accum_shardings): loss "
           f"{float(got['loss']):.6f}, grad norm {float(got['grad_norm']):.6f}; bit-equal to "
@@ -4836,14 +4857,13 @@ def training_cell(dev, mesh, card) -> tuple[dict, object]:
           f"{FA.FLASH_LAUNCHES}; walls: the cell's first step {wall:.3f} s, no mesh "
           f"{wall_ref:.3f} s, the cell's second step {warm:.3f} s; peak allocated "
           f"{peak / 1e9:.2f} GB (both copies) beside run_cell's argument bytes "
-          f"{arg_bytes / 1e9:.3f} GB [{card}]")
+          f"{arg_bytes / 1e9:.3f} GB + gathered {gathered / 1e9:.3f} GB [{card}]")
     if not all(same.values()):
         raise AssertionError(f"train cell != the step without a mesh: {same}")
-    model = models[1]
-    del models, opts, opt, opt_ref, params
+    del opt, opt_ref, params
     torch.cuda.empty_cache()
     return {"wall_s": wall, "wall_no_mesh_s": wall_ref, "wall_again_s": warm,
-            "peak_bytes": peak, "argument_bytes": arg_bytes}, model
+            "peak_bytes": peak, "argument_bytes": arg_bytes, "gathered_bytes": gathered}, model
 
 
 def pipeline_gradients(dev, model, card) -> dict:
@@ -4965,10 +4985,12 @@ def print_dryrun(records: list, capacity: int, card) -> None:
     got = {(r["arch"], r["shape"], r["mesh"]) for r in records}
     print(f"  (b) the dry run in a spawn process holding the fake backend: {len(records)} "
           f"records (every config x its applicable shapes on 16x16 and 2x16x16); per-device "
-          f"argument / resident GB against total_memory {capacity / 1e9:.2f} GB [{card}]")
+          f"argument / resident / step GB (step: resident + what the port's step gathers, "
+          f"the weights whole among it) against total_memory {capacity / 1e9:.2f} GB [{card}]")
     for arch in dict.fromkeys(r["arch"] for r in records):
         row = [f"{r['shape']}@{r['mesh']} {r['memory']['argument_bytes'] / 1e9:.3f}/"
-               f"{r['memory']['resident_bytes'] / 1e9:.3f}{'' if r['fits'] else ' OVER'}"
+               f"{r['memory']['resident_bytes'] / 1e9:.3f}/{r['memory']['step_bytes'] / 1e9:.3f}"
+               f"{'' if r['fits'] else ' OVER'}"
                for r in records if r["arch"] == arch]
         print(f"    {arch}: {'; '.join(row)}")
     if got != want or len(records) != 64:

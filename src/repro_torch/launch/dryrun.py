@@ -14,9 +14,13 @@ moves):
   4. adds the output bytes and the bytes the outputs alias in donated
      inputs, as the reference's donation defines them (a train step's
      parameters and moments; a decode step's cache: the port's steps
-     update those in place), and holds their resident sum against a
-     capacity given as a parameter,
-  5. writes ``experiments/dryrun_torch/<arch>__<shape>__<mesh>.json``
+     update those in place),
+  5. adds what the port's step gathers beyond its arguments
+     (``launch.steps.gathered_bytes``: every sharded weight whole, a
+     train step's whole gradients and its accumulator shards, a decode
+     step's cache relaid out to its DP shard), and holds that sum
+     (``step_bytes``) against a capacity given as a parameter,
+  6. writes ``experiments/dryrun_torch/<arch>__<shape>__<mesh>.json``
      when asked.
 
 The reference also records XLA's ``temp_bytes``, ``flops_per_device``,
@@ -24,8 +28,11 @@ The reference also records XLA's ``temp_bytes``, ``flops_per_device``,
 (``repro.parallel.hlo_analysis``): its compiler derives them from the
 partitioned program without running it. The port compiles no program and
 runs eagerly, so it has no counterpart for them and the record leaves
-them out; ``resident_bytes`` (arguments + outputs - aliases) is a lower
-bound of the peak, without the step's temporaries.
+them out. ``resident_bytes`` (arguments + outputs - aliases) is what the
+reference's donation keeps; ``step_bytes`` adds what the port's step
+gathers, and is still a lower bound of its peak: the activations and
+other temporaries are not counted. The port gathers every weight whole,
+so a cell that the reference's layout fits may not fit the port's step.
 
 Usage:
   python -m repro_torch.launch.dryrun --all [--multi-pod|--both]
@@ -85,7 +92,7 @@ def run_cell(arch: str, shape_name: str, multi_pod: bool, save: bool = False,
     ``capacity_bytes``: a device's memory, for the ``fits`` verdict
     (``None``: no verdict)."""
     from repro_torch.launch.mesh import make_production_mesh
-    from repro_torch.launch.steps import build_cell
+    from repro_torch.launch.steps import build_cell, gathered_bytes
 
     cfg = get_config(arch)
     shape = SHAPES[shape_name]
@@ -109,6 +116,8 @@ def run_cell(arch: str, shape_name: str, multi_pod: bool, save: bool = False,
         output = _logits_bytes(cfg, shape.global_batch, 1) + alias
     argument = sum(parts.values())
     resident = argument + output - alias
+    gathered = gathered_bytes(cfg, shape.kind, args, shardings)
+    step_bytes = resident + sum(gathered.values())
     record = {
         "arch": arch,
         "shape": shape_name,
@@ -121,9 +130,12 @@ def run_cell(arch: str, shape_name: str, multi_pod: bool, save: bool = False,
             "output_bytes": output,
             "alias_bytes": alias,
             "resident_bytes": resident,
+            **{f"gathered_{k}_bytes": v for k, v in gathered.items()},
+            "gathered_bytes": sum(gathered.values()),
+            "step_bytes": step_bytes,
         },
         "capacity_bytes": capacity_bytes,
-        "fits": None if capacity_bytes is None else resident <= capacity_bytes,
+        "fits": None if capacity_bytes is None else step_bytes <= capacity_bytes,
         "params": cfg.n_params,
     }
     if save:
@@ -133,7 +145,8 @@ def run_cell(arch: str, shape_name: str, multi_pod: bool, save: bool = False,
     verdict = "" if record["fits"] is None else ("fits" if record["fits"] else "OVER")
     print(f"[dryrun] {arch:22s} {shape_name:12s} {mesh_name:7s} "
           f"build {record['build_s']:5.2f}s  args/dev {argument / 1e9:7.3f} GB  "
-          f"resident/dev {resident / 1e9:7.3f} GB {verdict}", flush=True)
+          f"resident/dev {resident / 1e9:7.3f} GB  step/dev {step_bytes / 1e9:8.3f} GB "
+          f"{verdict}", flush=True)
     return record
 
 
@@ -161,7 +174,8 @@ def main(argv=None):
     ap.add_argument("--multi-pod", action="store_true")
     ap.add_argument("--both", action="store_true", help="run 16x16 and 2x16x16")
     ap.add_argument("--capacity-gb", type=float, default=None,
-                    help="a device's memory in GB (1e9 B), for the fits verdict")
+                    help="a device's memory in GB (1e9 B), for the fits verdict "
+                         "(step_bytes: the arguments, outputs and what the step gathers)")
     args = ap.parse_args(argv)
     if args.all:
         cells = all_cells()

@@ -14,12 +14,13 @@ by the reference's rules. Its caller lays real tensors out with
 :func:`~repro_torch.parallel.sharding.distribute`, and the step takes
 those DTensors:
 
-* the weights are stored by their specs; the step gathers them whole
-  (``full_tensor()``; on a mesh of one rank the local shard is the whole
-  tensor, so nothing is copied) and runs the unsharded code on the rank's
-  share of the batch (its DP shard; the ranks of a model group compute
-  the same). XLA partitions the reference's compute itself from the same
-  specs; a tensor-parallel compute plan is not ported;
+* the weights are stored by their specs; the step gathers them all
+  whole at once (``full_tensor()``) and runs the unsharded code on the
+  rank's share of the batch (its DP shard; the ranks of a model group
+  compute the same). Every rank so holds the whole model while a step
+  runs (:func:`gathered_bytes` counts it for the dry run). XLA partitions
+  the reference's compute itself from the same specs; a tensor-parallel
+  compute plan is not ported;
 * the training cell's gradient accumulator is kept DP-sharded (ZeRO,
   :func:`zero_accumulated_grads`): each microbatch's gradient is cast to
   ``grad_accum_dtype``, summed over the DP ranks with ``all_reduce`` (one
@@ -31,8 +32,11 @@ those DTensors:
 * decode gathers each cache entry but for its DP batch shard, runs the
   step and writes the rank's shard back.
 
-On one rank every gather, reduction and slice is an identity, and a cell
-is bit-equal to the step without a mesh."""
+On one rank every gather, reduction and slice is an identity in value,
+and a cell is bit-equal to the step without a mesh. The same collectives
+run there as on a larger mesh, but for one: a one-rank mesh takes the
+local tensor in place of ``redistribute`` in :func:`_relayout`, since the
+decode cache it relays out may fill half the card."""
 
 from __future__ import annotations
 
@@ -241,17 +245,11 @@ def build_cell(cfg: ModelConfig, shape: ShapeSpec, mesh, opt_cfg: AdamWConfig | 
     return _sharded_decode_step(cfg), (params, batch, cache), (p_shard, b_shard, c_shard)
 
 
-def _one_rank(t) -> bool:
-    return t.device_mesh.size() == 1
-
-
 def _whole(t: torch.Tensor) -> torch.Tensor:
     """A DTensor's full value (a plain tensor as it is)."""
     from torch.distributed.tensor import DTensor
 
-    if not isinstance(t, DTensor):
-        return t
-    return t.to_local() if _one_rank(t) else t.full_tensor()
+    return t.full_tensor() if isinstance(t, DTensor) else t
 
 
 def _local(t: torch.Tensor) -> torch.Tensor:
@@ -260,20 +258,88 @@ def _local(t: torch.Tensor) -> torch.Tensor:
     return t.to_local() if isinstance(t, DTensor) else t
 
 
-def _dp_placements(t) -> tuple:
-    """``t``'s placements with every mesh dim but the DP axes replicated."""
+def _dp_placements(placements, mesh) -> tuple:
+    """``placements`` on ``mesh`` with every mesh dim but the DP axes
+    replicated."""
     from torch.distributed.tensor import Replicate
 
-    dp = SH.dp_axes(t.device_mesh)
+    dp = SH.dp_axes(mesh)
     return tuple(p if name in dp else Replicate()
-                 for name, p in zip(t.device_mesh.mesh_dim_names, t.placements))
+                 for name, p in zip(mesh.mesh_dim_names, placements))
 
 
 def _relayout(t, placements) -> torch.Tensor:
-    """The local tensor of DTensor ``t`` laid out as ``placements``."""
-    if _one_rank(t) or tuple(t.placements) == tuple(placements):
+    """The local tensor of DTensor ``t`` laid out as ``placements``. On a
+    mesh of one rank the local tensor is the whole value in any layout;
+    it is taken as it is there, so that a cache that fills half the card
+    is not copied."""
+    if t.device_mesh.size() == 1 or tuple(t.placements) == tuple(placements):
         return t.to_local()
     return t.redistribute(t.device_mesh, placements).to_local()
+
+
+def _cache_keep(main_placements, placements, mesh) -> tuple:
+    """The layout decode runs a cache entry in: its DP batch shard kept and
+    every other mesh dim gathered. The batch dim is DP-sharded in the
+    inputs (``main_placements``) and the cache alike, or in neither; then
+    a long-context cache's sequence shards are gathered too."""
+    from torch.distributed.tensor import Replicate, Shard
+
+    if any(isinstance(p, Shard) for p in _dp_placements(main_placements, mesh)):
+        return _dp_placements(placements, mesh)
+    return (Replicate(),) * mesh.ndim
+
+
+def _bytes(t: torch.Tensor) -> int:
+    return t.numel() * t.element_size()
+
+
+def _local_bytes(t: torch.Tensor, mesh, placements) -> int:
+    """Bytes of this rank's shard of ``t`` laid out as ``placements``."""
+    from torch.distributed.tensor import distribute_tensor
+
+    return _bytes(distribute_tensor(t, mesh, placements, src_data_rank=None).to_local())
+
+
+def gathered_bytes(cfg: ModelConfig, kind: str, args, shardings) -> dict[str, int]:
+    """Bytes per device that a cell's step (``build_cell``'s ``args`` and
+    ``shardings``, ``kind`` its shape's) holds beyond its arguments, by
+    the rules its code follows:
+
+    * ``params``: every parameter that its layout shards, gathered whole
+      (:class:`_Gathered` gathers them all at once);
+    * train, ``grads``: the backward gives every gradient whole, in its
+      parameter's type; ``accum``: the ZeRO accumulator, a shard of each
+      by the moments' layout in ``grad_accum_dtype``;
+    * decode, ``cache``: each cache entry relaid out to its DP shard
+      (:func:`_cache_keep`), where that is a new tensor.
+
+    Activations and other temporaries are not counted: with the arguments
+    this is a lower bound of the step's peak."""
+    from torch.distributed.tensor import Shard
+
+    params, p_shard = args[0], shardings[0]
+    out = {"params": sum(_bytes(t) for k, t in params.items()
+                         if any(isinstance(p, Shard) for p in p_shard[k].placements))}
+    if kind == "train":
+        mu, mu_shard = args[1]["mu"], shardings[1]["mu"]
+        item = torch_dtype(cfg.grad_accum_dtype).itemsize
+        out["grads"] = sum(_bytes(t) for t in params.values())
+        out["accum"] = sum(_local_bytes(t, mu_shard[k].mesh, mu_shard[k].placements)
+                           // t.element_size() * item for k, t in mu.items())
+    elif kind == "decode":
+        inputs, b_shard, cache, c_shard = args[1], shardings[1], args[2], shardings[2]
+        main = next(b_shard[k] for k in inputs if k in ("tokens", "codes", "embeds"))
+        sizes = []
+
+        def relaid(t, s):
+            keep = _cache_keep(main.placements, s.placements, s.mesh)
+            if s.mesh.size() > 1 and tuple(keep) != tuple(s.placements):
+                sizes.append(_local_bytes(t, s.mesh, keep))
+
+        SH.tree_map(relaid, cache, c_shard)
+        out["cache"] = sum(sizes)
+    return out
 
 
 def _store(t, local: torch.Tensor, placements) -> None:
@@ -283,7 +349,7 @@ def _store(t, local: torch.Tensor, placements) -> None:
     mine = t.to_local()
     if local.data_ptr() == mine.data_ptr() and local.shape == mine.shape:
         return  # the step wrote the shard in place
-    if not _one_rank(t) and tuple(t.placements) != tuple(placements):
+    if tuple(t.placements) != tuple(placements):
         local = DTensor.from_local(local, t.device_mesh, placements, run_check=False
                                    ).redistribute(t.device_mesh, t.placements).to_local()
     mine.copy_(local)
@@ -295,8 +361,8 @@ def _gather_rows(x: torch.Tensor, like) -> torch.Tensor:
     from torch.distributed.tensor import DTensor, Replicate, Shard
 
     placements = tuple(Shard(0) if isinstance(p, Shard) else Replicate()
-                       for p in _dp_placements(like))
-    if _one_rank(like) or all(isinstance(p, Replicate) for p in placements):
+                       for p in _dp_placements(like.placements, like.device_mesh))
+    if all(isinstance(p, Replicate) for p in placements):
         return x
     return DTensor.from_local(x, like.device_mesh, placements, run_check=False).full_tensor()
 
@@ -346,15 +412,9 @@ def _sharded_decode_step(cfg: ModelConfig):
     step, gathered = make_decode_step(cfg), _Gathered(cfg)
 
     def decode_step(params, inputs, cache):
-        from torch.distributed.tensor import Replicate, Shard
-
         main = next(v for k, v in inputs.items() if k in ("tokens", "codes", "embeds"))
-        # the batch dim is DP-sharded in the inputs and the cache alike, or
-        # in neither (then a long-context cache's sequence shards are gathered)
-        by_batch = any(isinstance(p, Shard) for p in _dp_placements(main))
-        keep = SH.tree_map(
-            lambda t: _dp_placements(t) if by_batch else (Replicate(),) * t.device_mesh.ndim,
-            cache)
+        keep = SH.tree_map(lambda t: _cache_keep(main.placements, t.placements, t.device_mesh),
+                           cache)
         local = SH.tree_map(_relayout, cache, keep)
         with gathered(params) as model:
             logits, new = step(model, {k: _local(v) for k, v in inputs.items()}, local)
@@ -366,19 +426,16 @@ def _sharded_decode_step(cfg: ModelConfig):
 
 def _dp_sum_(t: torch.Tensor, mesh) -> torch.Tensor:
     """Sum ``t`` over the DP ranks of ``mesh`` in place (one ``all_reduce``
-    per DP mesh dim; none on a DP width of 1)."""
+    per DP mesh dim)."""
     import torch.distributed as dist
 
     for axis in SH.dp_axes(mesh):
-        if SH.mesh_shape(mesh)[axis] > 1:
-            dist.all_reduce(t, group=mesh.get_group(axis))
+        dist.all_reduce(t, group=mesh.get_group(axis))
     return t
 
 
 def _slice(full: torch.Tensor, sharding: SH.NamedSharding) -> torch.Tensor:
     """This rank's shard of ``full`` (identical on every rank) by ``sharding``."""
-    if sharding.mesh.size() == 1:
-        return full
     return SH.distribute(full, sharding).to_local()
 
 
@@ -407,10 +464,7 @@ def zero_accumulated_grads(cfg: ModelConfig, model: nn.Module, batch: dict, n: i
             accum[k] += part
         losses.append(loss)
         del grads
-    loss = torch.mean(torch.stack(losses))
-    dp = _dp_size(mesh)
-    if dp > 1:
-        loss = true_divide(_dp_sum_(loss.clone(), mesh), float(dp))
+    loss = true_divide(_dp_sum_(torch.mean(torch.stack(losses)), mesh), float(_dp_size(mesh)))
     return ({k: DTensor.from_local(a, mesh, shardings[k].placements, run_check=False)
              for k, a in accum.items()}, loss)
 

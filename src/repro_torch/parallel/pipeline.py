@@ -55,6 +55,7 @@ import torch
 from torch.func import functional_call
 
 from repro_torch.device import resolve_device
+from repro_torch.kernels import refuse_autograd
 
 __all__ = [
     "pad_stage_params",
@@ -148,21 +149,12 @@ def pipelined_forward(
     return outputs.to(microbatches.device)
 
 
-def _refuse_autograd(stage_params: dict[str, torch.Tensor], microbatches: torch.Tensor):
-    """Raise ``RuntimeError`` when autograd would record the group form:
-    grad mode is on and a stage parameter or the input requires grad."""
-    if torch.is_grad_enabled() and any(
-            t.requires_grad for t in (*stage_params.values(), microbatches)):
-        raise RuntimeError(
-            "pipelined_forward over a process group has no backward (batch_isend_irecv "
-            "and all_reduce record none): run it under torch.no_grad(), or "
-            "differentiate the one-process form (devices=...)")
-
-
 def _forward_group(block_apply, stage_params, layer_mask, microbatches, group):
     import torch.distributed as dist
 
-    _refuse_autograd(stage_params, microbatches)
+    refuse_autograd("pipelined_forward over a process group", *stage_params.values(),
+                    microbatches, why="batch_isend_irecv and all_reduce record none",
+                    instead="differentiate the one-process form (devices=...)")
     S, s = group.size(), group.rank()
     if layer_mask.shape[0] != S:
         raise ValueError(f"{layer_mask.shape[0]} stages on a group of {S} ranks")

@@ -371,15 +371,13 @@ def distribute(tree, shardings):
     """Each tensor of ``tree`` as a DTensor laid out by the matching
     :class:`NamedSharding` of ``shardings`` (the same structure; a
     ``replicated`` leaf's empty spec pads with ``None``). Every rank holds
-    the same full tensor and keeps its own shard: no data moves. On a mesh
-    of one rank the DTensor wraps the tensor itself (no copy)."""
-    from torch.distributed.tensor import DTensor, distribute_tensor
+    the same full tensor and keeps its own shard: no data moves between
+    ranks. A sharded leaf's shard is a copy, also on a mesh of one rank; a
+    replicated leaf's local tensor is the tensor itself."""
+    from torch.distributed.tensor import distribute_tensor
 
     def one(t: torch.Tensor, s: NamedSharding):
         spec = tuple(s.spec) + (None,) * (t.dim() - len(s.spec))
-        placements = to_placements(spec, s.mesh)
-        if s.mesh.size() == 1:
-            return DTensor.from_local(t, s.mesh, placements, run_check=False)
-        return distribute_tensor(t, s.mesh, placements, src_data_rank=None)
+        return distribute_tensor(t, s.mesh, to_placements(spec, s.mesh), src_data_rank=None)
 
     return tree_map(one, tree, shardings)

@@ -19,6 +19,7 @@ with the ranks' stderr.
   bit-equal to the pipeline over ``["cpu"] * 4`` in one process; under
   autograd the group form raises ``RuntimeError`` on every rank."""
 
+import math
 import pickle
 import time
 
@@ -220,6 +221,30 @@ def test_decode_cell_on_a_mesh_equals_the_unsharded_model(ranks, cell_reference)
             assert torch.equal(got_rows[k], torch.cat([r[k] for r in rows], dim=1)), k
 
 
+def composition(cfg, model, batch) -> tuple[dict, list, list]:
+    """The cell's accumulator summed in one process: microbatch by
+    microbatch, in order, (DP shard 0's gradient + DP shard 1's) in
+    float32. Returns it, each microbatch's loss (the DP shards' mean)
+    and every (microbatch, DP shard) gradient."""
+    from repro_torch.launch.steps import loss_and_grads
+
+    accum, losses, terms = None, [], []
+    for i in range(2):
+        mb = {k: v[i] for k, v in batch.items()}
+        parts = [loss_and_grads(cfg, model, dp_rows(mb, r)) for r in range(2)]
+        step_sum = {k: parts[0][1][k].float() + parts[1][1][k].float() for k in parts[0][1]}
+        accum = step_sum if accum is None else {k: accum[k] + g for k, g in step_sum.items()}
+        losses.append((parts[0][0] + parts[1][0]) / 2)
+        terms += [grads for _, grads in parts]
+    return accum, losses, terms
+
+
+def gamma(k: int, dtype) -> float:
+    """Higham's gamma_k = k u / (1 - k u) for ``dtype``'s unit roundoff u."""
+    ku = k * torch.finfo(dtype).eps / 2
+    return ku / (1 - ku)
+
+
 def test_zero_accumulator_shards_equal_the_single_process_composition(ranks, cell_reference):
     """Each rank's accumulator shard is bit-equal to its block of an
     accumulator summed in one process, microbatch by microbatch in order,
@@ -227,19 +252,11 @@ def test_zero_accumulator_shards_equal_the_single_process_composition(ranks, cel
     two-term sum does not depend on its order. The moments' ZeRO rule
     shards the large leaves over "data" too; the loss is the mean over
     microbatches and DP shards."""
-    from repro_torch.launch.steps import loss_and_grads
     from repro_torch.optim import adamw_init
     from repro_torch.parallel.sharding import params_sharding
 
     cfg, model, inputs = cell_reference
-    batch = inputs["train"]
-    accum, losses = None, []
-    for i in range(2):
-        mb = {k: v[i] for k, v in batch.items()}
-        parts = [loss_and_grads(cfg, model, dp_rows(mb, r)) for r in range(2)]
-        step_sum = {k: parts[0][1][k].float() + parts[1][1][k].float() for k in parts[0][1]}
-        accum = step_sum if accum is None else {k: accum[k] + g for k, g in step_sum.items()}
-        losses.append((parts[0][0] + parts[1][0]) / 2)
+    accum, losses, _ = composition(cfg, model, inputs["train"])
     specs = params_sharding(adamw_init(dict(model.named_parameters())), W.CELL_MESH,
                             fsdp=True)["mu"]
     assert any("data" in s.spec for s in specs.values())  # ZeRO shards some leaves over DP
@@ -266,3 +283,90 @@ def test_train_cell_leaves_the_ranks_equal(ranks, cell_reference):
             assert torch.equal(p, first["params"][k]), k
         for m in ("loss", "grad_norm", "lr"):
             assert torch.equal(got["metrics"][m], first["metrics"][m]), m
+
+
+def norm_bound(grads: dict, terms_per_leaf: int) -> tuple[float, float]:
+    """(the norm of ``grads`` (float32 values) taken exactly, in float64,
+    and the most that a float32 norm computed as ``global_norm`` computes
+    it may differ from it). A leaf's float32 sum of squares adds its
+    numel rounded squares in any order, then up to ``terms_per_leaf``
+    more terms (the sums over shards and over leaves): within gamma_m x
+    its value, m = numel + 1 + terms_per_leaf. With E the sum of those
+    bounds, the square root moves by at most E / G and rounds once; the
+    float64 sum adds its own gamma_n."""
+    sums = {k: float(torch.sum(torch.square(g.double()))) for k, g in grads.items()}
+    exact_sq = sum(sums.values())
+    exact = math.sqrt(exact_sq)
+    n = sum(g.numel() for g in grads.values())
+    err = sum(gamma(grads[k].numel() + 1 + terms_per_leaf, torch.float32) * v
+              for k, v in sums.items()) + gamma(n, torch.float64) * exact_sq
+    return exact, err / exact + gamma(1, torch.float32) * (exact + err / exact)
+
+
+def clip_scale(norm: torch.Tensor, clip: float) -> float:
+    """``adamw_update``'s clip scale for ``norm``."""
+    return float(torch.clamp_max(torch.full_like(norm, clip) / torch.clamp_min(norm, 1e-9), 1.0))
+
+
+def test_train_cell_values_equal_the_unsharded_step(ranks, cell_reference):
+    """The values of the 2 x 2 train step (2 microbatches, DP 2), each
+    gathered whole on rank 0 (the ranks agree: the test above):
+
+    (a) the parameters, both moments and the step counter are bit-equal
+        to the unsharded ``adamw_update`` (the update ``make_train_step``
+        applies) on the one-process composition's gradient, accumulator /
+        (N x DP) = / 4, clipped by the cell's own norm;
+    (b) that norm is within :func:`norm_bound` of the composition's norm:
+        each leaf's shard sums, the sum over the 4 ranks and over the
+        leaves are the only sums;
+    (c) the unsharded ``make_train_step`` on the same four rows, as four
+        microbatches of one DP shard each in the cell's order, sums the
+        same K = 4 gradients g_k in another order: |g - g'| <= delta =
+        2 (K - 1) u sum_k |g_k| / K. Its norm is within the same bound
+        plus |delta|, and its first moment (1 - b1) fl(g' s') within
+        (1 - b1) (s delta + |s - s'| |g'| + gamma_2 (s |g| + s' |g'|))
+        of the cell's, s and s' the clip scales of the two norms. Its
+        loss, a mean of the same four losses, is within the 4-term sum's
+        bound."""
+    from repro_torch.core.quantization import true_divide
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.optim import AdamWConfig, adamw_init, adamw_update
+
+    cfg, model, inputs = cell_reference
+    got = ranks[0]["cells"]["train"]
+    accum, losses, terms = composition(cfg, model, inputs["train"])
+    grads = {k: true_divide(a, 4.0) for k, a in accum.items()}
+    opt_cfg = AdamWConfig()
+    params = {k: p.detach().clone() for k, p in model.named_parameters()}
+    _, state, metrics = adamw_update(grads, adamw_init(params), params, opt_cfg,
+                                     grad_norm=got["metrics"]["grad_norm"])
+    for k in params:  # (a)
+        assert torch.equal(got["params"][k], params[k]), k
+        assert torch.equal(got["mu"][k], state["mu"][k]), k
+        assert torch.equal(got["nu"][k], state["nu"][k]), k
+    assert torch.equal(got["step"], state["step"])
+    assert torch.equal(got["metrics"]["lr"], metrics["lr"])
+
+    exact, bound = norm_bound(grads, 4 + len(grads))  # (b)
+    norm = got["metrics"]["grad_norm"]
+    assert abs(float(norm) - exact) <= bound, (float(norm), exact, bound)
+
+    batch = {k: torch.stack([dp_rows({k: v[i]}, r)[k] for i in range(2) for r in range(2)])
+             for k, v in inputs["train"].items()}  # (c)
+    _, fresh = W.cell_model()
+    opt = adamw_init(dict(fresh.named_parameters()))
+    _, opt, plain = make_train_step(cfg, opt_cfg, n_microbatches=4)(fresh, opt, batch)
+    K, u = 4, torch.finfo(torch.float32).eps / 2
+    delta = {k: 2 * (K - 1) * u * sum(t[k].float().abs() for t in terms) / K for k in grads}
+    delta_norm = math.sqrt(sum(float(torch.sum(torch.square(d.double()))) for d in delta.values()))
+    assert abs(float(plain["grad_norm"]) - exact) <= bound + delta_norm
+    s, s_plain = (clip_scale(x, opt_cfg.grad_clip_norm) for x in (norm, plain["grad_norm"]))
+    c = (1 - opt_cfg.b1) * (1 + u)
+    for k, g in grads.items():
+        g_plain = opt["mu"][k].abs() / (1 - opt_cfg.b1) / s_plain
+        limit = c * (s * delta[k] + abs(s - s_plain) * g_plain
+                     + gamma(2, torch.float32) * (s * g.abs() + s_plain * g_plain)) * (1 + 4 * u)
+        gap = (got["mu"][k] - opt["mu"][k]).abs()
+        assert bool((gap <= limit).all()), (k, float(gap.max()))
+    assert abs(float(plain["loss"]) - float(got["metrics"]["loss"])) \
+        <= 2 * gamma(K, torch.float32) * sum(abs(float(x)) for x in losses)

@@ -15,7 +15,9 @@
   ``make_host_mesh``, every cell's ``run_cell``); this process never
   initialises a process group. Each record's per-device argument bytes
   equal the sum of ``NamedSharding.shard_shape`` bytes over the
-  reference's leaves on the same ``AbstractMesh``."""
+  reference's leaves on the same ``AbstractMesh``, and what the port's
+  step gathers beyond them is counted from the reference's leaves and
+  specs by the step's own rules."""
 
 import json
 import os
@@ -207,7 +209,10 @@ def test_the_dry_run_covers_every_cell(fake_run):
         mem = r["memory"]
         assert mem["resident_bytes"] == mem["argument_bytes"] + mem["output_bytes"] \
             - mem["alias_bytes"]
-        assert r["fits"] == (mem["resident_bytes"] <= 80 * 10**9)
+        parts = [v for k, v in mem.items() if k.startswith("gathered_") and k != "gathered_bytes"]
+        assert mem["gathered_bytes"] == sum(parts) and mem["gathered_params_bytes"] > 0
+        assert mem["step_bytes"] == mem["resident_bytes"] + mem["gathered_bytes"]
+        assert r["fits"] == (mem["step_bytes"] <= 80 * 10**9)
         assert r["n_devices"] == (512 if r["mesh"] == "2x16x16" else 256)
         assert r["params"] == get_config(r["arch"]).n_params
 
@@ -219,12 +224,54 @@ def ref_bytes(tree, shardings) -> int:
                for k, v in leaves.items())
 
 
+def whole_bytes(x) -> int:
+    return int(np.prod(x.shape)) * np.dtype(x.dtype).itemsize
+
+
+def axes_of(entry) -> tuple:
+    return () if entry is None else (entry,) if isinstance(entry, str) else tuple(entry)
+
+
+def ref_gathered(rcfg, kind, rparams, p_shard, ropt=None, o_shard=None, rin=None,
+                 in_shard=None, rcache=None, c_shard=None, mesh_sizes=None) -> dict:
+    """What the port's step gathers per device, counted on the reference's
+    leaves and specs: every parameter leaf whose spec names an axis,
+    whole; a train step's gradients whole and its accumulator shards (the
+    moments' shard shapes in ``grad_accum_dtype``); a decode step's cache
+    entries with every non-DP axis dropped from their spec (all of them
+    where the inputs' batch dim names no DP axis), where that drops one."""
+    leaves, specs = ref_flat(rparams), ref_flat(p_shard)
+    out = {"params": sum(whole_bytes(v) for k, v in leaves.items()
+                         if any(e is not None for e in specs[k].spec))}
+    if kind == "train":
+        mu, mu_specs = ref_flat(ropt["mu"]), ref_flat(o_shard["mu"])
+        item = np.dtype(rcfg.grad_accum_dtype).itemsize
+        out["grads"] = sum(whole_bytes(v) for v in leaves.values())
+        out["accum"] = sum(int(np.prod(mu_specs[k].shard_shape(v.shape))) * item
+                           for k, v in mu.items())
+    elif kind == "decode":
+        dp = {"pod", "data"}
+        main = next(k for k in ("tokens", "codes", "embeds") if k in rin)
+        by_batch = bool(set(axes_of(in_shard[main].spec[0])) & dp)
+        total, c_specs = 0, ref_flat(c_shard)
+        for k, v in ref_flat(rcache).items():
+            spec = tuple(c_specs[k].spec) + (None,) * (len(v.shape) - len(c_specs[k].spec))
+            keep = [tuple(a for a in axes_of(e) if a in dp) if by_batch else () for e in spec]
+            if any(tuple(axes_of(e)) != kp for e, kp in zip(spec, keep)):
+                total += whole_bytes(v) // int(np.prod([mesh_sizes[a] for kp in keep
+                                                        for a in kp] or [1]))
+        out["cache"] = total
+    return out
+
+
 @pytest.mark.parametrize("mesh", ["16x16", "2x16x16"])
 @pytest.mark.parametrize("arch", ARCH_IDS)
 def test_run_cell_bytes_equal_the_reference_shard_shapes(fake_run, arch, mesh):
     """Parameters, moments, inputs and cache bytes per device, cell by
     cell, against the reference's leaves laid out by its own rules on an
-    ``AbstractMesh``; and the output and alias bytes by the donation."""
+    ``AbstractMesh``; the output and alias bytes by the donation; and
+    what the port's step gathers, counted on the reference's leaves and
+    specs (:func:`ref_gathered`)."""
     multi = mesh == "2x16x16"
     amesh = AbstractMesh((2, 16, 16) if multi else (16, 16),
                          ("pod", "data", "model") if multi else ("data", "model"))
@@ -239,16 +286,25 @@ def test_run_cell_bytes_equal_the_reference_shard_shapes(fake_run, arch, mesh):
         rin = ref_input_specs(rcfg, shape, dp_size=dp)
         assert mem["inputs_bytes"] == ref_bytes(rin, RS.input_sharding(rcfg, amesh, rin))
         fsdp = rcfg.fsdp if shape.kind == "train" else rcfg.fsdp_inference
-        assert mem["params_bytes"] == ref_bytes(rparams, RS.params_sharding(rparams, amesh, fsdp))
+        p_shard = RS.params_sharding(rparams, amesh, fsdp)
+        assert mem["params_bytes"] == ref_bytes(rparams, p_shard)
         logits = shape.global_batch * max(1, rcfg.n_codebooks) * rcfg.vocab_padded * 4
         if shape.kind == "train":
-            assert mem["moments_bytes"] == ref_bytes(ropt, RS.params_sharding(ropt, amesh, True))
+            o_shard = RS.params_sharding(ropt, amesh, True)
+            assert mem["moments_bytes"] == ref_bytes(ropt, o_shard)
             assert mem["alias_bytes"] == mem["params_bytes"] + mem["moments_bytes"]
             assert mem["output_bytes"] == mem["alias_bytes"] + 12
+            gathered = ref_gathered(rcfg, "train", rparams, p_shard, ropt, o_shard)
         elif shape.kind == "decode":
             rcache = ref_cache_specs(rcfg, shape)
-            want = ref_bytes(rcache, RS.cache_sharding(rcfg, rcache, amesh, shape.global_batch))
+            c_shard = RS.cache_sharding(rcfg, rcache, amesh, shape.global_batch)
+            want = ref_bytes(rcache, c_shard)
             assert mem["cache_bytes"] == want == mem["alias_bytes"]
             assert mem["output_bytes"] == logits + want
+            gathered = ref_gathered(rcfg, "decode", rparams, p_shard, rin=rin,
+                                    in_shard=RS.input_sharding(rcfg, amesh, rin), rcache=rcache,
+                                    c_shard=c_shard, mesh_sizes=dict(amesh.shape))
         else:
             assert mem["alias_bytes"] == 0 and mem["output_bytes"] == logits
+            gathered = ref_gathered(rcfg, "prefill", rparams, p_shard)
+        assert {k: mem[f"gathered_{k}_bytes"] for k in gathered} == gathered, r["shape"]

@@ -138,12 +138,30 @@ def deepseek():
         return h
 
     want = np.stack([np.asarray(ref_blocks(jnp.asarray(xm))) for xm in x])
-    return cfg, model, x, positions, want
+
+    @jax.jit
+    def ref_grads(h, head):
+        """d/d blocks and d/dx of sum(outputs * head), the blocks in order
+        microbatch by microbatch (the port's stacked names are the
+        reference's dotted block paths)."""
+        def loss(blocks, h):
+            total = 0.0
+            for m in range(h.shape[0]):
+                hm = h[m]
+                for i in range(N_LAYERS):
+                    p = jax.tree.map(lambda t, i=i: t[i], blocks)
+                    hm = RT.apply_block(rcfg, "attn", p, hm, jnp.asarray(positions), None,
+                                        decode=False)[0]
+                total = total + jnp.sum(hm * head[m])
+            return total
+        return jax.grad(loss, argnums=(0, 1))(params["blocks"], h)
+
+    return cfg, model, x, positions, want, ref_grads
 
 
 @pytest.mark.parametrize("name", sorted(SPLITS))
 def test_deepseek_blocks_through_the_pipeline(deepseek, name):
-    cfg, model, x, positions, want = deepseek
+    cfg, model, x, positions, want, _ = deepseek
     pos = torch.from_numpy(positions.copy())
     apply = PP.transformer_block_apply(model, cfg, pos)
     stacked = PP.stack_blocks(model)
@@ -196,6 +214,11 @@ def sequential_per_microbatch(block_apply, stacked: dict, n_layers: int, x):
     return torch.stack(outs)
 
 
+def grad_head(x: torch.Tensor) -> np.ndarray:
+    """The seeded weights of the loss sum(outputs * head), shaped as ``x``."""
+    return np.random.RandomState(7).standard_normal(tuple(x.shape)).astype(np.float32)
+
+
 def assert_grads_match_in_order(block_apply, stacked: dict, n_layers: int, x, plan, devices):
     """Gradients of sum(outputs * head) with respect to every stacked
     parameter and the input, through ``run_pipeline`` and through the
@@ -203,8 +226,9 @@ def assert_grads_match_in_order(block_apply, stacked: dict, n_layers: int, x, pl
     g_m in autograd's order, which the two graphs need not share: any two
     orders of an M-term sum differ by at most 2 (M - 1) u sum_m |g_m| (u
     the unit roundoff), the bound held here. The input's gradient has one
-    term per microbatch and must be equal."""
-    head = torch.randn(x.shape, generator=torch.Generator().manual_seed(7), dtype=x.dtype)
+    term per microbatch and must be equal. Returns the pipeline's
+    gradients, the stacked parameters' then the input's."""
+    head = torch.from_numpy(grad_head(x)).to(x.dtype)
     leaves = [*stacked.values(), x]
     got = torch.autograd.grad(
         torch.sum(PP.run_pipeline(plan, block_apply, stacked, n_layers, x, devices=devices)
@@ -219,25 +243,60 @@ def assert_grads_match_in_order(block_apply, stacked: dict, n_layers: int, x, pl
         assert bool((gap <= 2 * (M - 1) * u * size).all()), (name, float(gap.max()))
         assert float(got[i].abs().max()) > 0, name
     assert torch.equal(got[-1], want[-1])
+    return got
+
+
+def gamma(k: int, dtype) -> float:
+    """Higham's gamma_k = k u / (1 - k u) for ``dtype``'s unit roundoff u."""
+    ku = k * np.finfo(dtype).eps / 2
+    return ku / (1 - ku)
 
 
 @pytest.mark.parametrize("stages", sorted(GRAD_SPLITS))
 def test_gradients_through_the_pipeline_equal_the_blocks_in_order(stages):
     """The toy blocks in float64: every stacked weight's gradient within
-    the M-term sum bound of the blocks in order's, the input's equal."""
-    w, x = toy_weights(stages)
-    w = torch.from_numpy(w).double().requires_grad_(True)
-    x = torch.from_numpy(x).double().requires_grad_(True)
-    assert_grads_match_in_order(toy_block, {"w": w}, L, x, Plan(GRAD_SPLITS[stages]),
-                                ["cpu"] * stages)
+    the M-term sum bound of the blocks in order's, the input's equal.
+
+    Then against the reference: ``jax.grad`` of sum(sequential(x) * head)
+    through the reference's own sequential oracle, in float32. The
+    gradient is a circuit of sums and products alone, so a computed value
+    lies within gamma_k x the same circuit on |w|, |x| and |head| of the
+    exact one, k the roundings on its longest path: L layers of D + 1
+    forward and as many backward, the head's product and the M x mb-row
+    sum of a weight gradient. The bound held is that of the float32 and
+    the float64 computation added."""
+    w_np, x_np = toy_weights(stages)
+    w = torch.from_numpy(w_np).double().requires_grad_(True)
+    x = torch.from_numpy(x_np).double().requires_grad_(True)
+    got = assert_grads_match_in_order(toy_block, {"w": w}, L, x, Plan(GRAD_SPLITS[stages]),
+                                      ["cpu"] * stages)
+    head = grad_head(x)
+    want = jax.grad(lambda w, x: jnp.sum(sequential(toy_block, {"w": w}, L, x) * head),
+                    argnums=(0, 1))(jnp.asarray(w_np), jnp.asarray(x_np))
+    w_abs = w.detach().abs().requires_grad_(True)
+    x_abs = x.detach().abs().requires_grad_(True)
+    size = torch.autograd.grad(torch.sum(sequential(toy_block, {"w": w_abs}, L, x_abs)
+                                         * torch.from_numpy(head).double().abs()),
+                               [w_abs, x_abs])
+    k = 2 * L * (D + 1) + 1 + M * MB
+    bound_of = gamma(k, np.float32) + gamma(k, np.float64)
+    for name, g, r, a in zip(("w", "x"), got, want, size):
+        gap = np.abs(g.numpy() - np.asarray(r, dtype=np.float64))
+        assert np.all(gap <= bound_of * a.numpy()), (name, float(gap.max()))
 
 
 @pytest.mark.parametrize("stages", sorted(GRAD_SPLITS))
 def test_deepseek_gradients_through_the_pipeline(deepseek, stages):
     """reduced() deepseek-7b's blocks (float32, 8 layers): the stacked
     parameters come from ``stack_blocks`` of a model whose parameters
-    require grad, so the gradient also reaches the model's own leaves."""
-    cfg, model, x, positions, _ = deepseek
+    require grad, so the gradient also reaches the model's own leaves.
+    Every stacked parameter's gradient and the input's are within
+    ``LM_F32_TOL`` of ``jax.grad`` through the reference's ``apply_block``
+    in order, on the same weights, inputs and head; the atol is taken on
+    the leaf's rms where that exceeds one, as ``torch_parity`` does for a
+    scaled cache entry (these gradients reach |g| ~ 20, not the logits'
+    std ~ 0.1 that ``LM_F32_TOL`` was set on)."""
+    cfg, model, x, positions, _, ref_grads = deepseek
     pos = torch.from_numpy(positions.copy())
     apply = PP.transformer_block_apply(model, cfg, pos)
     for p in model.parameters():
@@ -246,8 +305,17 @@ def test_deepseek_gradients_through_the_pipeline(deepseek, stages):
         stacked = PP.stack_blocks(model)
         assert all(t.requires_grad for t in stacked.values())
         xt = torch.from_numpy(x).requires_grad_(True)
-        assert_grads_match_in_order(apply, stacked, N_LAYERS, xt, Plan(GRAD_SPLITS[stages]),
-                                    ["cpu"] * stages)
+        got = assert_grads_match_in_order(apply, stacked, N_LAYERS, xt,
+                                          Plan(GRAD_SPLITS[stages]), ["cpu"] * stages)
+        want_blocks, want_x = ref_grads(jnp.asarray(x), jnp.asarray(grad_head(xt)))
+        want = {".".join(k.key for k in path): np.asarray(v)
+                for path, v in jax.tree_util.tree_leaves_with_path(want_blocks)}
+        assert set(want) == set(stacked)
+        for name, g, r in [*zip(stacked, got, (want[n] for n in stacked)),
+                           ("x", got[-1], np.asarray(want_x))]:
+            rms = float(np.sqrt(np.mean(np.square(r.astype(np.float64)))))
+            np.testing.assert_allclose(g.numpy(), r, rtol=LM_F32_TOL["rtol"],
+                                       atol=LM_F32_TOL["atol"] * max(1.0, rms), err_msg=name)
         leaf = model.blocks[0].attn.wq
         (g,) = torch.autograd.grad(torch.sum(PP.run_pipeline(
             Plan(GRAD_SPLITS[stages]), apply, stacked, N_LAYERS, xt,

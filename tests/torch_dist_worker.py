@@ -135,7 +135,8 @@ def cell_cases() -> dict:
     """The cells on a 2 x 2 mesh of the 4 ranks, every argument laid out by
     its sharding: gathered prefill and decode logits, the cache row the
     decode wrote, this rank's ZeRO accumulator shards (two microbatches),
-    and the parameters after one train step."""
+    and the parameters, moments and metrics after one train step, each
+    gathered whole."""
     from repro_torch.launch import steps as ST
     from repro_torch.launch.mesh import make_host_mesh
     from repro_torch.optim import adamw_init
@@ -163,8 +164,8 @@ def cell_cases() -> dict:
     p_d = SH.distribute(params, p_sh)
     p_d, o_d, metrics = step(p_d, SH.distribute(adamw_init(params), o_sh), batch)
     out["train"] = {"params": {k: v.full_tensor() for k, v in p_d.items()},
-                    "mu": {k: v.to_local() for k, v in o_d["mu"].items()},
-                    "metrics": metrics}
+                    **{m: {k: v.full_tensor() for k, v in o_d[m].items()} for m in ("mu", "nu")},
+                    "step": o_d["step"].full_tensor(), "metrics": metrics}
     return out
 
 
