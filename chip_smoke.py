@@ -315,21 +315,29 @@ reference package ``repro``) on the card and fails on any fault:
    as gathering (``launch.steps.gathered_bytes``); the collectives run on
    the one-rank group as on a larger mesh (``full_tensor``,
    ``all_reduce``), but ``_relayout`` takes the local tensor there;
-   (b) in a ``spawn`` process that holds the fake backend (run beside (a)
+   (b) in ``spawn`` processes that hold the fake backend (run beside (a)
    and (c); the main process never holds it), ``run_cell`` for every
    config x its applicable shapes on both production meshes: 64 records,
    each one's per-device argument, resident and step bytes (the step's:
-   with what it gathers) against the card's ``total_memory``; (c)
+   with what it gathers), its counts (``parallel.op_analysis``): flops
+   (products and the rest), bytes accessed, collectives by kind with
+   their ring wire bytes, ``temp_bytes``, and ``fits`` on step + temp
+   against the card's ``total_memory``, with the totals; (c)
    deepseek-7b's blocks at full width (4 of 30, bf16,
    attention on the chunked core as in training) through the pipeline over
    2 stages, 4 microbatches of 1 x 2,048: every stacked weight's gradient
    within 2 (M - 1) u sum_m |g_m| of the blocks in order's, the input's
    bit-equal, 0 flash launches; the group form refuses autograd on the
    one-rank group and, under ``no_grad``, equals the blocks in order;
+   (d) (a)'s prefill_32k cell once more under the op counter on the card
+   (30 more flash launches) against the same cell counted on ``meta``
+   tensors over a one-rank fake world in one more ``spawn`` process:
+   flops, bytes, collectives and kernel ops equal, the card's peak above
+   the call's start within ``COUNTED_PEAK_BAND`` of the trace's peak;
 23. a JSON line of per-kernel results (the DP rows' launches by path
    with ``"examples"`` and ``"sharded"``; flash with granite-34b's and
-   zamba2's launches and their prefill shapes' times, ``"pipeline"`` and
-   ``"build_cell"``;
+   zamba2's launches and their prefill shapes' times, ``"pipeline"``,
+   ``"build_cell"`` and ``"counted_cell"``;
    the SSD scan's launches by path and its time at zamba2's prefill
    shape; ``"training"``: 0 for both), the card's memory size, the card
    line, and the last line ``{"ok": true, "device": {...}}``.
@@ -4718,6 +4726,7 @@ def serving_cells(dev, mesh, card) -> dict:
     from repro_torch.kernels.flash_attention import ops as FA
     from repro_torch.launch.steps import build_cell, make_decode_step, make_prefill_step
     from repro_torch.models import transformer as T
+    from repro_torch.parallel.op_analysis import count_step
     from repro_torch.parallel.sharding import distribute
 
     cfg = replace(get_config(CELL_ARCH), use_flash_kernel=True)
@@ -4761,6 +4770,22 @@ def serving_cells(dev, mesh, card) -> dict:
                           "peak_bytes": peak, "argument_bytes": arg_bytes,
                           "gathered_bytes": gathered, "launches": launches}
     del got, want
+    torch.cuda.empty_cache()
+    # (d)'s card run: the same cell once more under the op counter; the peak
+    # is taken above what is allocated when the call starts (its arguments)
+    inputs = distribute(batch, sh[1])
+    torch.cuda.synchronize()
+    start = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    FA.reset_launch_count()
+    (got, trace), wall = timed(lambda: count_step(step, params, inputs))
+    out["prefill_32k"]["counted"] = {
+        "summary": trace_summary(trace), "wall_s": wall, "launches": FA.FLASH_LAUNCHES,
+        "peak_above_start": torch.cuda.max_memory_allocated() - start}
+    out["prefill_32k"]["counted_launches"] = FA.FLASH_LAUNCHES
+    if FA.FLASH_LAUNCHES != cfg.n_layers:
+        raise AssertionError(f"counted prefill cell: {FA.FLASH_LAUNCHES} flash launches")
+    del got, inputs
     torch.cuda.empty_cache()
 
     shape = cell_shape("decode_32k")
@@ -4963,9 +4988,22 @@ def pipeline_gradients(dev, model, card) -> dict:
             "wall_again_s": again}
 
 
-def dryrun_records(capacity: int) -> list:
-    """(b), in a ``spawn`` process: every config x applicable shape on both
-    production meshes under the fake backend (its lines kept from stdout)."""
+# (b) runs in this many spawn processes, the cells of each mesh split
+# round-robin over half of them
+DRYRUN_WORKERS = 6
+# (d): the card's peak above the memory the counted call starts from, as a
+# share of the trace's peak (``peak_bytes``: ``temp_bytes`` and the
+# returned logits' storage, live at the peak), stated before the run: the
+# card allocates what the trace allocates, in the same order, plus the
+# allocator's 512-byte rounding and cuBLAS's workspace (tens of MB), and
+# the trace has no allocation the card lacks
+COUNTED_PEAK_BAND = (0.98, 1.05)
+
+
+def dryrun_records(capacity: int, cells: list, multi_pod: bool) -> list:
+    """(b), in a ``spawn`` process: ``cells`` on one production mesh under
+    the fake backend, each record with its counts (its lines kept from
+    stdout)."""
     import contextlib
     import io
 
@@ -4975,7 +5013,33 @@ def dryrun_records(capacity: int) -> list:
 
     torch.set_num_threads(1)
     with contextlib.redirect_stdout(io.StringIO()):
-        return dryrun.run_cells(dryrun.all_cells(), [False, True], capacity_bytes=capacity)
+        return dryrun.run_cells(cells, [multi_pod], capacity_bytes=capacity)
+
+
+def trace_summary(trace) -> dict:
+    """An ``op_analysis.OpTrace``'s figures, comparable across processes."""
+    return {"flops_products": trace.flops_products, "flops_other": trace.flops_other,
+            "bytes": trace.bytes_accessed,
+            "collectives": sorted([list(c) for c in trace.collectives]),
+            "kernels": dict(trace.kernels), "temp": trace.temp_bytes, "peak": trace.peak_bytes,
+            "ops": trace.n_ops}
+
+
+def fake_cell_counts() -> dict:
+    """(d)'s fake run, in a ``spawn`` process: (a)'s prefill_32k cell (its
+    config, batch and 1 x 1 mesh) counted on ``meta`` tensors over a
+    one-rank fake world."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import make_host_mesh
+
+    torch.set_num_threads(1)
+    cfg = replace(get_config(CELL_ARCH), use_flash_kernel=True)
+    with dryrun.fake_world(1):
+        return trace_summary(dryrun.count_cell(cfg, cell_shape("prefill_32k"),
+                                               make_host_mesh(device="cpu")))
 
 
 def print_dryrun(records: list, capacity: int, card) -> None:
@@ -4983,36 +5047,99 @@ def print_dryrun(records: list, capacity: int, card) -> None:
 
     want = {(a, s, m) for a, s in all_cells() for m in ("16x16", "2x16x16")}
     got = {(r["arch"], r["shape"], r["mesh"]) for r in records}
-    print(f"  (b) the dry run in a spawn process holding the fake backend: {len(records)} "
-          f"records (every config x its applicable shapes on 16x16 and 2x16x16); per-device "
-          f"argument / resident / step GB (step: resident + what the port's step gathers, "
-          f"the weights whole among it) against total_memory {capacity / 1e9:.2f} GB [{card}]")
-    for arch in dict.fromkeys(r["arch"] for r in records):
-        row = [f"{r['shape']}@{r['mesh']} {r['memory']['argument_bytes'] / 1e9:.3f}/"
-               f"{r['memory']['resident_bytes'] / 1e9:.3f}/{r['memory']['step_bytes'] / 1e9:.3f}"
-               f"{'' if r['fits'] else ' OVER'}"
-               for r in records if r["arch"] == arch]
-        print(f"    {arch}: {'; '.join(row)}")
+    print(f"  (b) the dry run in {DRYRUN_WORKERS} spawn processes holding the fake backend: "
+          f"{len(records)} records (every config x its applicable shapes on 16x16 and "
+          f"2x16x16); per device: argument / resident / step GB (step: resident + what the "
+          f"port's step gathers, the weights whole among it), temp GB (the trace's peak beyond "
+          f"the arguments and outputs), fits on step + temp against total_memory "
+          f"{capacity / 1e9:.2f} GB; flops (products + the rest), bytes accessed, collective "
+          f"output MB and ring wire MB by kind [{card}]")
+    short = {"all-gather": "ag", "all-reduce": "ar", "reduce-scatter": "rs",
+             "all-to-all": "a2a", "collective-permute": "cp"}
+    for r in sorted(records, key=lambda r: (r["arch"], r["shape"], r["mesh"])):
+        mem, coll = r["memory"], r["collectives_weighted"]
+        kinds = " ".join(f"{short.get(k, k)} {coll['bytes'][k] / 1e6:.1f}/"
+                         f"{coll['wire_bytes'][k] / 1e6:.1f} x{coll['counts'][k]}"
+                         for k in sorted(coll["bytes"]))
+        print(f"    {r['arch']} {r['shape']}@{r['mesh']}: {mem['argument_bytes'] / 1e9:.3f}/"
+              f"{mem['resident_bytes'] / 1e9:.3f}/{mem['step_bytes'] / 1e9:.3f} GB, temp "
+              f"{mem['temp_bytes'] / 1e9:.3f} GB {'fits' if r['fits'] else 'OVER'}; flops "
+              f"{r['flops_products_per_device']:.4e} + {r['flops_other_per_device']:.4e}, "
+              f"bytes {r['bytes_per_device']:.4e}; {kinds} (count {r['count_s']:.1f} s)")
     if got != want or len(records) != 64:
         raise AssertionError(f"dry run: {len(records)} records, missing {sorted(want - got)}")
-    print(f"    {sum(r['fits'] for r in records)} of {len(records)} fit; build walls "
-          f"{min(r['build_s'] for r in records):.2f}-{max(r['build_s'] for r in records):.2f} s")
+    for r in records:
+        if not (r["flops_per_device"] > 0 and r["bytes_per_device"] > 0
+                and r["memory"]["temp_bytes"] > 0 and r["collectives"]["total_bytes"] > 0):
+            raise AssertionError(f"dry run: {r['arch']} {r['shape']} {r['mesh']} counts nothing")
+    totals: dict = {}
+    for r in records:
+        for k, v in r["collectives_weighted"]["bytes"].items():
+            totals[k] = totals.get(k, 0) + v
+    print(f"    totals over the {len(records)} records: flops "
+          f"{sum(r['flops_per_device'] for r in records):.4e} "
+          f"({sum(r['flops_products_per_device'] for r in records):.4e} in products), bytes "
+          f"{sum(r['bytes_per_device'] for r in records):.4e}, collectives "
+          f"{sum(r['collectives']['total_bytes'] for r in records) / 1e9:.1f} GB "
+          f"({', '.join(f'{k} {v / 1e9:.1f}' for k, v in sorted(totals.items()))}), wire "
+          f"{sum(r['collectives_weighted']['total_wire_bytes'] for r in records) / 1e9:.1f} GB, "
+          f"temp {sum(r['memory']['temp_bytes'] for r in records) / 1e9:.1f} GB; "
+          f"{sum(r['fits'] for r in records)} of {len(records)} fit on step + temp "
+          f"({sum(r['memory']['step_bytes'] <= capacity for r in records)} on step alone); build "
+          f"walls {min(r['build_s'] for r in records):.2f}-"
+          f"{max(r['build_s'] for r in records):.2f} s, count walls "
+          f"{min(r['count_s'] for r in records):.2f}-{max(r['count_s'] for r in records):.2f} s")
+
+
+def check_counted_cell(real: dict, fake: dict, card) -> dict:
+    """(d): (a)'s prefill_32k cell counted on the card against the same
+    cell counted on ``meta`` tensors: flops, bytes, collectives and kernel
+    ops equal; the card's peak within :data:`COUNTED_PEAK_BAND` of the
+    trace's."""
+    got, want = real["summary"], fake
+    ratio = real["peak_above_start"] / want["peak"]
+    print(f"  (d) the op counter on the card over (a)'s prefill_32k cell: flops "
+          f"{got['flops_products']:.6e} products + {got['flops_other']:.6e} other (meta trace "
+          f"{want['flops_products']:.6e} + {want['flops_other']:.6e}), bytes {got['bytes']:.6e} "
+          f"(trace {want['bytes']:.6e}), {len(got['collectives'])} collectives "
+          f"{sum(c[1] for c in got['collectives']) / 1e9:.3f} GB (trace "
+          f"{len(want['collectives'])}, {sum(c[1] for c in want['collectives']) / 1e9:.3f} GB), "
+          f"kernel ops {got['kernels']} (trace {want['kernels']}), {real['launches']} flash "
+          f"launches; peak above the call's start {real['peak_above_start'] / 1e9:.3f} GB vs the "
+          f"trace's peak {want['peak'] / 1e9:.3f} GB (ratio {ratio:.4f}, band "
+          f"{COUNTED_PEAK_BAND}) and temp {want['temp'] / 1e9:.3f} GB (ratio "
+          f"{real['peak_above_start'] / want['temp']:.4f}); the counted call {real['wall_s']:.3f} s "
+          f"[{card}]")
+    same = {k: got[k] == want[k] for k in ("flops_products", "flops_other", "bytes",
+                                           "collectives", "kernels")}
+    if not all(same.values()) or not COUNTED_PEAK_BAND[0] <= ratio <= COUNTED_PEAK_BAND[1]:
+        raise AssertionError(f"counted cell: equal {same}, peak ratio {ratio:.4f}")
+    return {"peak_ratio": ratio, "temp_ratio": real["peak_above_start"] / want["temp"],
+            "flops": got["flops_products"] + got["flops_other"]}
 
 
 def phase_launch_tooling(dev, card) -> dict:
-    """Phase 22: (a) the cells on a 1 x 1 mesh, (b) the dry run (in a spawn
-    process beside (a) and (c)), (c) the pipeline's gradients."""
+    """Phase 22: (a) the cells on a 1 x 1 mesh, (b) the dry run (in spawn
+    processes beside (a) and (c)), (c) the pipeline's gradients, (d) the
+    op counter on (a)'s prefill cell on the card against the same cell's
+    trace on ``meta`` tensors (in one more spawn process)."""
     import multiprocessing as mp
     from concurrent.futures import ProcessPoolExecutor
 
     import torch
     import torch.distributed as dist
 
+    from repro_torch.launch.dryrun import all_cells
+
     t0 = time.perf_counter()
     torch.cuda.empty_cache()
     capacity = torch.cuda.get_device_properties(0).total_memory
-    with ProcessPoolExecutor(max_workers=1, mp_context=mp.get_context("spawn")) as pool:
-        dry = pool.submit(dryrun_records, capacity)
+    with ProcessPoolExecutor(max_workers=DRYRUN_WORKERS,
+                             mp_context=mp.get_context("spawn")) as pool:
+        fake = pool.submit(fake_cell_counts)
+        cells, split = all_cells(), DRYRUN_WORKERS // 2
+        dry = [pool.submit(dryrun_records, capacity, cells[i::split], multi_pod)
+               for multi_pod in (False, True) for i in range(split)]
         mesh = one_rank_mesh()
         try:
             cells = serving_cells(dev, mesh, card)
@@ -5024,11 +5151,15 @@ def phase_launch_tooling(dev, card) -> dict:
         finally:
             dist.destroy_process_group()
         t_ac = time.perf_counter() - t0
-        records = dry.result()
+        records = [r for task in dry for r in task.result()]
+        fake = fake.result()
     print_dryrun(records, capacity, card)
-    print(f"  phase 22: {time.perf_counter() - t0:.1f} s ((a) and (c) {t_ac:.1f} s)")
-    return {"cells": cells, "grads": grads, "records": len(records),
-            "launches": cells["prefill_32k"]["launches"]}
+    counted = check_counted_cell(cells["prefill_32k"].pop("counted"), fake, card)
+    print(f"  phase 22: {time.perf_counter() - t0:.1f} s ((a), (c) and (d)'s card run "
+          f"{t_ac:.1f} s)")
+    return {"cells": cells, "grads": grads, "records": len(records), "counted": counted,
+            "launches": cells["prefill_32k"]["launches"],
+            "counted_launches": cells["prefill_32k"]["counted_launches"]}
 
 
 def main() -> int:
@@ -5154,11 +5285,11 @@ def main() -> int:
 
     card = card_line()
     print(f"== 22 the launch tooling: {CELL_ARCH}'s cells on a 1 x 1 mesh (build_cell: "
-          f"prefill_32k, decode_32k, train_4k), the dry run on the production meshes, the "
-          f"pipeline's gradients [{card}]")
+          f"prefill_32k, decode_32k, train_4k), the dry run on the production meshes with its "
+          f"counts, the pipeline's gradients, the op counter on the card [{card}]")
     launch = phase_launch_tooling(dev, card)
-    flash_launches += launch["launches"]
-    wgmma_launches += launch["launches"]
+    flash_launches += launch["launches"] + launch["counted_launches"]
+    wgmma_launches += launch["launches"] + launch["counted_launches"]
 
     kernels = []
     by_variant = {"tiled": path["by_variant"]["tiled"] + planner["tiled"] + replan["tiled"]
@@ -5195,7 +5326,8 @@ def main() -> int:
                                 "simt": flash_launches - wgmma_launches},
         "launches_by_path": {"deepseek-7b": deepseek_launches, **families["launches"],
                              "zamba2-1.2b": zamba["flash"], "training": train_launches["flash"],
-                             "pipeline": multi["pipeline"], "build_cell": launch["launches"]},
+                             "pipeline": multi["pipeline"], "build_cell": launch["launches"],
+                             "counted_cell": launch["counted_launches"]},
         **times["flash_attention"],
         "by_config": {**families["by_config"], "zamba2-1.2b": hybrids["flash_at"]},
     })

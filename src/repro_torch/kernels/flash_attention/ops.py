@@ -5,7 +5,9 @@
 :func:`flash_attention_kernel`, which launches the hand-written CUDA
 kernel ``csrc/flash_attention.cu``. For tensors on the CPU it runs the
 plain version (:func:`.ref.attention_ref`) instead; for any other device
-it launches the kernel or raises.
+it launches the kernel or raises. Tensors that hold no data (``meta``,
+``FakeTensorMode``: the dry run's trace) take neither: the kernel
+function returns an empty output and tells the op counters.
 
 The source holds two kernels. :func:`_variant` names the one a call takes:
 ``"wgmma"`` (bf16 tensor cores fed by TMA) for bfloat16 with a head dim
@@ -19,7 +21,7 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.kernels import build, refuse_autograd
+from repro_torch.kernels import build, holds_no_data, note_kernel, refuse_autograd
 from repro_torch.kernels.flash_attention.ref import attention_ref
 
 __all__ = ["FLASH_LAUNCHES", "FLASH_WGMMA_LAUNCHES", "MAX_HEAD_DIM", "VARIANTS",
@@ -90,7 +92,9 @@ def flash_attention_kernel(q, k, v, q_positions, kv_positions, *,
     :func:`_variant`'s kernel; ``"simt"`` forces the CUDA-core kernel (any
     type and head dim); ``"wgmma"`` is refused where :func:`_variant`
     would not pick it. Raises if the kernel cannot be built or launched;
-    it never computes the result otherwise."""
+    it never computes the result otherwise. Inputs that hold no data
+    (:func:`~repro_torch.kernels.holds_no_data`) get an empty output of
+    the kernel's shape and type, and no launch."""
     global FLASH_LAUNCHES, FLASH_WGMMA_LAUNCHES
     _check(q, k, v, q_positions, kv_positions)
     chosen = _variant(q.dtype, q.shape[2])
@@ -98,6 +102,10 @@ def flash_attention_kernel(q, k, v, q_positions, kv_positions, *,
         raise ValueError(f"flash_attention_kernel: variant {variant!r} cannot run "
                          f"{q.dtype} with head dim {q.shape[2]} (it takes {chosen!r})")
     chosen = variant or chosen
+    if holds_no_data(q):
+        out = torch.empty_like(q)
+        note_kernel("flash_attention", (q, k, v, q_positions, kv_positions), out)
+        return out
     built = build.load("flash_attention.cu")
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention_kernel: needs CUDA tensors, got "
@@ -119,6 +127,7 @@ def flash_attention_kernel(q, k, v, q_positions, kv_positions, *,
     build.check_launch(built, code, f"flash_attention ({chosen})")
     FLASH_LAUNCHES += 1
     FLASH_WGMMA_LAUNCHES += int(chosen == "wgmma")
+    note_kernel("flash_attention", (q, k, v, q_positions, kv_positions), out)
     return out
 
 
@@ -141,7 +150,7 @@ def flash_attention(q, k, v, *, q_positions, kv_positions, scale) -> torch.Tenso
     vf = v.transpose(1, 2).reshape(B * Hkv, v.shape[1], v.shape[3]).contiguous()
     qpos = q_positions.to(torch.int32).contiguous()
     kpos = kv_positions.to(torch.int32).contiguous()
-    if q.device.type == "cpu":
+    if q.device.type == "cpu" and not holds_no_data(q):
         _check(qf, kf, vf, qpos, kpos)
         out = attention_ref(qf, kf, vf, qpos, kpos, scale)
     else:

@@ -28,7 +28,7 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.kernels import build
+from repro_torch.kernels import build, holds_no_data, note_kernel
 from repro_torch.kernels.quant_matmul.ref import int_matmul
 
 __all__ = ["OUT_DTYPES", "W8A16_LAUNCHES", "W8A8_LAUNCHES", "W8A8_VARIANTS",
@@ -150,7 +150,8 @@ def quant_matmul_kernel(a_q, w_q, a_scale, a_zp, w_scale, *, out_dtype=torch.flo
     (any K; for timing and tests); ``"wgmma"`` is refused where
     :func:`_variant` would not pick it. Allocates int32 column sums and,
     for the wgmma kernel, w transposed (N, K). Raises if the kernel cannot
-    be built or launched."""
+    be built or launched. Inputs that hold no data get an empty output
+    (and the same scratch, so a trace's live bytes match the card's)."""
     global W8A8_LAUNCHES, W8A8_WGMMA_LAUNCHES
     M, K, N = _check_gemm("quant_matmul_kernel", a_q, w_q, w_scale, (torch.int8,),
                           out_dtype)
@@ -159,6 +160,14 @@ def quant_matmul_kernel(a_q, w_q, a_scale, a_zp, w_scale, *, out_dtype=torch.flo
         raise ValueError("quant_matmul_kernel: a_scale must be one float32 and "
                          f"a_zp one int32, got {a_scale.dtype} x{a_scale.numel()} "
                          f"and {a_zp.dtype} x{a_zp.numel()}")
+    if holds_no_data(a_q):
+        dev = a_q.device
+        out = torch.empty((M, N), dtype=out_dtype, device=dev)
+        scratch = [torch.empty((N,), dtype=torch.int32, device=dev)]
+        if _variant(K, 0) == "wgmma":
+            scratch.append(torch.empty((N, K), dtype=torch.int8, device=dev))
+        note_kernel("quant_matmul", (a_q, w_q, a_scale, a_zp, w_scale), out)
+        return out
     dev = build.check_cuda("quant_matmul_kernel", a_q=a_q, w_q=w_q, a_scale=a_scale,
                       a_zp=a_zp, w_scale=w_scale)
     chosen = _variant(K, a_q.data_ptr())
@@ -183,6 +192,7 @@ def quant_matmul_kernel(a_q, w_q, a_scale, a_zp, w_scale, *, out_dtype=torch.flo
     build.check_launch(built, code, f"quant_matmul_w8a8 ({chosen})")
     W8A8_LAUNCHES += 1
     W8A8_WGMMA_LAUNCHES += int(chosen == "wgmma")
+    note_kernel("quant_matmul", (a_q, w_q, a_scale, a_zp, w_scale), out)
     return out
 
 
@@ -215,9 +225,13 @@ def w8a16_matmul_kernel(x, w_q, w_scale, *, out_dtype=torch.float32):
     """Launch the W8A16 kernel: ``x`` float32 or bfloat16 (M, K), ``w_q``
     int8 (K, N), ``w_scale`` float32 (N,); contiguous CUDA tensors on one
     card. Returns (M, N) in ``out_dtype``. Raises if the kernel cannot be
-    built or launched."""
+    built or launched. Inputs that hold no data get an empty output."""
     global W8A16_LAUNCHES
     M, K, N = _check_gemm("w8a16_matmul_kernel", x, w_q, w_scale, X_DTYPES, out_dtype)
+    if holds_no_data(x):
+        out = torch.empty((M, N), dtype=out_dtype, device=x.device)
+        note_kernel("w8a16_matmul", (x, w_q, w_scale), out)
+        return out
     dev = build.check_cuda("w8a16_matmul_kernel", x=x, w_q=w_q, w_scale=w_scale)
     built = build.load("quant_matmul.cu")
     out = torch.empty((M, N), dtype=out_dtype, device=dev)
@@ -228,4 +242,5 @@ def w8a16_matmul_kernel(x, w_q, w_scale, *, out_dtype=torch.float32):
             torch.cuda.current_stream(dev).cuda_stream)
     build.check_launch(built, code, "quant_matmul_w8a16")
     W8A16_LAUNCHES += 1
+    note_kernel("w8a16_matmul", (x, w_q, w_scale), out)
     return out

@@ -3,7 +3,8 @@
 The port of the reference's ``kernels/quant_matmul/ops.py``. Its
 ``interpret`` switch gives way to the tensors' device: CPU tensors run the
 kernels' plain PyTorch versions, CUDA tensors launch the kernels
-(``csrc/quant_matmul.cu``) or raise. ``quant_linear`` is the layer-level
+(``csrc/quant_matmul.cu``) or raise; tensors that hold no data
+(``meta``, ``FakeTensorMode``) get the kernel's empty output. ``quant_linear`` is the layer-level
 convenience that quantizes activations on the fly against int8 weights
 (the deployed TinyML segment hot path)."""
 
@@ -12,6 +13,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.core.quantization import QTensor, quantize
+from repro_torch.kernels import holds_no_data
 from repro_torch.kernels.quant_matmul.kernel import (
     quant_matmul_kernel,
     quant_matmul_plain,
@@ -31,7 +33,7 @@ def quant_matmul(a_q, w_q, a_scale, a_zp, w_scale, *, out_dtype=torch.float32):
     a_zp = torch.as_tensor(a_zp, device=dev).to(torch.int32).reshape(1)
     a_q, w_q = a_q.contiguous(), w_q.contiguous()
     w_scale = w_scale.to(torch.float32).contiguous()
-    if dev.type == "cpu":
+    if dev.type == "cpu" and not holds_no_data(a_q):
         return quant_matmul_plain(a_q, w_q, a_scale, a_zp, w_scale, out_dtype=out_dtype)
     return quant_matmul_kernel(a_q, w_q, a_scale, a_zp, w_scale, out_dtype=out_dtype)
 
@@ -40,7 +42,7 @@ def w8a16_matmul(x, w_q, w_scale, *, out_dtype=torch.float32):
     """(M,K) float32/bfloat16 x (K,N) int8 -> (M,N) ``out_dtype``."""
     x, w_q = x.contiguous(), w_q.contiguous()
     w_scale = w_scale.to(torch.float32).contiguous()
-    if x.device.type == "cpu":
+    if x.device.type == "cpu" and not holds_no_data(x):
         return w8a16_matmul_plain(x, w_q, w_scale, out_dtype=out_dtype)
     return w8a16_matmul_kernel(x, w_q, w_scale, out_dtype=out_dtype)
 

@@ -20,7 +20,7 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.kernels import build
+from repro_torch.kernels import build, holds_no_data, note_kernel
 
 __all__ = ["MAX_CHUNK", "MAX_DS", "MAX_PH", "SSD_LAUNCHES", "X_DTYPES",
            "reset_launch_count", "ssm_scan_kernel", "ssm_scan_pieces", "ssm_scan_plain"]
@@ -170,14 +170,16 @@ def ssm_scan_kernel(x, b, c, dA, dt, *, chunk: int = 128) -> torch.Tensor:
     state scratch: per chunk and sequence, round16(ph) x round16(ds)
     float32 and three times as many bf16 (163 MB for one zamba2-1.2b
     layer at B 4, S 2048). Raises if the kernels cannot be built or
-    launched."""
+    launched. Inputs that hold no data get an empty y (and the same
+    scratch, so a trace's live bytes match the card's)."""
     global SSD_LAUNCHES
     BH, S, ph, BG, ds, ck = _check(x, b, c, dA, dt, chunk)
     if ck > MAX_CHUNK or ph > MAX_PH or ds > MAX_DS:
         raise ValueError(f"ssm_scan_kernel: chunk {ck}, ph {ph}, ds {ds} exceed the "
                          f"kernel's {MAX_CHUNK}, {MAX_PH}, {MAX_DS}")
-    dev = build.check_cuda("ssm_scan_kernel", x=x, b=b, c=c, dA=dA, dt=dt)
-    built = build.load("ssm_scan.cu")
+    no_data = holds_no_data(x)
+    dev = x.device if no_data else build.check_cuda("ssm_scan_kernel", x=x, b=b, c=c, dA=dA,
+                                                     dt=dt)
     n = -(-S // ck)
     php, dsp = -(-ph // 16) * 16, -(-ds // 16) * 16
     y = torch.empty_like(x)
@@ -186,6 +188,10 @@ def ssm_scan_kernel(x, b, c, dA, dt, *, chunk: int = 128) -> torch.Tensor:
     states = torch.empty((max(n - 1, 1), BH, php, dsp), dtype=torch.float32, device=dev)
     decay = torch.empty((BH, max(n - 1, 1)), dtype=torch.float32, device=dev)
     hp = torch.empty((n, BH, 3, php, dsp), dtype=torch.bfloat16, device=dev)
+    if no_data:
+        note_kernel("ssm_scan", (x, b, c, dA, dt, ck), y)
+        return y
+    built = build.load("ssm_scan.cu")
     with torch.cuda.device(dev):
         code = built.lib.ssm_scan_fwd(
             x.data_ptr(), b.data_ptr(), c.data_ptr(), dA.data_ptr(), dt.data_ptr(),
@@ -193,4 +199,5 @@ def ssm_scan_kernel(x, b, c, dA, dt, *, chunk: int = 128) -> torch.Tensor:
             ds, ck, int(x.dtype == torch.bfloat16), torch.cuda.current_stream(dev).cuda_stream)
     build.check_launch(built, code, "ssm_scan")
     SSD_LAUNCHES += 1
+    note_kernel("ssm_scan", (x, b, c, dA, dt, ck), y)
     return y

@@ -3,7 +3,8 @@
 The port of the reference's ``kernels/ssm_scan/ops.py``. Its
 ``interpret`` switch gives way to the tensors' device: CPU tensors run
 the kernel's chunked plain version, CUDA tensors launch the kernel
-(``csrc/ssm_scan.cu``) or raise. The reference broadcasts b and c over
+(``csrc/ssm_scan.cu``) or raise; tensors that hold no data (``meta``,
+``FakeTensorMode``) get the kernel's empty output. The reference broadcasts b and c over
 the heads; here the kernel reads them through a head-group index (all H
 heads of a batch row share one row of b and c), the same function
 without the copies."""
@@ -12,7 +13,7 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.kernels import refuse_autograd
+from repro_torch.kernels import holds_no_data, refuse_autograd
 from repro_torch.kernels.ssm_scan.kernel import X_DTYPES, ssm_scan_kernel, ssm_scan_plain
 
 __all__ = ["ssm_scan"]
@@ -34,6 +35,6 @@ def ssm_scan(x, b, c, dA, dt, *, chunk: int = 128) -> torch.Tensor:
     xf = x.transpose(1, 2).reshape(B * H, S, ph).to(kind).contiguous()
     dAf = dA.transpose(1, 2).reshape(B * H, S).to(torch.float32).contiguous()
     dtf = dt.transpose(1, 2).reshape(B * H, S).to(torch.float32).contiguous()
-    scan = ssm_scan_plain if x.device.type == "cpu" else ssm_scan_kernel
+    scan = ssm_scan_plain if x.device.type == "cpu" and not holds_no_data(x) else ssm_scan_kernel
     y = scan(xf, b.to(kind).contiguous(), c.to(kind).contiguous(), dAf, dtf, chunk=chunk)
     return y.reshape(B, H, S, ph).transpose(1, 2).to(x.dtype)

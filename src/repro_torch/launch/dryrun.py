@@ -1,4 +1,5 @@
-"""Dry run: lay out every (arch x shape x mesh) cell on the production mesh.
+"""Dry run: lay out every (arch x shape x mesh) cell on the production mesh
+and count what one step of it does.
 
 The port's counterpart of ``repro.launch.dryrun``. For each cell the dry
 run, in a process that holds the ``fake`` process-group backend (one
@@ -18,21 +19,46 @@ moves):
   5. adds what the port's step gathers beyond its arguments
      (``launch.steps.gathered_bytes``: every sharded weight whole, a
      train step's whole gradients and its accumulator shards, a decode
-     step's cache relaid out to its DP shard), and holds that sum
-     (``step_bytes``) against a capacity given as a parameter,
-  6. writes ``experiments/dryrun_torch/<arch>__<shape>__<mesh>.json``
-     when asked.
+     step's cache relaid out to its DP shard): ``step_bytes``,
+  6. counts one step (:func:`cell_counts`, ``parallel.op_analysis``): the
+     step runs on ``meta`` tensors under the op counter, which gives the
+     reference's ``flops_per_device``, ``bytes_per_device``,
+     ``collectives``, ``collectives_weighted`` and ``memory.temp_bytes``,
+  7. holds ``step_bytes + temp_bytes`` against a capacity given as a
+     parameter (``fits``), and writes
+     ``experiments/dryrun_torch/<arch>__<shape>__<mesh>.json`` when asked.
 
-The reference also records XLA's ``temp_bytes``, ``flops_per_device``,
-``bytes_per_device`` and the collectives parsed from the optimized HLO
-(``repro.parallel.hlo_analysis``): its compiler derives them from the
-partitioned program without running it. The port compiles no program and
-runs eagerly, so it has no counterpart for them and the record leaves
-them out. ``resident_bytes`` (arguments + outputs - aliases) is what the
+``resident_bytes`` (arguments + outputs - aliases) is what the
 reference's donation keeps; ``step_bytes`` adds what the port's step
-gathers, and is still a lower bound of its peak: the activations and
-other temporaries are not counted. The port gathers every weight whole,
-so a cell that the reference's layout fits may not fit the port's step.
+gathers, a lower bound of its peak; ``temp_bytes`` is the peak of what
+the step holds beyond its arguments and outputs (the gathered tensors
+among it, with the activations and every other temporary), so the
+``fits`` verdict counts the gathered tensors twice: a margin, not a
+peak. The port gathers every weight whole, so a cell that the
+reference's layout fits may not fit the port's step.
+
+The counts are the port's, not XLA's: the counter adds up the eager ops
+the step runs, where XLA counts its program after fusing elementwise
+chains, leaving transcendentals out of ``flops`` and counting a while
+body once (``parallel.op_analysis`` says how each figure is counted).
+The serving cells (prefill, decode) are counted as the port serves on
+the card, with attention on the flash kernel (``use_flash_kernel``:
+4·D flops per kept pair); training runs the chunked core, as the kernel
+has no backward.
+
+A training step of a production cell runs millions of eager ops, so
+:func:`cell_counts` counts such a step (and any past 100,000 ops, or with
+an sLSTM layer) on shallower copies of the cell and extends their
+counts over what the copies repeat: a layer of each block kind (the
+blocks of a kind are alike), each microbatch (alike but for the first),
+and, for an sLSTM layer (a Python loop over the positions), the
+positions. The flops, bytes and collectives so extended equal a whole
+count (``tests/test_torch_op_analysis.py`` holds them equal on every
+config at small sizes); ``temp_bytes`` is extended over the layers and
+positions too, from the copies' peaks at the same microbatch count (2
+where there are more): an estimate. The serving cells count their step
+whole but for MLA's prefill (chunked attention, with thousands of blocks
+a layer) and the sLSTM's.
 
 Usage:
   python -m repro_torch.launch.dryrun --all [--multi-pod|--both]
@@ -42,16 +68,20 @@ Usage:
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import time
 from contextlib import contextmanager
+from fractions import Fraction
 from pathlib import Path
 
-from repro_torch.configs import ARCH_IDS, SHAPES, applicable_shapes, get_config
+from repro_torch.configs import (ARCH_IDS, SHAPES, ShapeSpec, applicable_shapes,
+                                 effective_microbatches, get_config)
 
 OUT_DIR = Path(__file__).resolve().parents[3] / "experiments" / "dryrun_torch"
 
-__all__ = ["argument_bytes", "fake_world", "run_cell", "run_cells"]
+__all__ = ["argument_bytes", "cell_counts", "collective_bytes", "count_cell", "fake_world",
+           "run_cell", "run_cells"]
 
 
 @contextmanager
@@ -80,6 +110,166 @@ def argument_bytes(tree, shardings) -> int:
     return sum(sizes)
 
 
+def collective_bytes(trace) -> dict:
+    """Per-kind output bytes and counts of every collective in a step's
+    trace (``op_analysis.OpTrace``) and their total: the reference's
+    ``collective_bytes`` over the port's trace."""
+    from repro_torch.parallel.op_analysis import weighted_collective_bytes
+
+    w = weighted_collective_bytes(trace)
+    return {"bytes": w["bytes"], "counts": w["counts"], "total_bytes": w["total_bytes"]}
+
+
+def count_cell(cfg, shape: ShapeSpec, mesh):
+    """One step of the (``cfg``, ``shape``) cell on ``mesh`` counted on
+    ``meta`` tensors (``op_analysis.count_step``): the ``OpTrace``. A
+    decode step reads its cache cursor on the host; it is the last row."""
+    import torch
+
+    from repro_torch.launch.steps import build_cell
+    from repro_torch.parallel.op_analysis import count_step
+    from repro_torch.parallel.sharding import distribute
+
+    step, args, shardings = build_cell(cfg, shape, mesh)
+    args = tuple(distribute(a, s) for a, s in zip(args, shardings))
+    values = {}
+    if shape.kind == "decode":
+        values[args[1]["cur_index"]._local_tensor] = torch.tensor(shape.seq_len - 1,
+                                                               dtype=torch.int32)
+    return count_step(step, *args, values=values)[1]
+
+
+def _flat(trace) -> dict:
+    """A trace's figures as one flat mapping, for sums of traces."""
+    from repro_torch.parallel.op_analysis import COLLECTIVES, _wire_factor
+
+    w = collective_bytes(trace)
+    out = {"flops_products": trace.flops_products, "flops_other": trace.flops_other,
+           "bytes": trace.bytes_accessed, "temp": trace.temp_bytes,
+           **{f"{part}/{kind}": n for part in ("bytes", "counts") for kind, n in w[part].items()}}
+    for kind, nbytes, group in trace.collectives:  # wire bytes kept exact until the end
+        factor = Fraction(_wire_factor(kind, group)) if kind in COLLECTIVES else 1
+        out[f"wire/{kind}"] = out.get(f"wire/{kind}", 0) + nbytes * factor
+    return out
+
+
+def _sum(*terms) -> dict:
+    """Sum of ``(coefficient, flat counts)`` terms, key by key."""
+    out: dict = {}
+    for c, counts in terms:
+        for k, v in counts.items():
+            out[k] = out.get(k, 0) + c * v
+    return out
+
+
+#: block kinds whose layer loops over the positions in Python, and the
+#: smallest of the three position counts their layer is counted at
+_POSITION_LOOPS = ("slstm",)
+_POSITION_PROBE = 64  # and its multiples 128 and 192
+#: a step that would count more ops than this is counted on shallower copies
+_WHOLE_MAX = 100_000
+
+
+def _lagrange(xs, i: int, x) -> Fraction:
+    """The weight of the value at ``xs[i]`` in the polynomial through
+    ``xs`` evaluated at ``x``."""
+    w = Fraction(1)
+    for j, xj in enumerate(xs):
+        if j != i:
+            w *= Fraction(x - xj, xs[i] - xj)
+    return w
+
+
+def cell_counts(cfg, shape: ShapeSpec, mesh) -> dict:
+    """The flat counts of one step of a production cell (:func:`count_cell`
+    with the serving cells on the flash kernel). A step that would count
+    more than :data:`_WHOLE_MAX` ops (its base copy's ops times its depth
+    and microbatches), or that holds a kind of :data:`_POSITION_LOOPS`, is
+    counted by :func:`_extended_counts`; any other is counted whole."""
+    return _extended_counts(cfg, shape, mesh, whole_max=_WHOLE_MAX)
+
+
+def _extended_counts(cfg, shape: ShapeSpec, mesh, whole_max: int = 0) -> dict:
+    """The counts of one step from shallower copies of the cell, extended
+    (the module docstring); with ``whole_max``, :func:`cell_counts`'s rule
+    first (a step under it counted whole):
+
+    * depth: the base stack B holds the first layer of each block kind (a
+      homogeneous stack: one remat group, ``remat_group`` layers where it
+      divides the depth); each kind k adds (n_k - b_k) / (layers per step)
+      times the count of one more of its layers (B + k minus B);
+    * microbatches (train, N > 1): the same at 1 and 2 microbatches of the
+      cell's own size, extended by N - 1 times the second's increment;
+      ``temp`` from the copies at 2;
+    * positions: a kind of :data:`_POSITION_LOOPS` is left out of B, and
+      one layer of it (on the first layer of B) is counted at 64, 128 and
+      192 positions and interpolated at S by the parabola through the
+      three: its forward is affine in S (the projections, one cell per
+      position), and its backward adds a term in S² (each position's
+      gradient is scattered into a zero tensor of all S positions). A peak
+      is no polynomial in S: such a layer adds to ``temp`` what it adds
+      at 64 positions (its gathered weights, which the step holds from
+      start to end)."""
+    from repro_torch.launch.steps import _dp_size
+
+    train = shape.kind == "train"
+    N = effective_microbatches(cfg, shape, _dp_size(mesh)) if train else 1
+    rows = shape.global_batch // N
+    flash = dataclasses.replace(cfg, use_flash_kernel=not train)
+    kinds = list(dict.fromkeys(cfg.pattern))
+    loops = [k for k in kinds if k in _POSITION_LOOPS] if shape.seq_len > 1 else []
+    base = [k for k in kinds if k not in loops]
+    if not base:
+        raise ValueError(f"{cfg.name}: every block kind loops over positions")
+    unit = 1
+    if cfg.block_pattern is None and cfg.remat and cfg.n_layers % cfg.remat_group == 0:
+        unit = cfg.remat_group
+    base = base * unit
+    traced: dict = {}
+
+    def probe(pattern, m, seq):
+        key = (tuple(pattern), m, seq)
+        if key not in traced:
+            c = dataclasses.replace(flash, n_layers=len(pattern), train_microbatches=m,
+                                    block_pattern=tuple(pattern) if cfg.block_pattern else None)
+            s = ShapeSpec(shape.name, shape.kind, seq, m * rows if train else shape.global_batch)
+            traced[key] = count_cell(c, s, mesh)
+        return traced[key]
+
+    if not loops and probe(base, 1, shape.seq_len).n_ops * N * cfg.n_layers // len(base) \
+            <= whole_max:
+        return {k: int(v) for k, v in _flat(count_cell(flash, shape, mesh)).items()}
+
+    def at(m):
+        b = _flat(probe(base, m, shape.seq_len))
+        terms = [(1, b)]
+        for k in kinds:
+            if k in loops:
+                # one layer of k at three position counts, interpolated at S
+                xs = [_POSITION_PROBE * (i + 1) for i in range(3)]
+                ds = [_sum((1, _flat(probe(base[:1] + [k], m, x))),
+                           (-1, _flat(probe(base[:1], m, x)))) for x in xs]
+                per_layer = _sum(*[(_lagrange(xs, i, shape.seq_len), d)
+                                   for i, d in enumerate(ds)])
+                # a peak is no polynomial in S: the layer adds to the peak the
+                # weights it holds at the shortest count (all gathered at once)
+                per_layer["temp"] = ds[0]["temp"]
+                terms.append((cfg.pattern.count(k), per_layer))
+            else:
+                more = _sum((1, _flat(probe(base + [k] * unit, m, shape.seq_len))), (-1, b))
+                terms.append((Fraction(cfg.pattern.count(k) - base.count(k), unit), more))
+        return _sum(*terms)
+
+    one = at(1)
+    if N == 1:
+        counts = one
+    else:
+        two = at(2)
+        counts = _sum((1, one), (N - 1, _sum((1, two), (-1, one))))
+        counts["temp"] = two["temp"]
+    return {k: int(round(v)) for k, v in counts.items()}
+
+
 def _logits_bytes(cfg, batch: int, seq: int) -> int:
     """float32 logits (B, S, [n_codebooks,] Vp), replicated."""
     return batch * seq * max(1, cfg.n_codebooks) * cfg.vocab_padded * 4
@@ -89,8 +279,8 @@ def run_cell(arch: str, shape_name: str, multi_pod: bool, save: bool = False,
              capacity_bytes: int | None = None) -> dict:
     """One cell's record. Needs the default process group to be the fake
     backend with 256 (``multi_pod`` False) or 512 ranks (:func:`fake_world`).
-    ``capacity_bytes``: a device's memory, for the ``fits`` verdict
-    (``None``: no verdict)."""
+    ``capacity_bytes``: a device's memory, for the ``fits`` verdict on
+    ``step_bytes + temp_bytes`` (``None``: no verdict)."""
     from repro_torch.launch.mesh import make_production_mesh
     from repro_torch.launch.steps import build_cell, gathered_bytes
 
@@ -118,12 +308,27 @@ def run_cell(arch: str, shape_name: str, multi_pod: bool, save: bool = False,
     resident = argument + output - alias
     gathered = gathered_bytes(cfg, shape.kind, args, shardings)
     step_bytes = resident + sum(gathered.values())
+    t1 = time.perf_counter()
+    counts = cell_counts(cfg, shape, mesh)
+    coll = {part: {k.split("/", 1)[1]: v for k, v in counts.items() if k.startswith(part + "/")}
+            for part in ("bytes", "counts", "wire")}
     record = {
         "arch": arch,
         "shape": shape_name,
         "mesh": mesh_name,
         "n_devices": mesh.size(),
-        "build_s": round(time.perf_counter() - t0, 2),
+        "build_s": round(t1 - t0, 2),
+        "count_s": round(time.perf_counter() - t1, 2),
+        "flops_per_device": counts["flops_products"] + counts["flops_other"],
+        "flops_products_per_device": counts["flops_products"],
+        "flops_other_per_device": counts["flops_other"],
+        "bytes_per_device": counts["bytes"],
+        "collectives": {"bytes": coll["bytes"], "counts": coll["counts"],
+                        "total_bytes": sum(coll["bytes"].values())},
+        "collectives_weighted": {"bytes": coll["bytes"], "counts": coll["counts"],
+                                 "wire_bytes": coll["wire"],
+                                 "total_bytes": sum(coll["bytes"].values()),
+                                 "total_wire_bytes": sum(coll["wire"].values())},
         "memory": {
             **{f"{k}_bytes": v for k, v in parts.items()},
             "argument_bytes": argument,
@@ -133,9 +338,11 @@ def run_cell(arch: str, shape_name: str, multi_pod: bool, save: bool = False,
             **{f"gathered_{k}_bytes": v for k, v in gathered.items()},
             "gathered_bytes": sum(gathered.values()),
             "step_bytes": step_bytes,
+            "temp_bytes": counts["temp"],
+            "peak_estimate_bytes": resident + counts["temp"],
         },
         "capacity_bytes": capacity_bytes,
-        "fits": None if capacity_bytes is None else step_bytes <= capacity_bytes,
+        "fits": None if capacity_bytes is None else step_bytes + counts["temp"] <= capacity_bytes,
         "params": cfg.n_params,
     }
     if save:
@@ -144,9 +351,11 @@ def run_cell(arch: str, shape_name: str, multi_pod: bool, save: bool = False,
         path.write_text(json.dumps(record, indent=1))
     verdict = "" if record["fits"] is None else ("fits" if record["fits"] else "OVER")
     print(f"[dryrun] {arch:22s} {shape_name:12s} {mesh_name:7s} "
-          f"build {record['build_s']:5.2f}s  args/dev {argument / 1e9:7.3f} GB  "
-          f"resident/dev {resident / 1e9:7.3f} GB  step/dev {step_bytes / 1e9:8.3f} GB "
-          f"{verdict}", flush=True)
+          f"build {record['build_s']:5.2f}s count {record['count_s']:6.2f}s  "
+          f"args/dev {argument / 1e9:7.3f} GB  resident/dev {resident / 1e9:7.3f} GB  "
+          f"step + temp/dev {(step_bytes + counts['temp']) / 1e9:8.3f} GB {verdict}  "
+          f"flops/dev {record['flops_per_device']:.3e}  "
+          f"coll {record['collectives']['total_bytes'] / 1e6:8.1f} MB", flush=True)
     return record
 
 
@@ -174,8 +383,8 @@ def main(argv=None):
     ap.add_argument("--multi-pod", action="store_true")
     ap.add_argument("--both", action="store_true", help="run 16x16 and 2x16x16")
     ap.add_argument("--capacity-gb", type=float, default=None,
-                    help="a device's memory in GB (1e9 B), for the fits verdict "
-                         "(step_bytes: the arguments, outputs and what the step gathers)")
+                    help="a device's memory in GB (1e9 B), for the fits verdict on step_bytes "
+                         "(the arguments, outputs and what the step gathers) + temp_bytes")
     args = ap.parse_args(argv)
     if args.all:
         cells = all_cells()

@@ -342,12 +342,20 @@ def gathered_bytes(cfg: ModelConfig, kind: str, args, shardings) -> dict[str, in
     return out
 
 
+def _same_memory(a: torch.Tensor, b: torch.Tensor) -> bool:
+    """``a`` and ``b`` are the same elements of one storage (also for
+    ``meta`` tensors, whose data pointers are all 0)."""
+    return (a.untyped_storage()._cdata == b.untyped_storage()._cdata
+            and a.storage_offset() == b.storage_offset() and a.shape == b.shape
+            and a.stride() == b.stride())
+
+
 def _store(t, local: torch.Tensor, placements) -> None:
     """Write ``local`` (laid out as ``placements``) into DTensor ``t``."""
     from torch.distributed.tensor import DTensor
 
     mine = t.to_local()
-    if local.data_ptr() == mine.data_ptr() and local.shape == mine.shape:
+    if _same_memory(local, mine):
         return  # the step wrote the shard in place
     if tuple(t.placements) != tuple(placements):
         local = DTensor.from_local(local, t.device_mesh, placements, run_check=False
@@ -371,7 +379,9 @@ class _Gathered:
     """A ``Transformer`` whose parameters are a cell's gathered weights for
     the duration of a ``with`` block: built once (under ``FakeTensorMode``,
     nothing allocated), given the whole tensors on entry and let go of
-    them on exit, so the unsharded code runs unchanged."""
+    them on exit, so the unsharded code runs unchanged. For ``meta``
+    weights (the dry run's trace) the template is built on the CPU: a
+    model's device is its weights', and every weight is replaced."""
 
     def __init__(self, cfg: ModelConfig):
         self.cfg, self.model = cfg, None
@@ -383,6 +393,7 @@ class _Gathered:
         whole = {k: _whole(v) for k, v in params.items()}
         if self.model is None:
             dev = next(iter(whole.values())).device
+            dev = "cpu" if dev.type == "meta" else dev
             with FakeTensorMode():
                 self.model = T.Transformer(self.cfg, device=dev)
         slots = [(self.model.get_submodule(owner)._parameters, leaf, whole[name])

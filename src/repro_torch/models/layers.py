@@ -107,7 +107,8 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float,
                              f"and {mrope_sections}")
         section = torch.repeat_interleave(
             torch.arange(3, device=x.device),
-            torch.tensor(mrope_sections, device=x.device))  # stream of each slot
+            torch.tensor(mrope_sections, device=x.device),
+            output_size=half)  # stream of each slot
         angles = positions.float()[section].permute(1, 2, 0) * inv
     cos = torch.cos(angles)[:, :, None, :]
     sin = torch.sin(angles)[:, :, None, :]

@@ -41,6 +41,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from repro_torch.device import resolve_device
+from repro_torch.kernels import holds_no_data
 from repro_torch.kernels.ssm_scan.ops import ssm_scan
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import _weight, dense_init_
@@ -181,10 +182,12 @@ def mamba_scan(x, Bm, Cm, dA, dt, chunk: int) -> torch.Tensor:
       the SSD kernel through ``ssm_scan`` with x, B and C cast to float32
       (exact: the chunk body casts them itself), so y comes back float32,
       as the reference keeps it. A shape outside the kernel's range
-      raises its ``ValueError``."""
+      raises its ``ValueError``. Tensors that hold no data (``meta``,
+      ``FakeTensorMode``: the dry run's trace) take the SSD op too, which
+      returns an empty y."""
     records = torch.is_grad_enabled() and any(
         t.requires_grad for t in (x, Bm, Cm, dA, dt))
-    if records or x.device.type == "cpu":
+    if records or (x.device.type == "cpu" and not holds_no_data(x)):
         return mamba_scan_plain(x, Bm, Cm, dA, dt, chunk)
     return ssm_scan(x.float(), Bm.float(), Cm.float(), dA, dt, chunk=chunk)
 
@@ -377,7 +380,10 @@ class SLSTM(nn.Module):
 def init_slstm_cache(cfg: ModelConfig, batch: int, device=None) -> dict:
     """``{"c", "n", "h", "m"}``, each (B, di) float32: zeros, and the
     stabilizer m at -10."""
-    dev = resolve_device(device)
+    return _slstm_state(cfg, batch, resolve_device(device))
+
+
+def _slstm_state(cfg: ModelConfig, batch: int, dev: torch.device) -> dict:
     z = torch.zeros((batch, cfg.d_inner), dtype=torch.float32, device=dev)
     return {"c": z, "n": z.clone(), "h": z.clone(), "m": z - 10.0}
 
@@ -409,7 +415,7 @@ def slstm_forward(cfg: ModelConfig, p: SLSTM, xin: torch.Tensor, cache: dict | N
     B, S, _ = xin.shape
     # float32 products of the stored values, as preferred_element_type=float32
     wx = torch.matmul(xin.float(), p.w_in.float())
-    state = cache or init_slstm_cache(cfg, B, device=xin.device)
+    state = cache or _slstm_state(cfg, B, xin.device)  # the input's device, as it is
     hs = []
     for t in range(S):
         state, h = _slstm_cell(cfg, p, wx[:, t], state)

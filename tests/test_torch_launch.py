@@ -12,12 +12,13 @@
 * The production meshes, ``build_cell`` and the dry run need a 256- or
   512-rank world: one subprocess holds the ``fake`` backend and runs them
   all (``make_production_mesh``, its ``ValueError`` on a wrong world,
-  ``make_host_mesh``, every cell's ``run_cell``); this process never
-  initialises a process group. Each record's per-device argument bytes
-  equal the sum of ``NamedSharding.shard_shape`` bytes over the
-  reference's leaves on the same ``AbstractMesh``, and what the port's
-  step gathers beyond them is counted from the reference's leaves and
-  specs by the step's own rules."""
+  ``make_host_mesh``, every cell's ``run_cell``; a second one beside it
+  runs the multi-pod records); this process never initialises a process
+  group. Each record carries the reference's count keys. Its per-device
+  argument bytes equal the sum of ``NamedSharding.shard_shape`` bytes
+  over the reference's leaves on the same ``AbstractMesh``, and what the
+  port's step gathers beyond them is counted from the reference's leaves
+  and specs by the step's own rules."""
 
 import json
 import os
@@ -163,19 +164,37 @@ with dryrun.fake_world(512):
     m = M.make_production_mesh(multi_pod=True, device="cpu")
     out["meshes"]["2x16x16"] = [list(m.shape), list(m.mesh_dim_names), m.size()]
 out["group after"] = dist.is_initialized()
-out["records"] = dryrun.run_cells(dryrun.all_cells(), [False, True], capacity_bytes=80 * 10**9)
+out["records"] = dryrun.run_cells(dryrun.all_cells(), [False], capacity_bytes=80 * 10**9)
 json.dump(out, open(sys.argv[1], "w"))
+"""
+
+# the multi-pod records, in a second process beside the first
+FAKE_RUN_MULTI_POD = r"""
+import json, sys
+import torch
+from repro_torch.launch import dryrun
+
+torch.set_num_threads(1)
+records = dryrun.run_cells(dryrun.all_cells(), [True], capacity_bytes=80 * 10**9)
+json.dump({"records": records}, open(sys.argv[1], "w"))
 """
 
 
 @pytest.fixture(scope="module")
 def fake_run(tmp_path_factory):
-    path = tmp_path_factory.mktemp("dryrun") / "out.json"
-    proc = subprocess.run([sys.executable, "-c", FAKE_RUN, str(path)], cwd=ROOT,
-                          env={**os.environ, "PYTHONPATH": str(ROOT / "src")},
-                          capture_output=True, text=True, timeout=600)
-    assert proc.returncode == 0, proc.stderr[-3000:]
-    return json.loads(path.read_text())
+    tmp = tmp_path_factory.mktemp("dryrun")
+    env = {**os.environ, "PYTHONPATH": str(ROOT / "src")}
+    procs = [(subprocess.Popen([sys.executable, "-c", code, str(tmp / f"{i}.json")], cwd=ROOT,
+                               env=env, stdout=subprocess.DEVNULL, stderr=subprocess.PIPE,
+                               text=True), tmp / f"{i}.json")
+             for i, code in enumerate((FAKE_RUN, FAKE_RUN_MULTI_POD))]
+    outs = []
+    for proc, path in procs:
+        _, err = proc.communicate(timeout=900)
+        assert proc.returncode == 0, err[-3000:]
+        outs.append(json.loads(path.read_text()))
+    outs[0]["records"] += outs[1]["records"]
+    return outs[0]
 
 
 def test_production_meshes_under_the_fake_backend(fake_run):
@@ -201,6 +220,14 @@ def test_build_cell_under_the_fake_backend(fake_run):
 
 
 def test_the_dry_run_covers_every_cell(fake_run):
+    """Every record carries the reference's keys (``flops_per_device``,
+    ``bytes_per_device``, ``collectives``, ``collectives_weighted``,
+    ``memory.temp_bytes``) beside the port's byte counts, and ``fits``
+    holds ``step_bytes + temp_bytes`` against the capacity. Every cell
+    gathers its sharded weights: the all-gathers' output bytes cover
+    them, and the step holds them all at its peak (``temp_bytes``)."""
+    from repro_torch.parallel.op_analysis import COLLECTIVES
+
     recs = fake_run["records"]
     assert len(recs) == 2 * len(CELLS) == 64
     assert {(r["arch"], r["shape"], r["mesh"]) for r in recs} == \
@@ -212,9 +239,25 @@ def test_the_dry_run_covers_every_cell(fake_run):
         parts = [v for k, v in mem.items() if k.startswith("gathered_") and k != "gathered_bytes"]
         assert mem["gathered_bytes"] == sum(parts) and mem["gathered_params_bytes"] > 0
         assert mem["step_bytes"] == mem["resident_bytes"] + mem["gathered_bytes"]
-        assert r["fits"] == (mem["step_bytes"] <= 80 * 10**9)
+        assert mem["peak_estimate_bytes"] == mem["resident_bytes"] + mem["temp_bytes"]
+        assert r["fits"] == (mem["step_bytes"] + mem["temp_bytes"] <= 80 * 10**9)
         assert r["n_devices"] == (512 if r["mesh"] == "2x16x16" else 256)
         assert r["params"] == get_config(r["arch"]).n_params
+        assert r["flops_per_device"] == r["flops_products_per_device"] \
+            + r["flops_other_per_device"]
+        assert r["flops_products_per_device"] > r["flops_other_per_device"] > 0
+        assert r["bytes_per_device"] > 0
+        coll, w = r["collectives"], r["collectives_weighted"]
+        assert set(coll) == {"bytes", "counts", "total_bytes"}
+        assert set(w) == {"bytes", "counts", "wire_bytes", "total_bytes", "total_wire_bytes"}
+        assert set(coll["bytes"]) <= set(COLLECTIVES) and "all-gather" in coll["bytes"]
+        assert w["bytes"] == coll["bytes"] and w["counts"] == coll["counts"]
+        assert coll["total_bytes"] == w["total_bytes"] == sum(coll["bytes"].values())
+        assert w["total_wire_bytes"] == sum(w["wire_bytes"].values())
+        assert coll["bytes"]["all-gather"] >= mem["gathered_params_bytes"]
+        assert mem["temp_bytes"] >= mem["gathered_params_bytes"], (r["arch"], r["shape"])
+        if r["shape"] == "train_4k":
+            assert coll["counts"]["all-reduce"] > 0
 
 
 def ref_bytes(tree, shardings) -> int:

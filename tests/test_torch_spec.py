@@ -343,6 +343,35 @@ def test_core_re_exports_the_references_names():
         assert type(getattr(PC, name)).__name__ == type(getattr(RC, name)).__name__, name
 
 
+# names ``repro.parallel.hlo_analysis`` exports, by what answers them in
+# ``repro_torch.parallel.op_analysis`` (ROADMAP's paragraph names each)
+HLO_ANSWERS = {
+    "COLLECTIVES": "COLLECTIVES",
+    "shape_bytes": "tensor_bytes",
+    "weighted_collective_bytes": "weighted_collective_bytes",
+    # an eager step issues every trip of its loops: no computations to split
+    # and weight, every op counted where it runs
+    "split_computations": "count_step",
+    "trip_count": "count_step",
+    "computation_multipliers": "count_step",
+}
+
+
+def test_op_analysis_answers_the_hlo_analysis_names():
+    import repro.parallel.hlo_analysis as RH
+    import repro_torch.parallel.op_analysis as OA
+
+    exported = {n for n, v in vars(RH).items() if not n.startswith("_")
+                and (getattr(v, "__module__", None) == RH.__name__ or n.isupper())}
+    assert exported == set(HLO_ANSWERS)
+    assert all(hasattr(OA, answer) for answer in HLO_ANSWERS.values())
+    text = (Path(__file__).resolve().parent.parent / "ROADMAP.md").read_text()
+    paragraph = text[text.index("**Names `repro.core` exports"):]
+    paragraph = paragraph[:paragraph.index("\n\n")]
+    assert all(f"`{name}`" in paragraph for name in HLO_ANSWERS), "a name is not answered"
+    assert all(f"`{answer}`" in paragraph for answer in HLO_ANSWERS.values())
+
+
 def test_core_keeps_its_submodules():
     import repro_torch.core as PC
 

@@ -245,11 +245,20 @@ def test_scan_op_computes_the_models_scan(S, monkeypatch):
 
 def test_scan_on_other_devices_takes_the_kernel_or_raises():
     """Only CPU tensors run the chunk body: any other device goes to the
-    kernel's wrapper, which refuses non-CUDA tensors (no fallback)."""
+    kernel's wrapper, which refuses data it cannot launch on (no
+    fallback). ``meta`` tensors, which hold no data, take the wrapper too
+    and get its empty output (the dry run's trace), launching nothing."""
     x = torch.zeros((1, 8, 2, 4), device="meta")
     bc, a = torch.zeros((1, 8, 4), device="meta"), torch.zeros((1, 8, 2), device="meta")
+    SK.reset_launch_count()
+    y = PS.mamba_scan(x, bc, bc, a, a, 4)
+    assert y.device.type == "meta" and y.shape == x.shape and y.dtype == torch.float32
+    assert SK.SSD_LAUNCHES == 0
+    xc, bcc, ac = (torch.zeros(t.shape) for t in (x, bc, a))
     with pytest.raises(ValueError, match="needs CUDA tensors"):
-        PS.mamba_scan(x, bc, bc, a, a, 4)
+        SK.ssm_scan_kernel(xc.transpose(1, 2).reshape(2, 8, 4).contiguous(), bcc, bcc,
+                           ac.transpose(1, 2).reshape(2, 8).contiguous(),
+                           ac.transpose(1, 2).reshape(2, 8).contiguous(), chunk=4)
 
 
 def test_cpu_model_launches_no_ssd_kernel():
