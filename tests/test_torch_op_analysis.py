@@ -86,8 +86,7 @@ from dataclasses import replace
 import torch
 from repro_torch.configs import ARCH_IDS, SHAPES, ShapeSpec, applicable_shapes, get_config
 from repro_torch.launch import dryrun, mesh as M
-from repro_torch.launch.steps import build_cell, gathered_bytes
-from repro_torch.parallel import op_analysis as OA
+from repro_torch.launch.steps import build_cell
 from repro_torch.parallel.sharding import tree_map
 
 torch.set_num_threads(1)
