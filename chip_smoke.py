@@ -312,9 +312,9 @@ reference package ``repro``) on the card and fails on any fault:
    weights and moments, as the step returns them, gathered whole), each
    wall beside the meshless step's, and the peak allocated bytes beside
    ``run_cell``'s argument bytes on this mesh and what it counts the step
-   as gathering (``launch.steps.gathered_bytes``); the collectives run on
-   the one-rank group as on a larger mesh (``full_tensor``,
-   ``all_reduce``), but ``_relayout`` takes the local tensor there;
+   as holding beyond them (``launch.steps.gathered_bytes``); on this mesh
+   the tensor-parallel plan is the identity (a "model" axis of one rank)
+   and no collective runs;
    (b) in ``spawn`` processes that hold the fake backend (run beside (a)
    and (c); the main process never holds it), ``run_cell`` for every
    config x its applicable shapes on both production meshes: 64 records,
@@ -334,10 +334,26 @@ reference package ``repro``) on the card and fails on any fault:
    tensors over a one-rank fake world in one more ``spawn`` process:
    flops, bytes, collectives and kernel ops equal, the card's peak above
    the call's start within ``COUNTED_PEAK_BAND`` of the trace's peak;
-23. a JSON line of per-kernel results (the DP rows' launches by path
+23. the reference's tensor-parallel compute plan at full width
+   (``parallel.tensor_parallel``): deepseek-7b's cells (d 4,096, 32
+   heads, ff 11,008, vocab 102,400, bf16) over gloo ranks that share the
+   card (tcp on a free port; NCCL refuses two ranks on one GPU, so every
+   collective is staged through the host), each against the meshless
+   step on the same weights and inputs, run first in this process and
+   freed before the spawn, within ``TP_ULP``'s bound: prefill_32k (batch
+   cut from 32 to 1, 30 layers), decode_32k (batch cut from 128 to 2, 30
+   layers, a random 32,768-row cache made layer by layer, each rank
+   keeping its heads) and train_4k (cut to 4 of 30 layers and batch 2 of
+   256 as 2 microbatches of 1 x 4,096) on a (1, 2) ("data", "model")
+   mesh of 2 ranks, then prefill_32k at batch 2 on a (2, 2) mesh of 4
+   ranks; the weights made in turns (one rank at a time holds the whole
+   model while it takes its shards); the prefill cells' flash launches,
+   30 a rank, all wgmma, on H / m = 16 local heads; per rank the cell's
+   wall, peak memory and the collectives' count, bytes and wall by kind;
+24. a JSON line of per-kernel results (the DP rows' launches by path
    with ``"examples"`` and ``"sharded"``; flash with granite-34b's and
    zamba2's launches and their prefill shapes' times, ``"pipeline"``,
-   ``"build_cell"`` and ``"counted_cell"``;
+   ``"build_cell"``, ``"counted_cell"`` and ``"tensor_parallel"``;
    the SSD scan's launches by path and its time at zamba2's prefill
    shape; ``"training"``: 0 for both), the card's memory size, the card
    line, and the last line ``{"ok": true, "device": {...}}``.
@@ -5162,6 +5178,372 @@ def phase_launch_tooling(dev, card) -> dict:
             "counted_launches": cells["prefill_32k"]["counted_launches"]}
 
 
+TP_ARCH = "deepseek-7b"
+# phase 23's cells over gloo ranks that share the card: (("data", "model")
+# mesh, shape, batch, layers). The reference's batches are 32, 128 and 256
+# and its depth 30; train_4k is cut to 4 layers and 2 microbatches of 1 x
+# 4,096 so that two ranks' weights, float32 moments and activations fit one
+# card beside each other
+TP_CELLS = {
+    "prefill_32k": ((1, 2), "prefill_32k", 1, 30),
+    "decode_32k": ((1, 2), "decode_32k", 2, 30),
+    "train_4k": ((1, 2), "train_4k", 2, 4),
+    "prefill_32k on 2 x 2": ((2, 2), "prefill_32k", 2, 30),
+}
+TP_SEEDS = {"weights": 2300, "inputs": 2301, "cache": 2302}
+TP_DEADLINE_S = 900
+# A tensor-parallel cell against the meshless step on the same weights, in
+# bf16 (set before the first run): each row-parallel product (attention's
+# wo and the FFN's out, two a block) and the head sums float32 partials over
+# "model" and rounds once, where the meshless GEMM rounds its own float32
+# sum of the same products once: the two land at most one bf16 ulp (2^-8
+# relative) apart, carried to the output with gain at most one (pre-norm
+# residual blocks). So the logits lie within (2 L + 1) x 2^-8 x the
+# meshless logits' std, a written cache row within 2 L x 2^-8 x the rows'
+# std; the train step's loss within twice the logits' bound (cross entropy
+# moves at most 2 x the largest logit change) and its gradient norm within
+# 2 (2 L + 1) x 2^-8 relative (the backward runs each product twice more)
+TP_ULP = 2.0 ** -8
+
+
+def tp_cell(name):
+    """(config, shape) of phase 23's cell ``name``."""
+    from repro_torch.configs import SHAPES, ShapeSpec, get_config
+
+    _, shape_name, batch, layers = TP_CELLS[name]
+    full = SHAPES[shape_name]
+    cfg = replace(get_config(TP_ARCH), n_layers=layers, use_flash_kernel=full.kind != "train")
+    return cfg, ShapeSpec(shape_name, full.kind, full.seq_len, batch)
+
+
+def tp_inputs(cfg, shape, dev) -> dict:
+    """The cell's seeded inputs on the card (train: (N, B / N, S))."""
+    import torch
+
+    from repro_torch.configs import effective_microbatches
+
+    g = torch.Generator(device=dev).manual_seed(TP_SEEDS["inputs"])
+    B, S = shape.global_batch, shape.seq_len
+
+    def tok(*size):
+        return torch.randint(0, cfg.vocab, size, generator=g, device=dev, dtype=torch.int32)
+
+    if shape.kind == "prefill":
+        return {"tokens": tok(B, S)}
+    if shape.kind == "decode":
+        return {"tokens": tok(B, 1), "cur_index": torch.tensor(S - 1, dtype=torch.int32,
+                                                               device=dev)}
+    n = effective_microbatches(cfg, shape, 1)
+    return {"tokens": tok(n, B // n, S), "labels": tok(n, B // n, S)}
+
+
+def tp_cache_layer(cfg, shape, layer: int, entry: str, dev):
+    """Layer ``layer``'s random ``entry`` ("k" or "v") of the decode cache,
+    (B, S, Hkv, Dh) bf16 from its own seed: the meshless run and every rank
+    make the same rows, each rank keeping its shard."""
+    import torch
+
+    g = torch.Generator(device=dev).manual_seed(TP_SEEDS["cache"] * 1000 + 2 * layer
+                                                + (entry == "v"))
+    return torch.randn((shape.global_batch, shape.seq_len, cfg.n_kv_heads, cfg.head_dim),
+                       generator=g, device=dev, dtype=torch.bfloat16)
+
+
+def tp_model(cfg, dev):
+    import torch
+
+    from repro_torch.models import transformer as T
+
+    return T.init_params(cfg, generator=torch.Generator(device=dev).manual_seed(
+        TP_SEEDS["weights"]), device=dev)
+
+
+def tp_reference(dev, name) -> dict:
+    """The meshless step of phase 23's cell ``name`` on the card, on the
+    weights and inputs the ranks make: what the ranks are held to, on the
+    host, and its wall."""
+    import torch
+
+    from repro_torch.launch.steps import make_decode_step, make_prefill_step, make_train_step
+    from repro_torch.models import transformer as T
+    from repro_torch.optim import adamw_init
+
+    cfg, shape = tp_cell(name)
+    model = tp_model(cfg, dev)
+    inputs = tp_inputs(cfg, shape, dev)
+    if shape.kind == "prefill":
+        logits, wall = timed(lambda: make_prefill_step(cfg)(model, inputs))
+        out = {"logits": logits.float().cpu()}
+        out["std"] = float(out["logits"].std())
+    elif shape.kind == "decode":
+        cache = T.init_cache(cfg, shape.global_batch, shape.seq_len, device=dev)
+        for layer in range(cfg.n_layers):
+            for k in ("k", "v"):
+                cache[k][layer].copy_(tp_cache_layer(cfg, shape, layer, k, dev))
+        (logits, cache), wall = timed(lambda: make_decode_step(cfg)(model, inputs, cache))
+        rows = {k: v[:, :, shape.seq_len - 1].float().cpu() for k, v in cache.items()}
+        out = {"logits": logits.float().cpu(), "rows": rows,
+               "row_std": {k: float(v.std()) for k, v in rows.items()}}
+        out["std"] = float(out["logits"].std())
+        del cache
+    else:
+        with torch.no_grad():  # the logits' scale, before the step moves the weights
+            logits, _ = T.forward(cfg, model, {"tokens": inputs["tokens"][0]})
+            std = float(logits.float().std())
+            del logits
+        opt = adamw_init(dict(model.named_parameters()))
+        n = inputs["tokens"].shape[0]
+        (_, _, metrics), wall = timed(lambda: make_train_step(cfg, n_microbatches=n)(
+            model, opt, inputs))
+        out = {"loss": float(metrics["loss"]), "grad_norm": float(metrics["grad_norm"]),
+               "std": std}
+        del opt
+    del model, inputs
+    torch.cuda.empty_cache()
+    out["wall_s"] = wall
+    return out
+
+
+def tp_collective_stats() -> dict:
+    """Counts, bytes and walls of the tensor-parallel layer's collectives in
+    this process, by kind (the host-staged gloo calls of
+    ``parallel.tensor_parallel``, timed around each call with its copies)."""
+    from repro_torch.parallel import tensor_parallel as TP
+
+    stats: dict = {}
+
+    def timed_call(kind, fn, nbytes):
+        def call(*args, **kwargs):
+            t0 = time.perf_counter()
+            out = fn(*args, **kwargs)
+            entry = stats.setdefault(kind, [0, 0, 0.0])
+            entry[0] += 1
+            entry[1] += nbytes(args, out)
+            entry[2] += time.perf_counter() - t0
+            return out
+        return call
+
+    TP._all_reduce_ = timed_call("all-reduce", TP._all_reduce_,
+                                 lambda a, out: out.numel() * out.element_size())
+    TP._pieces = timed_call("all-gather", TP._pieces,
+                            lambda a, out: sum(p.numel() * p.element_size() for p in out))
+    TP._all_to_all = timed_call("all-to-all", TP._all_to_all,
+                                lambda a, out: sum(p.numel() * p.element_size() for p in out))
+    return stats
+
+
+def tp_rank(rank, world, port, names, out_dir):
+    """One gloo rank of phase 23 on the shared card: each cell of ``names``
+    built on its mesh, the weights made in turns (one rank at a time holds
+    the whole model while it takes its shards), the step run once, its
+    results, wall, peak memory, flash launches with the heads they ran on,
+    and collectives saved for the parent."""
+    import torch
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+    from torch.distributed.tensor import DTensor
+
+    from repro_torch.kernels.flash_attention import ops as FA
+    from repro_torch.launch.steps import build_cell
+    from repro_torch.models import layers as L
+    from repro_torch.optim import adamw_init
+    from repro_torch.parallel import sharding as SH
+    from repro_torch.parallel import tensor_parallel as TP
+
+    torch.cuda.set_device(0)
+    dev = torch.device("cuda")
+    dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}", rank=rank,
+                            world_size=world)
+    stats = tp_collective_stats()
+    heads = []
+    flash = L.flash_attention
+
+    def counted_flash(q, k, v, **kw):
+        heads.append(q.shape[2])
+        return flash(q, k, v, **kw)
+
+    L.flash_attention = counted_flash
+    out = {}
+    for name in names:
+        cfg, shape = tp_cell(name)
+        mesh = init_device_mesh("cuda", TP_CELLS[name][0], mesh_dim_names=("data", "model"))
+        step, _, sh = build_cell(cfg, shape, mesh)
+        params = None
+        for turn in range(world):
+            if turn == rank:
+                model = tp_model(cfg, dev)
+                params = SH.distribute(dict(model.named_parameters()), sh[0])
+                del model
+                torch.cuda.empty_cache()
+            dist.barrier()
+        inputs = SH.distribute(tp_inputs(cfg, shape, dev),
+                               sh[2] if shape.kind == "train" else sh[1])
+        if shape.kind == "decode":
+            cache = {}
+            for k, s in sh[2].items():  # layer by layer, each rank keeping its shard
+                spec = tuple(s.spec) + (None,) * (5 - len(s.spec))
+                local = None
+                for i in range(cfg.n_layers):
+                    part = TP.take_shard(tp_cache_layer(cfg, shape, i, k, dev), mesh,
+                                         (None,) * 4, spec[1:])
+                    if local is None:  # the cache's type: the model's, as init_cache's
+                        local = torch.empty((cfg.n_layers, *part.shape),
+                                            dtype=L.torch_dtype(cfg.dtype), device=dev)
+                    local[i].copy_(part)
+                cache[k] = DTensor.from_local(local, mesh, s.placements, run_check=False)
+            args = (params, inputs, cache)
+        elif shape.kind == "train":
+            opt = adamw_init({k: p.to_local() for k, p in params.items()})
+            opt = {"mu": {k: DTensor.from_local(t, mesh, sh[1]["mu"][k].placements,
+                                                run_check=False) for k, t in opt["mu"].items()},
+                   "nu": {k: DTensor.from_local(t, mesh, sh[1]["nu"][k].placements,
+                                                run_check=False) for k, t in opt["nu"].items()},
+                   "step": DTensor.from_local(opt["step"], mesh, sh[1]["step"].placements,
+                                              run_check=False)}
+            args = (params, opt, inputs)
+        else:
+            args = (params, inputs)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        FA.reset_launch_count()
+        heads.clear()
+        stats.clear()
+        dist.barrier()
+        t0 = time.perf_counter()
+        res = step(*args)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        rec = {"wall_s": wall, "peak_bytes": torch.cuda.max_memory_allocated(),
+               "launches": FA.FLASH_LAUNCHES, "wgmma": FA.FLASH_WGMMA_LAUNCHES,
+               "heads": sorted(set(heads)), "collectives": {k: list(v) for k, v in stats.items()},
+               "coordinate": tuple(mesh.get_coordinate())}
+        if shape.kind == "prefill":
+            rec["logits"] = res.float().cpu()
+        elif shape.kind == "decode":
+            logits, cache = res
+            rec["logits"] = logits.float().cpu()
+            rec["rows"] = {k: v.to_local()[:, :, shape.seq_len - 1].float().cpu()
+                           for k, v in cache.items()}
+        else:
+            rec.update(loss=float(res[2]["loss"]), grad_norm=float(res[2]["grad_norm"]))
+        out[name] = rec
+        del res, args, params, inputs
+        cache = opt = None
+        torch.cuda.empty_cache()
+        dist.barrier()
+    torch.save(out, Path(out_dir) / f"rank{rank}.pt")
+    dist.barrier()
+    dist.destroy_process_group()
+
+
+def tp_ranks(world: int, names: list) -> list:
+    """Phase 23's ``names`` over ``world`` spawned gloo ranks on the card
+    (tcp on a free port): each rank's records, in rank order."""
+    import socket
+    import tempfile
+
+    import torch
+    import torch.multiprocessing as mp
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    with tempfile.TemporaryDirectory() as out:
+        ctx = mp.spawn(tp_rank, args=(world, port, names, out), nprocs=world, join=False)
+        deadline = time.monotonic() + TP_DEADLINE_S
+        while not ctx.join(timeout=1):  # a failed rank raises here
+            if time.monotonic() > deadline:
+                for p in ctx.processes:
+                    p.kill()
+                raise AssertionError(f"the ranks did not finish in {TP_DEADLINE_S} s")
+        return [torch.load(Path(out) / f"rank{r}.pt") for r in range(world)]
+
+
+def tp_check(name, ref, ranks, card) -> int:
+    """Every rank's result of cell ``name`` within phase 23's bounds of the
+    meshless step (:data:`TP_ULP`); the flash launches (layers per rank on
+    the prefill cells, on H / m heads, all wgmma; none in decode and
+    training). Prints the per-rank walls, peaks and collectives. Returns
+    the cell's flash launches over its ranks."""
+    import torch
+
+    cfg, shape = tp_cell(name)
+    mesh, L = TP_CELLS[name][0], cfg.n_layers
+    m = mesh[1]
+    shares = []
+    if shape.kind == "train":
+        loss_tol = 2 * (2 * L + 1) * TP_ULP * ref["std"]
+        norm_tol = 2 * (2 * L + 1) * TP_ULP * ref["grad_norm"]
+        for r in ranks:
+            shares += [abs(r[name]["loss"] - ref["loss"]) / loss_tol,
+                       abs(r[name]["grad_norm"] - ref["grad_norm"]) / norm_tol]
+        detail = (f"loss {ranks[0][name]['loss']:.6f} vs {ref['loss']:.6f}, grad norm "
+                  f"{ranks[0][name]['grad_norm']:.6f} vs {ref['grad_norm']:.6f}")
+    else:
+        tol = (2 * L + 1) * TP_ULP * ref["std"]
+        for r in ranks:
+            shares.append(float((r[name]["logits"] - ref["logits"]).abs().max()) / tol)
+        detail = f"logits {tuple(ranks[0][name]['logits'].shape)} (std {ref['std']:.4f})"
+        if shape.kind == "decode":
+            for k, want in ref["rows"].items():
+                got = torch.cat([r[name]["rows"][k] for r in sorted(
+                    ranks, key=lambda r: r[name]["coordinate"])[:m]], dim=2)
+                shares.append(float((got - want).abs().max())
+                              / (2 * L * TP_ULP * ref["row_std"][k]))
+            detail += ", the written cache rows (k, v) gathered by head"
+    want_launches = L if shape.kind == "prefill" else 0
+    launches = sum(r[name]["launches"] for r in ranks)
+    ok_flash = all(r[name]["launches"] == want_launches and r[name]["wgmma"] == want_launches
+                   and r[name]["heads"] == ([cfg.n_heads // m] if want_launches else [])
+                   for r in ranks)
+    print(f"  {name} ({'x'.join(map(str, mesh))} (data, model), {len(ranks)} ranks, batch "
+          f"{shape.global_batch}, {L} layers, {shape.seq_len} tokens): {detail}; largest share "
+          f"of its bound {max(shares):.4f}; flash launches per rank "
+          f"{[r[name]['launches'] for r in ranks]} on {ranks[0][name]['heads']} local heads; "
+          f"meshless {ref['wall_s']:.3f} s [{card}]")
+    for i, r in enumerate(ranks):
+        rec = r[name]
+        coll = ", ".join(f"{k} x{n} {b / 1e9:.3f} GB {w:.2f} s"
+                         for k, (n, b, w) in sorted(rec["collectives"].items()))
+        print(f"    rank {i} {rec['coordinate']}: wall {rec['wall_s']:.3f} s, peak "
+              f"{rec['peak_bytes'] / 1e9:.2f} GB; {coll}")
+    if max(shares) > 1 or not ok_flash:
+        raise AssertionError(f"{name}: share of the bound {max(shares):.4f}, flash {ok_flash}")
+    return launches
+
+
+def phase_tensor_parallel(dev, card) -> dict:
+    """Phase 23: deepseek-7b's cells at full width (d 4,096, 32 heads, ff
+    11,008, vocab 102,400) on the reference's tensor-parallel plan over
+    gloo ranks that share the card, each against the meshless step on the
+    same weights, run first in this process and freed before the spawn:
+    prefill_32k (batch 1 of 32, 30 layers), decode_32k (batch 2 of 128, 30
+    layers, a 32,768-row cache of random rows) and train_4k (4 of 30
+    layers, batch 2 of 256 as 2 microbatches of 1 x 4,096) on a (1, 2)
+    ("data", "model") mesh of 2 ranks; prefill_32k at batch 2 on a (2, 2)
+    mesh of 4 ranks. Per rank: the wall, peak memory and the tensor-parallel
+    collectives (count, bytes, wall by kind, host-staged through gloo)."""
+    import torch
+
+    t0 = time.perf_counter()
+    torch.cuda.empty_cache()
+    refs = {name: tp_reference(dev, name) for name in TP_CELLS}
+    t_ref = time.perf_counter() - t0
+    torch.cuda.empty_cache()
+    two = [n for n in TP_CELLS if TP_CELLS[n][0] == (1, 2)]
+    four = [n for n in TP_CELLS if TP_CELLS[n][0] == (2, 2)]
+    t1 = time.perf_counter()
+    ranks2 = tp_ranks(2, two)
+    t_two = time.perf_counter() - t1
+    ranks4 = tp_ranks(4, four)
+    t_four = time.perf_counter() - t1 - t_two
+    launches = {n: tp_check(n, refs[n], ranks2, card) for n in two}
+    launches.update({n: tp_check(n, refs[n], ranks4, card) for n in four})
+    print(f"  phase 23: {time.perf_counter() - t0:.1f} s (meshless references {t_ref:.1f} s, "
+          f"2 ranks {t_two:.1f} s, 4 ranks {t_four:.1f} s with their spawns) [{card}]")
+    return {"launches": sum(launches.values()), "by_cell": launches}
+
+
 def main() -> int:
     import torch
 
@@ -5291,6 +5673,13 @@ def main() -> int:
     flash_launches += launch["launches"] + launch["counted_launches"]
     wgmma_launches += launch["launches"] + launch["counted_launches"]
 
+    card = card_line()
+    print(f"== 23 the reference's tensor-parallel compute plan: {TP_ARCH}'s cells at full "
+          f"width over gloo ranks that share the card [{card}]")
+    tp = phase_tensor_parallel(dev, card)
+    flash_launches += tp["launches"]
+    wgmma_launches += tp["launches"]
+
     kernels = []
     by_variant = {"tiled": path["by_variant"]["tiled"] + planner["tiled"] + replan["tiled"]
                   + twins["tiled"],
@@ -5327,7 +5716,8 @@ def main() -> int:
         "launches_by_path": {"deepseek-7b": deepseek_launches, **families["launches"],
                              "zamba2-1.2b": zamba["flash"], "training": train_launches["flash"],
                              "pipeline": multi["pipeline"], "build_cell": launch["launches"],
-                             "counted_cell": launch["counted_launches"]},
+                             "counted_cell": launch["counted_launches"],
+                             "tensor_parallel": tp["launches"]},
         **times["flash_attention"],
         "by_config": {**families["by_config"], "zamba2-1.2b": hybrids["flash_at"]},
     })

@@ -16,10 +16,11 @@ moves):
      inputs, as the reference's donation defines them (a train step's
      parameters and moments; a decode step's cache: the port's steps
      update those in place),
-  5. adds what the port's step gathers beyond its arguments
-     (``launch.steps.gathered_bytes``: every sharded weight whole, a
-     train step's whole gradients and its accumulator shards, a decode
-     step's cache relaid out to its DP shard): ``step_bytes``,
+  5. adds what the port's step holds beyond its arguments
+     (``launch.steps.gathered_bytes``: the largest layer's gathered
+     leaves, a train step's gradients on their local shards and its
+     accumulator shards, a decode step's largest layer of cache entries
+     as the layer computes on them): ``step_bytes``,
   6. counts one step (:func:`cell_counts`, ``parallel.op_analysis``): the
      step runs on ``meta`` tensors under the op counter, which gives the
      reference's ``flops_per_device``, ``bytes_per_device``,
@@ -34,8 +35,11 @@ gathers, a lower bound of its peak; ``temp_bytes`` is the peak of what
 the step holds beyond its arguments and outputs (the gathered tensors
 among it, with the activations and every other temporary), so the
 ``fits`` verdict counts the gathered tensors twice: a margin, not a
-peak. The port gathers every weight whole, so a cell that the
-reference's layout fits may not fit the port's step.
+peak. The port's step runs the reference's tensor-parallel plan
+(``parallel.tensor_parallel``): heads, FFN hidden and vocab split over
+"model", each layer's other leaves gathered for its own call, so its
+flops, collectives and memory are a rank's share of the plan XLA
+partitions from the same specs, not of the whole model.
 
 The counts are the port's, not XLA's: the counter adds up the eager ops
 the step runs, where XLA counts its program after fusing elementwise
@@ -208,8 +212,8 @@ def _extended_counts(cfg, shape: ShapeSpec, mesh, whole_max: int = 0) -> dict:
       position), and its backward adds a term in S² (each position's
       gradient is scattered into a zero tensor of all S positions). A peak
       is no polynomial in S: such a layer adds to ``temp`` what it adds
-      at 64 positions (its gathered weights, which the step holds from
-      start to end)."""
+      at 64 positions (what the step keeps of it from its call to the
+      end, such as its gradients)."""
     from repro_torch.launch.steps import _dp_size
 
     train = shape.kind == "train"
@@ -251,8 +255,8 @@ def _extended_counts(cfg, shape: ShapeSpec, mesh, whole_max: int = 0) -> dict:
                            (-1, _flat(probe(base[:1], m, x)))) for x in xs]
                 per_layer = _sum(*[(_lagrange(xs, i, shape.seq_len), d)
                                    for i, d in enumerate(ds)])
-                # a peak is no polynomial in S: the layer adds to the peak the
-                # weights it holds at the shortest count (all gathered at once)
+                # a peak is no polynomial in S: the layer adds to the peak what
+                # it adds at the shortest count
                 per_layer["temp"] = ds[0]["temp"]
                 terms.append((cfg.pattern.count(k), per_layer))
             else:

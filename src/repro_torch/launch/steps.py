@@ -14,29 +14,41 @@ by the reference's rules. Its caller lays real tensors out with
 :func:`~repro_torch.parallel.sharding.distribute`, and the step takes
 those DTensors:
 
-* the weights are stored by their specs; the step gathers them all
-  whole at once (``full_tensor()``) and runs the unsharded code on the
-  rank's share of the batch (its DP shard; the ranks of a model group
-  compute the same). Every rank so holds the whole model while a step
-  runs (:func:`gathered_bytes` counts it for the dry run). XLA partitions
-  the reference's compute itself from the same specs; a tensor-parallel
-  compute plan is not ported;
+* the weights are stored by their specs, and the step runs the reference's
+  tensor-parallel compute plan on them
+  (:mod:`repro_torch.parallel.tensor_parallel`, the counterpart of XLA's
+  partitioning of the reference under ``with mesh:``): a model holds the
+  rank's local shards (:class:`_Bound`), the step enters the mesh's
+  context, and each layer computes on its shards (heads, FFN hidden and
+  vocab over "model" where the axis divides them) or gathers its leaves
+  for its own call only (every DP-sharded dim, and every leaf of a layer
+  that runs replicated), on the rank's share of the batch (its DP
+  shard). No rank holds a whole weight that its spec shards, and only
+  one layer's gathered leaves are live at a time (:func:`gathered_bytes`
+  counts what the step holds beyond its arguments for the dry run);
+* prefill and decode return the rows they compute, their logits gathered
+  over "model" from the vocab-sharded head (only those rows) and over
+  the DP axes;
 * the training cell's gradient accumulator is kept DP-sharded (ZeRO,
-  :func:`zero_accumulated_grads`): each microbatch's gradient is cast to
-  ``grad_accum_dtype``, summed over the DP ranks with ``all_reduce`` (one
-  code path for NCCL and gloo, whose CPU form lacks reduce-scatter: the
-  same sum as a reduce-scatter, at twice its wire bytes) and the rank's
-  slice added to its shard, in microbatch order. AdamW then updates each
-  moment shard and the matching slice of the weight, and the new weight
-  is gathered back to its own layout;
-* decode gathers each cache entry but for its DP batch shard, runs the
-  step and writes the rank's shard back.
+  :func:`zero_accumulated_grads`): the backward gives each leaf's gradient
+  on its local shard (summed over the DP axes that shard the leaf, FSDP),
+  each microbatch's is cast to ``grad_accum_dtype``, summed over the other
+  DP ranks in rank order and sliced to the moments' layout (an all-to-all:
+  a reduce-scatter's bytes, in a fixed order) and added to the rank's
+  shard, in microbatch order. AdamW then updates each moment shard and
+  the matching slice of the weight, and the new weight is gathered back
+  to its own layout;
+* decode keeps each cache entry's DP batch shard and, where the attention
+  computes on local kv heads, its heads; every other sharded dim (a
+  sequence split over "model" where the kv heads do not divide it, or
+  over "data" at batch 1) is gathered for its own layer only and its
+  shard written back.
 
-On one rank every gather, reduction and slice is an identity in value,
-and a cell is bit-equal to the step without a mesh. The same collectives
-run there as on a larger mesh, but for one: a one-rank mesh takes the
-local tensor in place of ``redistribute`` in :func:`_relayout`, since the
-decode cache it relays out may fill half the card."""
+On a mesh whose "model" axis has one rank every layer runs its meshless
+code, and on one rank every gather, reduction and slice is an identity in
+value: a cell is bit-equal to the step without a mesh. On a larger
+"model" axis the reordered float32 sums (row-parallel products, the
+vocab-parallel loss) move results by rounding only."""
 
 from __future__ import annotations
 
@@ -245,13 +257,6 @@ def build_cell(cfg: ModelConfig, shape: ShapeSpec, mesh, opt_cfg: AdamWConfig | 
     return _sharded_decode_step(cfg), (params, batch, cache), (p_shard, b_shard, c_shard)
 
 
-def _whole(t: torch.Tensor) -> torch.Tensor:
-    """A DTensor's full value (a plain tensor as it is)."""
-    from torch.distributed.tensor import DTensor
-
-    return t.full_tensor() if isinstance(t, DTensor) else t
-
-
 def _local(t: torch.Tensor) -> torch.Tensor:
     from torch.distributed.tensor import DTensor
 
@@ -268,26 +273,11 @@ def _dp_placements(placements, mesh) -> tuple:
                  for name, p in zip(mesh.mesh_dim_names, placements))
 
 
-def _relayout(t, placements) -> torch.Tensor:
-    """The local tensor of DTensor ``t`` laid out as ``placements``. On a
-    mesh of one rank the local tensor is the whole value in any layout;
-    it is taken as it is there, so that a cache that fills half the card
-    is not copied."""
-    if t.device_mesh.size() == 1 or tuple(t.placements) == tuple(placements):
-        return t.to_local()
-    return t.redistribute(t.device_mesh, placements).to_local()
+def _batch_dp(main) -> bool:
+    """The input DTensor ``main`` is split over the DP axes on a dim."""
+    from torch.distributed.tensor import Shard
 
-
-def _cache_keep(main_placements, placements, mesh) -> tuple:
-    """The layout decode runs a cache entry in: its DP batch shard kept and
-    every other mesh dim gathered. The batch dim is DP-sharded in the
-    inputs (``main_placements``) and the cache alike, or in neither; then
-    a long-context cache's sequence shards are gathered too."""
-    from torch.distributed.tensor import Replicate, Shard
-
-    if any(isinstance(p, Shard) for p in _dp_placements(main_placements, mesh)):
-        return _dp_placements(placements, mesh)
-    return (Replicate(),) * mesh.ndim
+    return any(isinstance(p, Shard) for p in _dp_placements(main.placements, main.device_mesh))
 
 
 def _bytes(t: torch.Tensor) -> int:
@@ -301,45 +291,98 @@ def _local_bytes(t: torch.Tensor, mesh, placements) -> int:
     return _bytes(distribute_tensor(t, mesh, placements, src_data_rank=None).to_local())
 
 
+def _held_bytes(t: torch.Tensor, spec: tuple, sizes: dict, kept: set) -> int:
+    """Bytes of ``t`` (whole) laid out by ``spec`` with only the (axis,
+    dim) pairs of ``kept`` still split: what a rank holds of it once the
+    rest is gathered, or 0 where nothing is gathered."""
+    split = gathered = 1
+    for d, entry in enumerate(spec):
+        for a in ((entry,) if isinstance(entry, str) else tuple(entry or ())):
+            if (a, d) in kept:
+                split *= sizes[a]
+            else:
+                gathered *= sizes[a]
+    return _bytes(t) // split if gathered > 1 else 0
+
+
+def _scope(name: str) -> str:
+    """The layer whose call gathers leaf ``name``: its owner module (a
+    block's attention, FFN or mixer, the embedding, the head)."""
+    return name.rpartition(".")[0]
+
+
 def gathered_bytes(cfg: ModelConfig, kind: str, args, shardings) -> dict[str, int]:
     """Bytes per device that a cell's step (``build_cell``'s ``args`` and
     ``shardings``, ``kind`` its shape's) holds beyond its arguments, by
-    the rules its code follows:
+    the plan its layers follow (``tensor_parallel.leaf_plan``):
 
-    * ``params``: every parameter that its layout shards, gathered whole
-      (:class:`_Gathered` gathers them all at once);
-    * train, ``grads``: the backward gives every gradient whole, in its
-      parameter's type; ``accum``: the ZeRO accumulator, a shard of each
-      by the moments' layout in ``grad_accum_dtype``;
-    * decode, ``cache``: each cache entry relaid out to its DP shard
-      (:func:`_cache_keep`), where that is a new tensor.
+    * ``params``: the largest layer's gathered leaves (the embedding, a
+      block's attention, FFN or mixer, or the head: each gathers its own
+      for its call only). A leaf gathers every DP dim and, unless its
+      layer computes on its "model" shard, its "model" dim; a leaf used
+      as stored counts nothing;
+    * train, ``grads``: the backward's gradients, one per parameter on its
+      local shard, in its parameter's type; ``accum``: the ZeRO
+      accumulator, a shard of each by the moments' layout in
+      ``grad_accum_dtype``;
+    * decode, ``cache``: the largest layer's cache entries as the layer
+      computes on them (:func:`~repro_torch.parallel.tensor_parallel.layer_cache`:
+      the DP batch shard kept where the inputs' batch is DP-sharded, the
+      heads kept where the attention computes on local kv heads, every
+      other sharded dim gathered).
 
     Activations and other temporaries are not counted: with the arguments
     this is a lower bound of the step's peak."""
-    from torch.distributed.tensor import Shard
+    from repro_torch.parallel import tensor_parallel as TP
 
     params, p_shard = args[0], shardings[0]
-    out = {"params": sum(_bytes(t) for k, t in params.items()
-                         if any(isinstance(p, Shard) for p in p_shard[k].placements))}
-    if kind == "train":
-        mu, mu_shard = args[1]["mu"], shardings[1]["mu"]
-        item = torch_dtype(cfg.grad_accum_dtype).itemsize
-        out["grads"] = sum(_bytes(t) for t in params.values())
-        out["accum"] = sum(_local_bytes(t, mu_shard[k].mesh, mu_shard[k].placements)
-                           // t.element_size() * item for k, t in mu.items())
-    elif kind == "decode":
-        inputs, b_shard, cache, c_shard = args[1], shardings[1], args[2], shardings[2]
-        main = next(b_shard[k] for k in inputs if k in ("tokens", "codes", "embeds"))
-        sizes = []
+    mesh = next(iter(p_shard.values())).mesh
+    sizes = SH.mesh_shape(mesh)
+    scopes: dict[str, int] = {}
+    with TP.context(mesh):
+        for k, t in params.items():
+            keep, _ = TP.leaf_plan(cfg, k)
+            spec = tuple(p_shard[k].spec) + (None,) * (t.dim() - len(p_shard[k].spec))
+            kept = {("model", keep % t.dim())} if keep is not None else set()
+            scopes[_scope(k)] = scopes.get(_scope(k), 0) + _held_bytes(t, spec, sizes, kept)
+        out = {"params": max(scopes.values(), default=0)}
+        if kind == "train":
+            mu, mu_shard = args[1]["mu"], shardings[1]["mu"]
+            item = torch_dtype(cfg.grad_accum_dtype).itemsize
+            out["grads"] = sum(_local_bytes(t, mesh, p_shard[k].placements)
+                               for k, t in params.items())
+            out["accum"] = sum(_local_bytes(t, mu_shard[k].mesh, mu_shard[k].placements)
+                               // t.element_size() * item for k, t in mu.items())
+        elif kind == "decode":
+            inputs, b_shard, cache, c_shard = args[1], shardings[1], args[2], shardings[2]
+            main = next(b_shard[k] for k in inputs if k in ("tokens", "codes", "embeds"))
+            keep_dp = any(set(TP._axes(e)) & set(SH.dp_axes(mesh)) for e in main.spec)
+            heads_local = (not cfg.use_mla and TP.splits(cfg.n_heads)
+                           and TP.splits(cfg.n_kv_heads))
+            stacked = T.is_homogeneous(cfg)
+            layers: dict = {}
 
-        def relaid(t, s):
-            keep = _cache_keep(main.placements, s.placements, s.mesh)
-            if s.mesh.size() > 1 and tuple(keep) != tuple(s.placements):
-                sizes.append(_local_bytes(t, s.mesh, keep))
+            def held(path, t, s):
+                spec = tuple(s.spec) + (None,) * (t.dim() - len(s.spec))
+                lead = 1 if stacked else 0
+                b_dim, h_dim = lead, lead + 2
+                kept = {(a, b_dim) for a in SH.dp_axes(mesh)} if keep_dp else set()
+                if heads_local and path.rsplit("/", 1)[-1] in ("k", "v"):
+                    kept.add(("model", h_dim))
+                layer = path.split("/")[0] if not stacked else ""
+                per = _held_bytes(t, spec, sizes, kept)
+                layers[layer] = layers.get(layer, 0) + (per // t.shape[0] if stacked else per)
 
-        SH.tree_map(relaid, cache, c_shard)
-        out["cache"] = sum(sizes)
+            SH.tree_map_with_path(lambda path, t: held(path, t, _at(c_shard, path)), cache)
+            out["cache"] = max(layers.values(), default=0)
     return out
+
+
+def _at(tree, path: str):
+    """The leaf of ``tree`` at ``path`` (keys and indices joined by "/")."""
+    for key in path.split("/"):
+        tree = tree[int(key)] if isinstance(tree, (tuple, list)) else tree[key]
+    return tree
 
 
 def _same_memory(a: torch.Tensor, b: torch.Tensor) -> bool:
@@ -350,86 +393,98 @@ def _same_memory(a: torch.Tensor, b: torch.Tensor) -> bool:
             and a.stride() == b.stride())
 
 
-def _store(t, local: torch.Tensor, placements) -> None:
-    """Write ``local`` (laid out as ``placements``) into DTensor ``t``."""
-    from torch.distributed.tensor import DTensor
+def _store(t, local: torch.Tensor, spec: tuple | None = None) -> None:
+    """Write ``local`` (laid out by ``spec``, a finer layout than DTensor
+    ``t``'s; default: ``t``'s own) into ``t``, gathering what ``t`` holds
+    whole (``tensor_parallel.gather_to``: host-staged collectives)."""
+    from repro_torch.parallel import tensor_parallel as TP
 
     mine = t.to_local()
     if _same_memory(local, mine):
         return  # the step wrote the shard in place
-    if tuple(t.placements) != tuple(placements):
-        local = DTensor.from_local(local, t.device_mesh, placements, run_check=False
-                                   ).redistribute(t.device_mesh, t.placements).to_local()
+    if spec is not None:
+        local = TP.gather_to(local, t.device_mesh, spec, TP.spec_of(t))
     mine.copy_(local)
 
 
 def _gather_rows(x: torch.Tensor, like) -> torch.Tensor:
     """Rows of ``x`` (dim 0) computed on the DP batch shard of the input
-    DTensor ``like``, gathered whole."""
-    from torch.distributed.tensor import DTensor, Replicate, Shard
+    DTensor ``like``, gathered whole over its DP axes."""
+    from repro_torch.parallel import tensor_parallel as TP
 
-    placements = tuple(Shard(0) if isinstance(p, Shard) else Replicate()
-                       for p in _dp_placements(like.placements, like.device_mesh))
-    if all(isinstance(p, Replicate) for p in placements):
-        return x
-    return DTensor.from_local(x, like.device_mesh, placements, run_check=False).full_tensor()
+    dp = set(SH.dp_axes(like.device_mesh))
+    entry = tuple(a for e in TP.spec_of(like) for a in TP._axes(e) if a in dp)
+    return TP.gather_to(x, like.device_mesh, (entry or None,), (None,))
 
 
-class _Gathered:
-    """A ``Transformer`` whose parameters are a cell's gathered weights for
-    the duration of a ``with`` block: built once (under ``FakeTensorMode``,
-    nothing allocated), given the whole tensors on entry and let go of
-    them on exit, so the unsharded code runs unchanged. For ``meta``
-    weights (the dry run's trace) the template is built on the CPU: a
-    model's device is its weights', and every weight is replaced."""
+class _Bound:
+    """A ``Transformer`` whose parameter slots hold a cell's local shards,
+    each with its layout (``tensor_parallel.bind``), for the duration of a
+    ``with`` block, under the tensor-parallel context of the weights'
+    mesh; its slots are emptied on exit. The template is built once, when
+    the step is made (under ``FakeTensorMode`` on the CPU: nothing is
+    allocated, and a model's device is its weights', all of which are
+    replaced), so that no count of a step sees it."""
 
     def __init__(self, cfg: ModelConfig):
-        self.cfg, self.model = cfg, None
-
-    @contextmanager
-    def __call__(self, params: dict):
         from torch._subclasses.fake_tensor import FakeTensorMode
 
-        whole = {k: _whole(v) for k, v in params.items()}
-        if self.model is None:
-            dev = next(iter(whole.values())).device
-            dev = "cpu" if dev.type == "meta" else dev
-            with FakeTensorMode():
-                self.model = T.Transformer(self.cfg, device=dev)
-        slots = [(self.model.get_submodule(owner)._parameters, leaf, whole[name])
-                 for name in whole for owner, _, leaf in [name.rpartition(".")]]
+        self.cfg = cfg
+        with FakeTensorMode():
+            self.model = T.Transformer(cfg, device="cpu")
+
+    @contextmanager
+    def __call__(self, params: dict, batch_dp: bool, cache=None):
+        from repro_torch.parallel import tensor_parallel as TP
+
+        first = next(iter(params.values()))
+        TP.bind(self.model, params)
         try:
-            for slots_of, leaf, t in slots:
-                slots_of[leaf] = nn.Parameter(t, requires_grad=False)
-            yield self.model
+            with TP.context(first.device_mesh, batch_dp, cache,
+                            stacked=T.is_homogeneous(self.cfg)):
+                yield self.model
         finally:
-            for slots_of, leaf, _ in slots:
-                slots_of[leaf] = None
+            for name in params:
+                owner, _, leaf = name.rpartition(".")
+                self.model.get_submodule(owner)._parameters[leaf] = None
+
+
+def _main_input(inputs: dict):
+    return next(v for k, v in inputs.items() if k in ("tokens", "codes", "embeds"))
+
+
+def _whole_logits(cfg: ModelConfig, logits: torch.Tensor) -> torch.Tensor:
+    """Logits as the meshless step returns them: vocab-sharded ones (the
+    rows a step returns) gathered over "model"."""
+    from repro_torch.parallel import tensor_parallel as TP
+
+    if TP.vocab_sharded(cfg):
+        return TP.gather_vocab(logits, cfg.n_codebooks, cfg.vocab_padded)
+    return logits
 
 
 def _sharded_prefill_step(cfg: ModelConfig):
-    step, gathered = make_prefill_step(cfg), _Gathered(cfg)
+    step, bound = make_prefill_step(cfg), _Bound(cfg)
 
     def prefill_step(params, batch):
-        with gathered(params) as model:
-            logits = step(model, {k: _local(v) for k, v in batch.items()})
-        main = next(v for k, v in batch.items() if k in ("tokens", "codes", "embeds"))
+        main = _main_input(batch)
+        with bound(params, _batch_dp(main)) as model:
+            logits = _whole_logits(cfg, step(model, {k: _local(v) for k, v in batch.items()}))
         return _gather_rows(logits, main)
 
     return prefill_step
 
 
 def _sharded_decode_step(cfg: ModelConfig):
-    step, gathered = make_decode_step(cfg), _Gathered(cfg)
+    step, bound = make_decode_step(cfg), _Bound(cfg)
 
     def decode_step(params, inputs, cache):
-        main = next(v for k, v in inputs.items() if k in ("tokens", "codes", "embeds"))
-        keep = SH.tree_map(lambda t: _cache_keep(main.placements, t.placements, t.device_mesh),
-                           cache)
-        local = SH.tree_map(_relayout, cache, keep)
-        with gathered(params) as model:
+        main = _main_input(inputs)
+        local = SH.tree_map(_local, cache)
+        with bound(params, _batch_dp(main), cache) as model:
             logits, new = step(model, {k: _local(v) for k, v in inputs.items()}, local)
-        SH.tree_map(_store, cache, new, keep)
+            logits = _whole_logits(cfg, logits)
+        SH.tree_map(_store, cache, new)
         return _gather_rows(logits, main), cache
 
     return decode_step
@@ -437,44 +492,46 @@ def _sharded_decode_step(cfg: ModelConfig):
 
 def _dp_sum_(t: torch.Tensor, mesh) -> torch.Tensor:
     """Sum ``t`` over the DP ranks of ``mesh`` in place (one ``all_reduce``
-    per DP mesh dim)."""
-    import torch.distributed as dist
+    per DP mesh dim of more than one rank)."""
+    from repro_torch.parallel import tensor_parallel as TP
 
-    for axis in SH.dp_axes(mesh):
-        dist.all_reduce(t, group=mesh.get_group(axis))
-    return t
+    return TP.reduce_axes_(t, mesh, SH.dp_axes(mesh))
 
 
-def _slice(full: torch.Tensor, sharding: SH.NamedSharding) -> torch.Tensor:
-    """This rank's shard of ``full`` (identical on every rank) by ``sharding``."""
-    return SH.distribute(full, sharding).to_local()
-
-
-def zero_accumulated_grads(cfg: ModelConfig, model: nn.Module, batch: dict, n: int,
-                           shardings: dict) -> tuple[dict, torch.Tensor]:
+def zero_accumulated_grads(cfg: ModelConfig, params: dict, batch: dict, n: int,
+                           shardings: dict, bound: _Bound | None = None
+                           ) -> tuple[dict, torch.Tensor]:
     """The ZeRO accumulator of a training cell: ``({name: DTensor laid out
-    by shardings[name]}, loss)``. ``batch`` holds this rank's DP share of
-    the microbatches ((n, b, ...); (b, ...) when ``n`` is 1); ``model``
-    the whole weights. Microbatch by microbatch, each gradient is cast to
-    ``cfg.grad_accum_dtype``, summed over the DP ranks and this rank's
-    slice added to its shard. The sum is not divided: the caller divides
-    by n x the DP width. The loss is the microbatches' mean, averaged over
-    the DP ranks."""
+    by shardings[name]}, loss)``. ``params`` are the cell's weights
+    (``{name: DTensor}``), ``batch`` this rank's DP share of the
+    microbatches ((n, b, ...); (b, ...) when ``n`` is 1). Microbatch by
+    microbatch the model runs tensor-parallel on the local shards, each
+    gradient (on its leaf's local shard) is cast to
+    ``cfg.grad_accum_dtype``, summed over the DP ranks in rank order into
+    the moments' layout (``tensor_parallel.dp_sum_to``) and added to this
+    rank's shard. The sum is not divided: the caller divides by n x the DP
+    width. The loss is the microbatches' mean, averaged over the DP
+    ranks. ``bound``: the step's model template (default: a new one)."""
     from torch.distributed.tensor import DTensor
+
+    from repro_torch.parallel import tensor_parallel as TP
 
     mesh = next(iter(shardings.values())).mesh
     dt = torch_dtype(cfg.grad_accum_dtype)
     accum, losses = {}, []
-    for i in range(n):
-        loss, grads = loss_and_grads(cfg, model, {k: v[i] for k, v in batch.items()}
-                                     if n > 1 else batch)
-        for k, g in grads.items():
-            part = _slice(_dp_sum_(g.to(dt), mesh), shardings[k])
-            if k not in accum:
-                accum[k] = torch.zeros(part.shape, dtype=dt, device=part.device)
-            accum[k] += part
-        losses.append(loss)
-        del grads
+    have = {k: TP.spec_of(p) for k, p in params.items()}
+    bound = bound or _Bound(cfg)
+    with bound(params, batch_dp=True) as model:
+        for i in range(n):
+            loss, grads = loss_and_grads(cfg, model, {k: v[i] for k, v in batch.items()}
+                                         if n > 1 else batch)
+            for k, g in grads.items():
+                part = TP.dp_sum_to(g.to(dt), mesh, have[k], shardings[k].spec)
+                if k not in accum:
+                    accum[k] = torch.zeros(part.shape, dtype=dt, device=part.device)
+                accum[k] += part
+            losses.append(loss)
+            del grads
     loss = true_divide(_dp_sum_(torch.mean(torch.stack(losses)), mesh), float(_dp_size(mesh)))
     return ({k: DTensor.from_local(a, mesh, shardings[k].placements, run_check=False)
              for k, a in accum.items()}, loss)
@@ -483,23 +540,28 @@ def zero_accumulated_grads(cfg: ModelConfig, model: nn.Module, batch: dict, n: i
 def _zero_train_step(cfg: ModelConfig, opt_cfg: AdamWConfig, N: int, shardings: dict):
     from torch.distributed.tensor import DTensor
 
-    gathered = _Gathered(cfg)
+    from repro_torch.parallel import tensor_parallel as TP
+
     mesh = next(iter(shardings.values())).mesh
+    bound = _Bound(cfg)
 
     def train_step(params, opt_state, batch):
         local = {k: _local(v) for k, v in batch.items()}
-        with gathered(params) as model:
-            accum, loss = zero_accumulated_grads(cfg, model, local, max(N, 1), shardings)
+        accum, loss = zero_accumulated_grads(cfg, params, local, max(N, 1), shardings, bound)
         scale = float(max(N, 1) * _dp_size(mesh))
         grads = {k: DTensor.from_local(true_divide(a.to_local(), scale), mesh, a.placements,
                                        run_check=False) for k, a in accum.items()}
         del accum
         # the global norm: each leaf's float32 sum of squares over its shards
-        sums = [torch.sum(torch.square(g.float())).full_tensor() for g in grads.values()]
+        sums = [TP.reduce_axes_(torch.sum(torch.square(g.to_local().float())), mesh,
+                                [a for e in TP.spec_of(g) for a in TP._axes(e)])
+                for g in grads.values()]
         gnorm = torch.sqrt(torch.sum(torch.stack(sums)))
         mu, nu = opt_state["mu"], opt_state["nu"]
         # each weight's slice at its moments' layout, updated, then stored back
-        p_local = {k: _relayout(p, mu[k].placements) for k, p in params.items()}
+        want = {k: TP.spec_of(mu[k]) for k in params}
+        p_local = {k: TP.take_shard(p.to_local(), mesh, TP.spec_of(p), want[k])
+                   for k, p in params.items()}
         _, new_state, metrics = adamw_update(
             {k: g.to_local() for k, g in grads.items()},
             {"mu": {k: m.to_local() for k, m in mu.items()},
@@ -507,7 +569,7 @@ def _zero_train_step(cfg: ModelConfig, opt_cfg: AdamWConfig, N: int, shardings: 
              "step": opt_state["step"].to_local()},
             p_local, opt_cfg, grad_norm=gnorm)
         for k, p in params.items():
-            _store(p, p_local[k], mu[k].placements)
+            _store(p, p_local[k], want[k])
         old = opt_state["step"]
         step = DTensor.from_local(new_state["step"], old.device_mesh, old.placements,
                                   run_check=False)

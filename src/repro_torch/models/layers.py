@@ -19,6 +19,15 @@ embedding). Conventions follow the reference:
 * the probabilities are rounded to V's type before the PV product;
 * a product of two types (a float32 cache read by a bfloat16 layer)
   computes in the wider one, as the reference's mixed einsums do.
+
+Under a tensor-parallel context (:mod:`repro_torch.parallel.tensor_parallel`,
+the counterpart of the reference's ``constrain`` calls under ``with
+mesh:``) each layer takes its local sizes from its weights' shapes and
+lays its leaves out for its own call: the embedding looks its d columns
+up, attention computes its local heads, the MLP its f columns, each
+followed by a row-parallel product summed over "model" in float32; the
+LM head gives vocab-sharded logits. MLA and the MoE gather their leaves
+and run replicated. Outside a context every layer runs as above.
 """
 
 from __future__ import annotations
@@ -32,6 +41,7 @@ from torch import nn
 from repro_torch.core.quantization import true_divide
 from repro_torch.kernels.flash_attention.ops import flash_attention
 from repro_torch.models.config import ModelConfig
+from repro_torch.parallel import tensor_parallel as TP
 
 NEG_INF = -1e30
 
@@ -294,14 +304,37 @@ class Attention(nn.Module):
             dense_init_(w, generator)
         dense_init_(self.wo, generator, scale=1.0 / math.sqrt(self.wo.shape[0]))
 
-    def forward(self, cfg: ModelConfig, x, positions, cache=None, offset: int = 0):
+    def forward(self, cfg: ModelConfig, x, positions, cache=None, offset: int = 0,
+                partial: bool = False):
         """x: (B, S, D); positions (B, S), or (3, B, S) for M-RoPE (masks
         take the t stream). ``cache``: {"k", "v": (B, Smax, Hkv, Dh)},
         plus {"k_scale", "v_scale": (B, Smax, Hkv)} float32 for the int8
         cache, written in place at ``positions``. The int8 cache is
         dequantized into x's type before the attention core. Returns
-        (B, S, D)."""
-        B, S, _ = x.shape
+        (B, S, D).
+
+        Tensor-parallel where "model" divides H (``TP.attention_plan``):
+        the local q heads (and kv heads where it divides Hkv, else k/v
+        whole and the kv heads the local q heads read, GQA's ``h //
+        group``), the attention core on them, ``wo`` row-parallel; with
+        ``partial`` the float32 partial comes back unreduced
+        (``TP.Partial``, the parallel residual sums it with the FFN's).
+        Elsewhere the layer runs whole on weights gathered for the call."""
+        keep, part = TP.attention_plan(cfg.n_heads, cfg.n_kv_heads)
+        if not keep:
+            with TP.gathered(self), TP.layer_cache(cache) as cache:
+                out = self._attend(cfg, x, positions, cache, offset)
+                return torch.matmul(out.reshape(*x.shape[:2], -1), self.wo)
+        with TP.gathered(self, (keep, part)), \
+                TP.layer_cache(cache, heads=not part) as cache:
+            kv = TP.kv_heads(cfg.n_heads, cfg.n_kv_heads) if part else None
+            out = self._attend(cfg, TP.copy_to_model(x), positions, cache, offset, kv)
+            y = TP.row_parallel(out.reshape(*x.shape[:2], -1), self.wo)
+        return y if partial else TP.reduce(y, x.dtype)
+
+    def _attend(self, cfg: ModelConfig, x, positions, cache, offset: int, kv=None):
+        """The attention core's output (B, S, H, Dv) on this layer's heads;
+        ``kv`` (a slice or index list) picks the kv heads they read."""
         rope = (cfg.rope_theta, cfg.mrope_sections)
         q = apply_rope(_head_proj(x, self.wq), positions, *rope)
         k = apply_rope(_head_proj(x, self.wk), positions, *rope)
@@ -318,9 +351,13 @@ class Attention(nn.Module):
             cache_write(cache["k"], k, pos_ids, offset)
             cache_write(cache["v"], v, pos_ids, offset)
             k, v = cache["k"], cache["v"]
+        if isinstance(kv, slice):
+            k, v = k[:, :, kv], v[:, :, kv]
+        elif kv is not None:
+            idx = torch.tensor(kv, device=x.device)
+            k, v = k.index_select(2, idx), v.index_select(2, idx)
         kv_positions = torch.arange(k.shape[1], dtype=torch.int32, device=x.device)
-        out = attention_core(cfg, q, k, v, pos_ids, kv_positions)
-        return torch.matmul(out.reshape(B, S, -1), self.wo)
+        return attention_core(cfg, q, k, v, pos_ids, kv_positions)
 
 
 # ---------------------------------------------------------------------------
@@ -356,6 +393,12 @@ class MLA(nn.Module):
 
     def forward(self, cfg: ModelConfig, x, positions, cache=None, offset: int = 0,
                 absorbed: bool = False):
+        """Under a tensor-parallel context the layer runs whole on weights
+        gathered for the call, its cache entries gathered for this layer."""
+        with TP.gathered(self), TP.layer_cache(cache) as cache:
+            return self._forward(cfg, x, positions, cache, offset, absorbed)
+
+    def _forward(self, cfg: ModelConfig, x, positions, cache, offset: int, absorbed: bool):
         B, S, _ = x.shape
         dn, dr = cfg.qk_nope_head_dim, cfg.qk_rope_head_dim
         pos_ids = positions[0] if positions.dim() == 3 else positions
@@ -410,20 +453,22 @@ class MLA(nn.Module):
 # ---------------------------------------------------------------------------
 
 
-def _ffn(x, w_in, w_out, w_gate):
+def _hidden(x, w_in, w_gate):
     h = torch.matmul(x, w_in)
     if w_gate is not None:
-        h = F.silu(torch.matmul(x, w_gate)) * h
-    else:
-        h = F.gelu(h, approximate="tanh")  # jax.nn.gelu's default
-    return torch.matmul(h, w_out)
+        return F.silu(torch.matmul(x, w_gate)) * h
+    return F.gelu(h, approximate="tanh")  # jax.nn.gelu's default
+
+
+def _ffn(x, w_in, w_out, w_gate):
+    return torch.matmul(_hidden(x, w_in, w_gate), w_out)
 
 
 class MLP(nn.Module):
     def __init__(self, cfg: ModelConfig, *, device, dtype):
         super().__init__()
         d, f = cfg.d_model, cfg.d_ff
-        self.gated = cfg.gated_mlp
+        self.gated, self.d_ff = cfg.gated_mlp, f
         self.w_in = _weight(d, f, device=device, dtype=dtype)
         self.w_out = _weight(f, d, device=device, dtype=dtype)
         if self.gated:
@@ -435,8 +480,18 @@ class MLP(nn.Module):
         if self.gated:
             dense_init_(self.w_gate, generator)
 
-    def forward(self, x):
-        return _ffn(x, self.w_in, self.w_out, self.w_gate if self.gated else None)
+    def forward(self, x, partial: bool = False):
+        """Tensor-parallel where "model" divides f: ``w_in`` / ``w_gate``
+        column-parallel, ``w_out`` row-parallel (``partial`` as
+        :meth:`Attention.forward`); elsewhere whole on gathered weights."""
+        keep, _ = TP.mlp_plan(self.d_ff)
+        if not keep:
+            with TP.gathered(self):
+                return _ffn(x, self.w_in, self.w_out, self.w_gate if self.gated else None)
+        with TP.gathered(self, (keep, ())):
+            h = _hidden(TP.copy_to_model(x), self.w_in, self.w_gate if self.gated else None)
+            y = TP.row_parallel(h, self.w_out)
+        return y if partial else TP.reduce(y, x.dtype)
 
 
 def top_k_lower_index(probs: torch.Tensor, k: int) -> torch.Tensor:
@@ -495,6 +550,12 @@ class MoE(nn.Module):
         return top_k_lower_index(probs, k)
 
     def forward(self, cfg: ModelConfig, x):
+        """Under a tensor-parallel context the experts run whole on weights
+        gathered for the call."""
+        with TP.gathered(self):
+            return self._forward(cfg, x)
+
+    def _forward(self, cfg: ModelConfig, x):
         B, S, D = x.shape
         E, K = cfg.n_experts, cfg.top_k
         T = B * S
@@ -548,7 +609,7 @@ class Embed(nn.Module):
 
     def __init__(self, cfg: ModelConfig, *, device, dtype):
         super().__init__()
-        self.vocab, self.n_codebooks = cfg.vocab, cfg.n_codebooks
+        self.vocab, self.n_codebooks, self.d_model = cfg.vocab, cfg.n_codebooks, cfg.d_model
         self.table = _weight(max(1, cfg.n_codebooks) * cfg.vocab, cfg.d_model,
                              device=device, dtype=dtype)
 
@@ -558,7 +619,14 @@ class Embed(nn.Module):
     def forward(self, tokens):
         """tokens (B, S), or codes (B, S, n_codebooks): a frame embeds as
         the sum of its codebooks' embeddings (summed in float32, rounded
-        once)."""
+        once). Tensor-parallel where "model" divides d: the rank looks its
+        columns of the d-sharded table up and the columns are gathered."""
+        keep, _ = TP.embed_plan(self.d_model)
+        with TP.gathered(self, (keep, ())):
+            x = self._lookup(tokens)
+        return TP.gather_from_model(x, -1) if keep else x
+
+    def _lookup(self, tokens):
         if self.n_codebooks and tokens.dim() == 3:
             offsets = torch.arange(self.n_codebooks, device=tokens.device) * self.vocab
             return self.table[tokens + offsets].float().sum(dim=2).to(self.table.dtype)
@@ -589,6 +657,23 @@ class LMHead(nn.Module):
             dense_init_(self.w, generator, scale=0.02)
 
     def forward(self, x, table=None):
+        """Tensor-parallel where "model" divides Vp (untied): this rank's
+        vocab shard of the logits, the fused (codebooks x Vp) columns it
+        holds, padded slots masked by their global index
+        (``TP.vocab_sharded``); elsewhere whole on a gathered weight."""
+        keep, _ = TP.head_plan(self.padded, self.tied)
+        if keep:
+            with TP.gathered(self, (keep, ())):
+                logits = torch.matmul(TP.copy_to_model(x.float()), self.w.float())
+            if self.padded > self.vocab:
+                c = logits.shape[-1]
+                col = TP.current().coords["model"] * c + torch.arange(c, device=x.device)
+                logits = torch.where(col % self.padded < self.vocab, logits, NEG_INF)
+            return logits
+        with TP.gathered(self):
+            return self._logits(x, table)
+
+    def _logits(self, x, table):
         w = table.T if self.tied else self.w
         logits = torch.matmul(x.float(), w.float())
         if self.n_codebooks:

@@ -55,6 +55,16 @@ is the block's new state. As in the reference, a Mamba2 or mLSTM block
 run without ``decode`` (``prefill``) returns ``None`` for its state, and
 the recurrent steps ignore ``positions``: a slot idle at -1 still
 advances its state.
+
+Under a tensor-parallel context (:mod:`repro_torch.parallel.tensor_parallel`,
+entered by ``launch.steps``' cells) the layers compute on their local
+shards and gather what else they need for their own call; the block
+boundaries stay (B, S, D), replicated over "model" (the reference's
+``maybe_constrain_act``), a cache entry is gathered for its own layer, and
+the logits come back vocab-sharded where "model" divides the padded vocab
+(``TP.vocab_sharded``: the rank's columns, (..., n_codebooks x Vp / m)),
+as the reference's ``maybe_constrain_logits`` pins them; :func:`loss_fn`
+then takes the vocab-parallel cross entropy.
 """
 
 from __future__ import annotations
@@ -78,6 +88,7 @@ from repro_torch.models.layers import (
     RMSNorm,
     torch_dtype,
 )
+from repro_torch.parallel import tensor_parallel as TP
 
 __all__ = ["Block", "MixerBlock", "Transformer", "check_supported", "cross_entropy", "forward",
            "init_cache", "init_params", "is_homogeneous", "loss_fn", "param_count", "prefill",
@@ -112,19 +123,22 @@ class Block(nn.Module):
         self.norm2 = RMSNorm(cfg.d_model, **kw)
         self.ff = MoE(cfg, **kw) if cfg.is_moe else MLP(cfg, **kw)
 
-    def _ff(self, cfg, h):
-        return self.ff(cfg, h) if cfg.is_moe else self.ff(h)
+    def _ff(self, cfg, h, partial: bool = False):
+        return self.ff(cfg, h) if cfg.is_moe else self.ff(h, partial=partial)
 
     def forward(self, cfg: ModelConfig, x, positions, cache=None, offset: int = 0,
                 decode: bool = False):
+        """With the parallel residual, tensor-parallel attention and FFN
+        partials are summed in float32 before one reduction over "model"
+        (``TP.residual``; ``x + a + f`` outside a mesh)."""
         h = self.norm1(x, cfg.norm_eps)
         if cfg.use_mla:
             a = self.attn(cfg, h, positions, cache, offset,
                           absorbed=decode and cfg.mla_absorbed_decode)
         else:
-            a = self.attn(cfg, h, positions, cache, offset)
+            a = self.attn(cfg, h, positions, cache, offset, partial=cfg.parallel_residual)
         if cfg.parallel_residual:
-            return x + a + self._ff(cfg, h)
+            return TP.residual(x, a, self._ff(cfg, h, partial=True))
         x = x + a
         return x + self._ff(cfg, self.norm2(x, cfg.norm_eps))
 
@@ -145,17 +159,21 @@ class MixerBlock(nn.Module):
     def forward(self, cfg: ModelConfig, x, cache=None, decode: bool = False):
         """(x + mixer(norm(x)), the new state). Mamba2 and mLSTM run their
         chunked forms without ``decode`` and return no state; sLSTM always
-        runs its cell from ``cache`` (or a fresh state) and returns it."""
+        runs its cell from ``cache`` (or a fresh state) and returns it.
+        Under a tensor-parallel context the mixer runs whole on weights and
+        a state gathered for the call; the new state comes back as the
+        rank's shards."""
         h = self.norm(x, cfg.norm_eps)
-        if self.kind == "slstm":
-            y, new = ssm.slstm_forward(cfg, self.mixer, h, cache)
-        elif decode:
-            step = ssm.mamba_step if self.kind == "mamba" else ssm.mlstm_step
-            y, new = step(cfg, self.mixer, h, cache)
-        else:
-            chunked = ssm.mamba_chunked if self.kind == "mamba" else ssm.mlstm_chunked
-            y, new = chunked(cfg, self.mixer, h, chunk=cfg.scan_chunk), None
-        return x + y, new
+        with TP.gathered(self.mixer), TP.layer_cache(cache, write_back=False) as state:
+            if self.kind == "slstm":
+                y, new = ssm.slstm_forward(cfg, self.mixer, h, state)
+            elif decode:
+                step = ssm.mamba_step if self.kind == "mamba" else ssm.mlstm_step
+                y, new = step(cfg, self.mixer, h, state)
+            else:
+                chunked = ssm.mamba_chunked if self.kind == "mamba" else ssm.mlstm_chunked
+                y, new = chunked(cfg, self.mixer, h, chunk=cfg.scan_chunk), None
+        return x + y, TP.local_state(new, cache)
 
 
 class Transformer(nn.Module):
@@ -270,7 +288,9 @@ class Transformer(nn.Module):
                 states.append(layer_cache)
             cache = None if cache is None else tuple(states)
         x = self.final_norm(x, cfg.norm_eps)
-        return self.lm_head(x, self.embed.table), cache
+        # a tied head reads the table whole, gathered for the call
+        with TP.gathered(self.embed) if cfg.tie_embeddings else nullcontext():
+            return self.lm_head(x, self.embed.table), cache
 
     def _stack(self, cfg: ModelConfig, x, positions, decode: bool, remat: bool):
         """A homogeneous stack without a cache. With ``remat`` each block is
@@ -280,8 +300,10 @@ class Transformer(nn.Module):
         blocks = list(self.blocks)
         for i in range(0, len(blocks), g):
             def run(h, group=blocks[i:i + g]):
-                for block in group:
-                    h = block(cfg, h, positions, None, 0, decode)
+                # a checkpointed group's recompute gathers its leaves again
+                with TP.hooks_off() if remat else nullcontext():
+                    for block in group:
+                        h = block(cfg, h, positions, None, 0, decode)
                 return h
 
             x = checkpoint(run, x, use_reentrant=False) if remat else run(x)
@@ -290,10 +312,15 @@ class Transformer(nn.Module):
     @staticmethod
     def _block_fn(cfg: ModelConfig, kind: str, block, positions):
         """One uncached block of a pattern as a function of x alone (a
-        mixer's state is dropped), for checkpointing."""
-        if kind == "attn":
-            return lambda h: block(cfg, h, positions, None, 0, False)
-        return lambda h: block(cfg, h, None, False)[0]
+        mixer's state is dropped), for checkpointing; its recompute gathers
+        its leaves again."""
+        def run(h):
+            with TP.hooks_off():
+                if kind == "attn":
+                    return block(cfg, h, positions, None, 0, False)
+                return block(cfg, h, None, False)[0]
+
+        return run
 
 
 def init_params(cfg: ModelConfig, generator: torch.Generator | None = None,
@@ -402,13 +429,18 @@ def loss_fn(cfg: ModelConfig, params: Transformer, batch: dict) -> torch.Tensor:
     differentiable where grad mode is on (the module's parameters must
     require grad for a gradient to reach them; ``launch.steps`` turns that
     on for the step). With ``cfg.remat`` and grad mode, blocks are
-    checkpointed. The reference's ``maybe_constrain_logits`` pins a mesh
-    layout and is the identity outside one; the port runs on one card
-    and has none. On the card the pass runs in IEEE float32
+    checkpointed. The reference's ``maybe_constrain_logits`` pins the
+    logits vocab-sharded on a mesh and is the identity outside one; the
+    port's counterpart is the tensor-parallel context: where the head's
+    logits come back vocab-sharded (``TP.vocab_sharded``) the loss is
+    :func:`~repro_torch.parallel.tensor_parallel.cross_entropy`, reduced
+    over "model". On the card the pass runs in IEEE float32
     (:meth:`Transformer.float32_scope`); hold the scope over the backward
     too, as the train step does, or checkpointed blocks recompute under
     the caller's TF32 settings."""
     with params.float32_scope():
         logits, _ = params._forward(cfg, batch, None, False)
         labels = torch.as_tensor(batch["labels"], device=params.device)
+        if TP.vocab_sharded(cfg):
+            return TP.cross_entropy(logits, labels, cfg.n_codebooks, cfg.vocab_padded)
         return cross_entropy(logits, labels)

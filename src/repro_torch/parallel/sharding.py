@@ -41,8 +41,10 @@ and drops the layer dim, which no rule shards. The mapping is
 
 XLA partitions the reference's compute from these specs (SPMD). The
 port's steps (``launch.steps.build_cell``) store every weight, moment,
-input and cache entry by them, and gather the full weights to run the
-unsharded code: a tensor-parallel compute plan is not ported.
+input and cache entry by them and run the reference's tensor-parallel
+plan on the local shards (:mod:`repro_torch.parallel.tensor_parallel`):
+heads, FFN hidden and vocab over 'model' where the axis divides them,
+every other leaf gathered for its own layer's call only.
 """
 
 from __future__ import annotations

@@ -69,7 +69,8 @@ def test_every_module_imports_with_jax_blocked():
             "repro_torch.checkpoint.store", "repro_torch.data.pipeline",
             "repro_torch.launch.steps", "repro_torch.launch.mesh", "repro_torch.launch.dryrun",
             "repro_torch.parallel.sharding", "repro_torch.parallel.op_analysis",
-            "repro_torch.configs.shapes"} <= set(port_modules())
+            "repro_torch.parallel.tensor_parallel", "repro_torch.configs.shapes"
+            } <= set(port_modules())
 
 
 def test_audio_helpers_follow_their_tensors_device(monkeypatch):

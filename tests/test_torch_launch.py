@@ -224,8 +224,10 @@ def test_the_dry_run_covers_every_cell(fake_run):
     ``bytes_per_device``, ``collectives``, ``collectives_weighted``,
     ``memory.temp_bytes``) beside the port's byte counts, and ``fits``
     holds ``step_bytes + temp_bytes`` against the capacity. Every cell
-    gathers its sharded weights: the all-gathers' output bytes cover
-    them, and the step holds them all at its peak (``temp_bytes``)."""
+    runs the tensor-parallel plan: its all-gathers (the embedding's
+    columns at least, and the leaves each layer gathers for its call)
+    cover the largest layer's gathered leaves, which the step holds at
+    its peak (``temp_bytes``)."""
     from repro_torch.parallel.op_analysis import COLLECTIVES
 
     recs = fake_run["records"]
@@ -237,7 +239,7 @@ def test_the_dry_run_covers_every_cell(fake_run):
         assert mem["resident_bytes"] == mem["argument_bytes"] + mem["output_bytes"] \
             - mem["alias_bytes"]
         parts = [v for k, v in mem.items() if k.startswith("gathered_") and k != "gathered_bytes"]
-        assert mem["gathered_bytes"] == sum(parts) and mem["gathered_params_bytes"] > 0
+        assert mem["gathered_bytes"] == sum(parts) and mem["gathered_params_bytes"] >= 0
         assert mem["step_bytes"] == mem["resident_bytes"] + mem["gathered_bytes"]
         assert mem["peak_estimate_bytes"] == mem["resident_bytes"] + mem["temp_bytes"]
         assert r["fits"] == (mem["step_bytes"] + mem["temp_bytes"] <= 80 * 10**9)
@@ -275,35 +277,88 @@ def axes_of(entry) -> tuple:
     return () if entry is None else (entry,) if isinstance(entry, str) else tuple(entry)
 
 
+def kept_model_dim(rcfg, path: str, m: int):
+    """The dim (from the end) that the tensor-parallel plan keeps on
+    "model" for the reference leaf at ``path``, or None: the embedding's d
+    where m divides it, the head's vocab where m divides Vp, attention's
+    q heads and ``wo`` rows where m divides H (its k/v heads where it
+    divides Hkv too), the MLP's f where m divides it; MLA, the MoE and
+    the mixers keep none."""
+    leaf = path.rsplit("/", 1)[-1]
+    if path == "embed/table":
+        return -1 if rcfg.d_model % m == 0 else None
+    if path == "lm_head/w":
+        return -1 if rcfg.vocab_padded % m == 0 else None
+    if "/attn/" in path and not rcfg.use_mla and rcfg.n_heads % m == 0:
+        if leaf in ("wq", "wo") or (leaf in ("wk", "wv") and rcfg.n_kv_heads % m == 0):
+            return -2
+    if "/ff/" in path and not rcfg.is_moe and rcfg.d_ff % m == 0:
+        return {"w_in": -1, "w_gate": -1, "w_out": -2}.get(leaf)
+    return None
+
+
+def held(nbytes: int, spec: tuple, sizes: dict, kept: set) -> int:
+    """Bytes of a tensor of ``nbytes`` laid out by ``spec`` with only the
+    (axis, dim) pairs of ``kept`` still split, where any other axis is
+    gathered; else 0 (used as stored)."""
+    split = gathered = 1
+    for d, e in enumerate(spec):
+        for a in axes_of(e):
+            if (a, d) in kept:
+                split *= sizes[a]
+            else:
+                gathered *= sizes[a]
+    return nbytes // split if gathered > 1 else 0
+
+
 def ref_gathered(rcfg, kind, rparams, p_shard, ropt=None, o_shard=None, rin=None,
                  in_shard=None, rcache=None, c_shard=None, mesh_sizes=None) -> dict:
-    """What the port's step gathers per device, counted on the reference's
-    leaves and specs: every parameter leaf whose spec names an axis,
-    whole; a train step's gradients whole and its accumulator shards (the
-    moments' shard shapes in ``grad_accum_dtype``); a decode step's cache
-    entries with every non-DP axis dropped from their spec (all of them
-    where the inputs' batch dim names no DP axis), where that drops one."""
+    """What the port's step holds beyond its arguments per device, counted
+    on the reference's leaves and specs by the tensor-parallel plan: the
+    largest layer's gathered leaves (per layer of a stack: its share; a
+    leaf gathers every axis but the "model" dim its layer keeps,
+    :func:`kept_model_dim`); a train step's gradients on their shards
+    (the parameters' shard bytes) and its accumulator shards (the
+    moments' shard shapes in ``grad_accum_dtype``); a decode step's
+    largest layer of cache entries, each keeping its DP batch shard where
+    the inputs' batch dim names a DP axis and its heads where the
+    attention computes on local kv heads, every other split dim gathered."""
+    dp = {"pod", "data"}
+    m = mesh_sizes["model"]
     leaves, specs = ref_flat(rparams), ref_flat(p_shard)
-    out = {"params": sum(whole_bytes(v) for k, v in leaves.items()
-                         if any(e is not None for e in specs[k].spec))}
+    scopes: dict = {}
+    for k, v in leaves.items():
+        spec = tuple(specs[k].spec) + (None,) * (len(v.shape) - len(specs[k].spec))
+        keep = kept_model_dim(rcfg, k, m)
+        kept = {("model", keep % len(v.shape))} if keep is not None else set()
+        stacked = k.startswith("blocks/") and not k.startswith("blocks/attn_shared/")
+        per = held(whole_bytes(v), spec, mesh_sizes, kept) // (v.shape[0] if stacked else 1)
+        owner = k.rsplit("/", 1)[0]
+        scopes[owner] = scopes.get(owner, 0) + per
+    out = {"params": max(scopes.values(), default=0)}
     if kind == "train":
         mu, mu_specs = ref_flat(ropt["mu"]), ref_flat(o_shard["mu"])
         item = np.dtype(rcfg.grad_accum_dtype).itemsize
-        out["grads"] = sum(whole_bytes(v) for v in leaves.values())
+        out["grads"] = ref_bytes(rparams, p_shard)
         out["accum"] = sum(int(np.prod(mu_specs[k].shard_shape(v.shape))) * item
                            for k, v in mu.items())
     elif kind == "decode":
-        dp = {"pod", "data"}
         main = next(k for k in ("tokens", "codes", "embeds") if k in rin)
-        by_batch = bool(set(axes_of(in_shard[main].spec[0])) & dp)
-        total, c_specs = 0, ref_flat(c_shard)
+        by_batch = any(set(axes_of(e)) & dp for e in in_shard[main].spec)
+        heads_local = not rcfg.use_mla and rcfg.n_heads % m == 0 and rcfg.n_kv_heads % m == 0
+        homogeneous = all(k == "attn" for k in rcfg.pattern) and not rcfg.shared_attn
+        per_layer, c_specs = {}, ref_flat(c_shard)
         for k, v in ref_flat(rcache).items():
             spec = tuple(c_specs[k].spec) + (None,) * (len(v.shape) - len(c_specs[k].spec))
-            keep = [tuple(a for a in axes_of(e) if a in dp) if by_batch else () for e in spec]
-            if any(tuple(axes_of(e)) != kp for e, kp in zip(spec, keep)):
-                total += whole_bytes(v) // int(np.prod([mesh_sizes[a] for kp in keep
-                                                        for a in kp] or [1]))
-        out["cache"] = total
+            lead = 1 if homogeneous else 0
+            kept = {(a, lead) for a in dp} if by_batch else set()
+            if heads_local and k.rsplit("/", 1)[-1] in ("k", "v"):
+                kept.add(("model", lead + 2))
+            layer = "" if homogeneous else k.split("/")[0]
+            size = held(whole_bytes(v), spec, mesh_sizes, kept)
+            per_layer[layer] = per_layer.get(layer, 0) + (size // v.shape[0] if homogeneous
+                                                          else size)
+        out["cache"] = max(per_layer.values(), default=0)
     return out
 
 
@@ -337,7 +392,8 @@ def test_run_cell_bytes_equal_the_reference_shard_shapes(fake_run, arch, mesh):
             assert mem["moments_bytes"] == ref_bytes(ropt, o_shard)
             assert mem["alias_bytes"] == mem["params_bytes"] + mem["moments_bytes"]
             assert mem["output_bytes"] == mem["alias_bytes"] + 12
-            gathered = ref_gathered(rcfg, "train", rparams, p_shard, ropt, o_shard)
+            gathered = ref_gathered(rcfg, "train", rparams, p_shard, ropt, o_shard,
+                                    mesh_sizes=dict(amesh.shape))
         elif shape.kind == "decode":
             rcache = ref_cache_specs(rcfg, shape)
             c_shard = RS.cache_sharding(rcfg, rcache, amesh, shape.global_batch)
@@ -349,5 +405,6 @@ def test_run_cell_bytes_equal_the_reference_shard_shapes(fake_run, arch, mesh):
                                     c_shard=c_shard, mesh_sizes=dict(amesh.shape))
         else:
             assert mem["alias_bytes"] == 0 and mem["output_bytes"] == logits
-            gathered = ref_gathered(rcfg, "prefill", rparams, p_shard)
+            gathered = ref_gathered(rcfg, "prefill", rparams, p_shard,
+                                    mesh_sizes=dict(amesh.shape))
         assert {k: mem[f"gathered_{k}_bytes"] for k in gathered} == gathered, r["shape"]

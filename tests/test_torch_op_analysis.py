@@ -7,12 +7,17 @@ run.
   prefill step equal the analytic count, and a run on CPU data counts
   what a trace on ``meta`` tensors counts.
 * (b) Collectives: on a 2 x 2 ``fake`` mesh, a cell's collectives equal
-  those its code issues, counted by hand from ``launch/steps.py``.
+  those its code issues, counted by hand from the tensor-parallel plan
+  (``launch/steps.py``, ``parallel/tensor_parallel.py``).
 * (c) Wire factors: ``weighted_collective_bytes`` applies the reference's
   ``_wire_factor`` to each kind and group size.
 * (d) Reference: on one CPU device, the port's ``flops_per_device`` of a
   reduced train cell lies within a band, stated before the run, of XLA's
-  ``cost_analysis`` flops of the reference's cell.
+  ``cost_analysis`` flops of the reference's cell; on a (1, 2) mesh of two
+  host devices (a subprocess with ``--xla_force_host_platform_device_count=2``)
+  the per-device flops of the same cell lie within the same band of the
+  port's count on a 2-rank ``fake`` world, and XLA's partitioned program
+  issues the same kinds of collectives over "model" as the port's plan.
 * (e) Fake tensors: each kernel op's wrapper gives a ``meta`` or
   ``FakeTensorMode`` tensor the kernel's output shape and type, launches
   nothing and never runs the plain version; the counter counts the op
@@ -111,7 +116,9 @@ with dryrun.fake_world(4):
         out["cells"][name] = {"collectives": trace.collectives, "params": leaves,
                               "moments": moments, "rows": shape.global_batch // 2,
                               "vocab_padded": c.vocab_padded,
-                              "micro": 2 if name == "train" else 1}
+                              "micro": 2 if name == "train" else 1,
+                              "seq": shape.seq_len, "d_model": c.d_model,
+                              "n_layers": c.n_layers, "dtype_bytes": 4}
     for arch in ARCH_IDS:
         full = get_config(arch)
         if full.block_pattern is None:
@@ -134,7 +141,34 @@ with dryrun.fake_world(1):
     cfg = get_config("deepseek-7b").reduced(n_layers=1, q_chunk=64, kv_chunk=64)
     counts = dryrun.cell_counts(cfg, ShapeSpec("train_4k", "train", 64, 2), mesh)
     out["one_device_train"] = counts
+with dryrun.fake_world(2):
+    mesh = M.make_host_mesh(model_parallel=2, device="cpu")
+    cfg = get_config("deepseek-7b").reduced(n_layers=1, q_chunk=64, kv_chunk=64)
+    out["two_device_train"] = dryrun.cell_counts(cfg, ShapeSpec("train_4k", "train", 64, 2), mesh)
 json.dump(out, open(sys.argv[1], "w"))
+"""
+
+# (d) on two host devices: the reference's one-layer train cell lowered on a
+# (1, 2) ("data", "model") mesh, its per-device flops and the collectives of
+# its optimized HLO
+XLA_RUN = r"""
+import json, sys
+import jax, numpy as np
+from jax.sharding import Mesh
+from repro.configs import get_config
+from repro.configs.shapes import ShapeSpec
+from repro.launch.steps import build_cell
+from repro.parallel import hlo_analysis as RH
+
+cfg = get_config("deepseek-7b").reduced(n_layers=1, q_chunk=64, kv_chunk=64)
+mesh = Mesh(np.array(jax.devices()[:2]).reshape(1, 2), ("data", "model"))
+with mesh:
+    fn, args = build_cell(cfg, ShapeSpec("train_4k", "train", 64, 2), mesh)
+    compiled = fn.lower(*args).compile()
+cost = compiled.cost_analysis()
+cost = cost[0] if isinstance(cost, list) else cost
+w = RH.weighted_collective_bytes(compiled.as_text())
+json.dump({"flops": float(cost["flops"]), "counts": w["counts"]}, open(sys.argv[1], "w"))
 """
 
 
@@ -229,35 +263,44 @@ def shard_dims(placements) -> list[int]:
 
 
 def test_b_collectives_equal_what_the_steps_issue(fake_run):
-    """Counted by hand from ``launch/steps.py`` on the 2 x 2 ("data",
-    "model") mesh, every group of 2 ranks:
+    """Counted by hand from the tensor-parallel plan (``launch/steps.py``,
+    ``parallel/tensor_parallel.py``) on the 2 x 2 ("data", "model") mesh,
+    every group of 2 ranks; x is a rank's (rows, S, d) activation in
+    float32:
 
-    * the weights' gather (``_whole``: ``full_tensor``): one all-gather
-      per mesh dim that shards a weight, the first half the weight's
-      bytes (the other dim still sharded) where both do, the whole where
-      one does;
-    * prefill: the logits gathered over "data" (``_gather_rows``), float32
-      (B, Vp);
-    * train, per microbatch: each gradient summed over "data" in float32
-      (``_dp_sum_``: one all-reduce each), the ZeRO slice none
-      (``distribute`` without a source rank); then the loss (one float32
+    * every weight is used as stored: the heads, the FFN hidden, the vocab
+      and the embedding's d split over "model" (m = 2 divides them all),
+      no leaf large enough for FSDP; so no weight is gathered;
+    * the forward: the embedding's columns gathered over "model" (one
+      all-gather of x's bytes); per block two float32 all-reduces of x over
+      "model" (attention's ``wo`` and the FFN's out, row-parallel);
+    * prefill: the last position's logits gathered over "model" ((rows,
+      Vp) float32), then over "data" (``_gather_rows``: (B, Vp));
+    * train, per microbatch: the loss's max, sum of exponentials and gold
+      logit reduced over "model" (three all-reduces of (rows, S) float32);
+      the backward's all-reduce of x's float32 gradient at each
+      column-parallel input (the head's, and per block attention's and the
+      FFN's); each gradient, on its local shard in float32, summed over
+      "data" in rank order: one all-gather of the two ranks' shards (no
+      moment is ZeRO-split at this size); then the loss (one float32
       scalar, over "data") and the gradient norm (a scalar per leaf and
-      per mesh dim its accumulator shards: DTensor sums the partial
-      sums). The weights (fsdp) keep their moments' layout, so storing
-      them back moves nothing."""
+      per mesh dim its accumulator shards). The weights keep their
+      moments' layout, so storing them back moves nothing."""
     for name, cell in fake_run["cells"].items():
-        want = []
-        for shape, item, placements, _ in cell["params"].values():
-            nbytes = math.prod(shape) * item
-            dims = shard_dims(placements)
-            want += [("all-gather", nbytes // 2 if len(dims) == 2 and i == 0 else nbytes, 2)
-                     for i in range(len(dims))]
+        rows = cell["rows"] // cell["micro"]
+        x = rows * cell["seq"] * cell["d_model"] * 4
+        # no weight split over "data"
+        assert all(p[0] == "Replicate()" for _, _, p, _ in cell["params"].values())
+        forward = [("all-gather", x, 2)] + [("all-reduce", x, 2)] * (2 * cell["n_layers"])
         if name == "prefill":
-            want.append(("all-gather", 2 * cell["rows"] * cell["vocab_padded"] * 4, 2))
+            want = forward + [("all-gather", rows * cell["vocab_padded"] * 4, 2),
+                              ("all-gather", 2 * rows * cell["vocab_padded"] * 4, 2)]
         else:
-            grads = [("all-reduce", math.prod(shape) * 4, 2)
-                     for shape, _, _, _ in cell["params"].values()]
-            want += grads * cell["micro"] + [("all-reduce", 4, 2)]
+            loss = [("all-reduce", rows * cell["seq"] * 4, 2)] * 3
+            backward = [("all-reduce", x, 2)] * (1 + 2 * cell["n_layers"])
+            grads = [("all-gather", 2 * math.prod(shape) // (2 if shard_dims(pl) else 1) * 4, 2)
+                     for shape, _, pl, _ in cell["params"].values()]
+            want = (forward + loss + backward + grads) * cell["micro"] + [("all-reduce", 4, 2)]
             want += [("all-reduce", 4, 2) for placements in cell["moments"].values()
                      for _ in shard_dims(placements)]
             assert [p for _, _, p, _ in cell["params"].values()] == \
@@ -305,6 +348,29 @@ def test_d_flops_lie_within_the_band_of_xlas(fake_run):
     port = fake_run["one_device_train"]
     flops = port["flops_products"] + port["flops_other"]
     assert abs(flops / xla - 1) <= REF_BAND, (flops, xla, port["flops_products"])
+
+
+def test_d_two_devices_the_plan_is_xlas(fake_run, tmp_path):
+    """The same cell on a (1, 2) mesh: XLA's per-device ``cost_analysis``
+    flops of the reference's partitioned program against the port's count
+    of its tensor-parallel step on a 2-rank ``fake`` world, within
+    ``REF_BAND`` (its derivation holds per device: both split the same
+    products two ways), and the kinds of collectives XLA's optimized HLO
+    issues over "model" (the only axis of more than one device) against
+    the kinds the port's plan issues."""
+    path = tmp_path / "xla.json"
+    proc = subprocess.run([sys.executable, "-c", XLA_RUN, str(path)], cwd=ROOT,
+                          env={**os.environ, "PYTHONPATH": str(ROOT / "src"),
+                               "XLA_FLAGS": "--xla_force_host_platform_device_count=2",
+                               "JAX_PLATFORMS": "cpu"},
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    xla = json.loads(path.read_text())
+    port = fake_run["two_device_train"]
+    flops = port["flops_products"] + port["flops_other"]
+    assert abs(flops / xla["flops"] - 1) <= REF_BAND, (flops, xla["flops"])
+    kinds = {k.split("/", 1)[1] for k, v in port.items() if k.startswith("counts/") and v}
+    assert kinds == {k for k, v in xla["counts"].items() if v}, (kinds, xla["counts"])
 
 
 # --------------------------------------------------------------------------

@@ -1,10 +1,14 @@
-"""The body of one rank of ``tests/test_torch_distributed.py`` (imported by
-the spawned processes; not collected). It imports torch, numpy and
-``repro_torch`` only, runs every distributed case on the CPU with the
-``gloo`` backend, and pickles its results to ``<out_dir>/rank<r>.pkl``."""
+"""The body of one rank of ``tests/test_torch_distributed.py`` and
+``tests/test_torch_tensor_parallel.py`` (imported by the spawned processes;
+not collected). It imports torch, numpy and ``repro_torch`` only, runs every
+distributed case on the CPU with the ``gloo`` backend, and pickles its
+results to ``<out_dir>/rank<r>.pkl``. :func:`spawn_ranks` runs the ranks
+once per test process for both files."""
 
 import os
 import pickle
+import time
+import weakref
 
 import numpy as np
 import torch
@@ -89,10 +93,11 @@ def pipeline_refusals(group) -> dict:
     return out
 
 
-# the 2 x 2 ("data", "model") cells: a reduced deepseek-7b wide enough that
-# the ZeRO rule (leaves of >= 2^22 bytes at 4 bytes an element) shards the
-# embedding, the head and the stacked MLP weights' moments over "data"
-CELL_MESH = {"data": 2, "model": 2}
+# the cells on two ("data", "model") meshes of the 4 ranks: 4 x 1, where the
+# tensor-parallel plan is the identity, and 2 x 2. A reduced deepseek-7b wide
+# enough that the ZeRO rule (leaves of >= 2^22 bytes at 4 bytes an element)
+# shards the embedding's and the head's moments over "data"
+CELL_MESHES = {"4x1": {"data": 4, "model": 1}, "2x2": {"data": 2, "model": 2}}
 CELL_SEQ, CELL_CACHE, CELL_INDEX = 8, 16, 6
 
 
@@ -107,7 +112,8 @@ def cell_model():
 
 def cell_inputs(cfg) -> dict:
     """Seeded inputs of the cells: prefill at batch 1 (not DP-sharded) and
-    2, decode at batch 2 over a random cache, train as 2 microbatches of 2."""
+    2, decode at batch 2 over a random cache, train as 2 microbatches of 4
+    rows (one or two rows a DP rank)."""
     from repro_torch.models import transformer as PT
 
     g = torch.Generator().manual_seed(6)
@@ -119,7 +125,7 @@ def cell_inputs(cfg) -> dict:
             "prefill 2": {"tokens": tok(2, CELL_SEQ)},
             "decode": ({"tokens": tok(2, 1), "cur_index": torch.tensor(CELL_INDEX, dtype=torch.int32)},
                        cache),
-            "train": {"tokens": tok(2, 2, CELL_SEQ), "labels": tok(2, 2, CELL_SEQ)}}
+            "train": {"tokens": tok(2, 4, CELL_SEQ), "labels": tok(2, 4, CELL_SEQ)}}
 
 
 def cell_shapes():
@@ -128,21 +134,21 @@ def cell_shapes():
     return {"prefill 1": ShapeSpec("prefill", "prefill", CELL_SEQ, 1),
             "prefill 2": ShapeSpec("prefill", "prefill", CELL_SEQ, 2),
             "decode": ShapeSpec("decode", "decode", CELL_CACHE, 2),
-            "train": ShapeSpec("train", "train", CELL_SEQ, 4)}
+            "train": ShapeSpec("train", "train", CELL_SEQ, 8)}
 
 
-def cell_cases() -> dict:
-    """The cells on a 2 x 2 mesh of the 4 ranks, every argument laid out by
-    its sharding: gathered prefill and decode logits, the cache row the
-    decode wrote, this rank's ZeRO accumulator shards (two microbatches),
-    and the parameters, moments and metrics after one train step, each
-    gathered whole."""
+def cell_cases(mesh_name: str) -> dict:
+    """The cells on mesh ``mesh_name`` of the 4 ranks, every argument laid
+    out by its sharding: gathered prefill and decode logits, the cache row
+    the decode wrote, this rank's ZeRO accumulator shards (two
+    microbatches), and the parameters, moments and metrics after one train
+    step, each gathered whole."""
     from repro_torch.launch import steps as ST
     from repro_torch.launch.mesh import make_host_mesh
     from repro_torch.optim import adamw_init
     from repro_torch.parallel import sharding as SH
 
-    mesh = make_host_mesh(model_parallel=2, device="cpu")
+    mesh = make_host_mesh(model_parallel=CELL_MESHES[mesh_name]["model"], device="cpu")
     cfg, model = cell_model()
     inputs, shapes = cell_inputs(cfg), cell_shapes()
     params = dict(model.named_parameters())
@@ -158,7 +164,8 @@ def cell_cases() -> dict:
     step, _, (p_sh, o_sh, b_sh) = ST.build_cell(cfg, shapes["train"], mesh)
     batch = SH.distribute(inputs["train"], b_sh)
     local = {k: v.to_local() for k, v in batch.items()}
-    accum, loss = ST.zero_accumulated_grads(cfg, model, local, 2, o_sh["mu"])
+    accum, loss = ST.zero_accumulated_grads(cfg, SH.distribute(params, p_sh), local, 2,
+                                            o_sh["mu"])
     out["accum"] = {k: a.to_local() for k, a in accum.items()}
     out["accum loss"] = loss
     p_d = SH.distribute(params, p_sh)
@@ -219,8 +226,343 @@ def run_rank(rank: int, world: int, url: str, out_dir: str) -> None:
     results["pipeline"]["deepseek-7b"] = PP.run_pipeline(
         Plan(TOY_SPLITS["uneven"]), apply, stacked, 8, x, group=dist.group.WORLD)
     results["pipeline refuses autograd"] = pipeline_refusals(dist.group.WORLD)
-    results["cells"] = cell_cases()
+    results["cells"] = {name: cell_cases(name) for name in CELL_MESHES}
+    results["tensor parallel"] = tp_cases()
     with open(os.path.join(out_dir, f"rank{rank}.pkl"), "wb") as f:
         pickle.dump(results, f)
     dist.barrier()
     dist.destroy_process_group()
+
+
+# --------------------------------------------------------------------------
+# tensor parallel: layers and whole cells on a (1, 2) mesh, the memory held
+# --------------------------------------------------------------------------
+
+# ("replica", "data", "model"): each pair of ranks is a (1, 2) ("data",
+# "model") mesh; the replica axis holds no shard of anything
+TP_MESH = (2, 1, 2)
+# 3 rows: never the reduced configs' 2 layers, which the cache rule would
+# take for the batch dim of a stacked cache
+TP_BATCH, TP_SEQ, TP_CACHE, TP_INDEX = 3, 8, 16, 5
+# reduced configs whose sizes show every branch of the plan at m = 2
+TP_CONFIGS = {
+    # H 4, Hkv 4, f 128, Vp 256: heads, kv heads, FFN hidden and vocab local
+    "deepseek-7b": ("deepseek-7b", {}),
+    # GQA H 6 on Hkv 3 (group 2): 3 q heads a rank, kv whole, each rank's
+    # q heads read kv heads (0, 0, 1) and (1, 2, 2); the parallel residual
+    "stablelm-12b": ("stablelm-12b", dict(n_heads=6, n_kv_heads=3)),
+    # MQA: the one kv head whole, read by both local q heads of the group
+    # of 4; f 129 does not divide: the MLP runs replicated
+    "granite-34b": ("granite-34b", dict(d_ff=129)),
+    # H 3 does not divide: the attention runs replicated; 3 codebooks x
+    # Vp 256 over 2 ranks: a rank's vocab shard ends inside a codebook
+    "musicgen-medium": ("musicgen-medium", dict(n_heads=3, n_kv_heads=3, n_codebooks=3)),
+    # vocab 127, unpadded: Vp does not divide, the head runs replicated
+    "deepseek-7b/vocab-127": ("deepseek-7b", dict(vocab=127, pad_vocab_to=0)),
+}
+
+
+def tp_config(name: str):
+    from repro_torch.configs import get_config
+
+    arch, over = TP_CONFIGS[name]
+    return get_config(arch).reduced(**over)
+
+
+def tp_model(cfg, seed: int = 11):
+    from repro_torch.models import transformer as PT
+
+    return PT.init_params(cfg, generator=torch.Generator().manual_seed(seed), device="cpu")
+
+
+def tp_inputs(cfg) -> dict:
+    """Seeded inputs of a config's cells: prefill (TP_BATCH, TP_SEQ), decode
+    one token a row at ``TP_INDEX`` over a random (TP_BATCH, TP_CACHE)
+    cache, and one training microbatch with labels."""
+    from repro_torch.models import transformer as PT
+
+    g = torch.Generator().manual_seed(13)
+    audio = cfg.frontend == "audio_codes"
+    key = "codes" if audio else "tokens"
+
+    def tok(*shape):
+        shape = shape + ((cfg.n_codebooks,) if audio else ())
+        return torch.randint(0, cfg.vocab, shape, generator=g, dtype=torch.int32)
+
+    cache = PT.init_cache(cfg, TP_BATCH, TP_CACHE, device="cpu")
+    for t in cache.values():
+        t.normal_(generator=g)
+    B = TP_BATCH
+    return {"prefill": {key: tok(B, TP_SEQ)},
+            "decode": ({key: tok(B, 1), "cur_index": torch.tensor(TP_INDEX, dtype=torch.int32)},
+                       cache),
+            "train": {key: tok(B, TP_SEQ), "labels": tok(B, TP_SEQ)}}
+
+
+def tp_mesh():
+    from torch.distributed.device_mesh import init_device_mesh
+
+    return init_device_mesh("cpu", TP_MESH, mesh_dim_names=("replica", "data", "model"))
+
+
+def _laid_out(module, prefix: str, mesh):
+    """``module``'s parameters as DTensors by the reference's rules under
+    their model names (``prefix`` + leaf), keyed by the module's own names."""
+    from repro_torch.parallel import sharding as SH
+
+    named = {prefix + k: p.detach() for k, p in module.named_parameters()}
+    laid = SH.distribute(named, SH.params_sharding(named, mesh))
+    return {k.removeprefix(prefix): v for k, v in laid.items()}
+
+
+# (case, config, layer kind): each layer of the plan on the (1, 2) mesh
+TP_LAYERS = [
+    ("embed", "deepseek-7b", "embed"),
+    ("embed codes", "musicgen-medium", "embed"),
+    ("attention heads local", "deepseek-7b", "attn"),
+    ("attention kv whole, MQA", "granite-34b", "attn"),
+    ("attention kv whole, GQA", "stablelm-12b", "attn"),
+    ("attention replicated", "musicgen-medium", "attn"),
+    ("mlp gated", "deepseek-7b", "mlp"),
+    ("mlp gelu", "musicgen-medium", "mlp"),
+    ("mlp replicated", "granite-34b", "mlp"),
+    ("parallel residual", "stablelm-12b", "block"),
+    ("head", "deepseek-7b", "head"),
+    ("head codebooks", "musicgen-medium", "head"),
+    ("head replicated", "deepseek-7b/vocab-127", "head"),
+]
+
+
+def tp_layer(kind: str, cfg, seed: int = 3):
+    """A seeded float32 layer of ``kind`` with its model-name prefix."""
+    from repro_torch.models import layers as L
+    from repro_torch.models import transformer as PT
+
+    g = torch.Generator().manual_seed(seed)
+    kw = dict(device="cpu", dtype=torch.float32)
+    layer, prefix = {"embed": (L.Embed, "embed."), "attn": (L.Attention, "blocks.0.attn."),
+                     "mlp": (L.MLP, "blocks.0.ff."), "head": (L.LMHead, "lm_head."),
+                     "block": (PT.Block, "blocks.0.")}[kind]
+    layer = layer(cfg, **kw)
+    with torch.no_grad():
+        for m in layer.modules():  # a block's norms, attention and FFN in order
+            if hasattr(m, "init_weights"):
+                m.init_weights(g)
+    return layer, prefix
+
+
+def tp_layer_inputs(kind: str, cfg, seed: int = 4) -> dict:
+    g = torch.Generator().manual_seed(seed)
+    B, S = 2, TP_SEQ
+    if kind == "embed":
+        shape = (B, S, cfg.n_codebooks) if cfg.n_codebooks else (B, S)
+        return {"tokens": torch.randint(0, cfg.vocab, shape, generator=g)}
+    x = torch.randn(B, S, cfg.d_model, generator=g)
+    out = {"x": x, "positions": torch.arange(S, dtype=torch.int32).expand(B, S)}
+    if kind == "head":
+        shape = (B, S, cfg.n_codebooks) if cfg.n_codebooks else (B, S)
+        out["labels"] = torch.randint(0, cfg.vocab, shape, generator=g)
+    return out
+
+
+def run_tp_layer(kind: str, cfg, layer, inp: dict) -> dict:
+    """The layer's output (its logits, loss and the loss's gradients for
+    the head) where it runs: on the CPU meshless, or under the current
+    tensor-parallel context on the shards :func:`tp_layer_cases` bound."""
+    from repro_torch.models import transformer as PT
+    from repro_torch.parallel import tensor_parallel as TP
+
+    if kind == "embed":
+        return {"y": layer(inp["tokens"])}
+    x = inp["x"]
+    if kind == "attn":
+        return {"y": layer(cfg, x, inp["positions"])}
+    if kind == "mlp":
+        return {"y": layer(x)}
+    if kind == "block":
+        return {"y": layer(cfg, x, inp["positions"])}
+    x = x.clone().requires_grad_(True)
+    w = layer.w
+    with torch.enable_grad():
+        w.requires_grad_(True)
+        try:
+            logits = layer(x)
+            if TP.vocab_sharded(cfg):
+                loss = TP.cross_entropy(logits, inp["labels"], cfg.n_codebooks, cfg.vocab_padded)
+                whole = TP.gather_vocab(logits.detach(), cfg.n_codebooks, cfg.vocab_padded)
+            else:
+                loss = PT.cross_entropy(logits, inp["labels"])
+                whole = logits.detach()
+            dx, dw = torch.autograd.grad(loss, [x, w])
+        finally:
+            w.requires_grad_(False)
+    return {"y": whole, "loss": loss.detach(), "dx": dx, "dw": dw}
+
+
+def tp_layer_cases(mesh) -> dict:
+    """Every :data:`TP_LAYERS` case on the (1, 2) mesh: the layer's
+    parameters laid out by the reference's rules, the layer run on the
+    rank's shards, its outputs gathered whole (a head's weight gradient
+    from its shards)."""
+    from torch.distributed.tensor import DTensor
+
+    from repro_torch.parallel import tensor_parallel as TP
+
+    out = {}
+    for case, name, kind in TP_LAYERS:
+        cfg = tp_config(name)
+        layer, prefix = tp_layer(kind, cfg)
+        laid = _laid_out(layer, prefix, mesh)
+        TP.bind(layer, laid)
+        with TP.context(mesh):
+            got = run_tp_layer(kind, cfg, layer, tp_layer_inputs(kind, cfg))
+        if "dw" in got:
+            w = laid["w"]
+            got["dw"] = DTensor.from_local(got["dw"], mesh, w.placements, run_check=False
+                                           ).full_tensor()
+        out[case] = got
+    return out
+
+
+def tp_cell_cases(mesh) -> dict:
+    """Every :data:`TP_CONFIGS` config's cells on the (1, 2) mesh: prefill
+    logits, decode logits with the cache row written, and one training
+    microbatch's loss and gradients (the ZeRO accumulator, gathered)."""
+    from repro_torch.configs import ShapeSpec
+    from repro_torch.launch import steps as ST
+    from repro_torch.parallel import sharding as SH
+
+    out = {}
+    for name in TP_CONFIGS:
+        cfg = tp_config(name)
+        model = tp_model(cfg)
+        params = dict(model.named_parameters())
+        inputs = tp_inputs(cfg)
+        res = {}
+        step, _, (p_sh, b_sh) = ST.build_cell(
+            cfg, ShapeSpec("prefill", "prefill", TP_SEQ, TP_BATCH), mesh)
+        res["prefill"] = step(SH.distribute(params, p_sh), SH.distribute(inputs["prefill"], b_sh))
+        step, _, (p_sh, b_sh, c_sh) = ST.build_cell(
+            cfg, ShapeSpec("decode", "decode", TP_CACHE, TP_BATCH), mesh)
+        inp, cache = inputs["decode"]
+        cache = SH.distribute({k: v.clone() for k, v in cache.items()}, c_sh)
+        logits, cache = step(SH.distribute(params, p_sh), SH.distribute(inp, b_sh), cache)
+        res["decode"] = (logits, {k: v.full_tensor()[:, :, TP_INDEX] for k, v in cache.items()})
+        _, _, (p_sh, o_sh, b_sh) = ST.build_cell(
+            cfg, ShapeSpec("train", "train", TP_SEQ, TP_BATCH), mesh)
+        batch = {k: v.to_local() for k, v in SH.distribute(inputs["train"], b_sh).items()}
+        accum, loss = ST.zero_accumulated_grads(cfg, SH.distribute(params, p_sh), batch, 1,
+                                                o_sh["mu"])
+        res["train"] = (loss, {k: a.full_tensor() for k, a in accum.items()})
+        out[name] = res
+    return out
+
+
+def tp_memory_case() -> dict:
+    """The weights a rank holds while the cell model (fsdp: the embedding
+    and the head also split over "data") takes a train step and a prefill
+    step on the 2 x 2 mesh: every tensor the leaf gather makes, the most
+    of their bytes live at once (storages tracked by ``weakref``
+    finalizers, as ``parallel.op_analysis`` tracks live memory), and the
+    step's own count of the largest layer's gathered leaves
+    (``gathered_bytes``)."""
+    import dataclasses
+
+    from repro_torch.launch import steps as ST
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.optim import adamw_init
+    from repro_torch.parallel import sharding as SH
+    from repro_torch.parallel import tensor_parallel as TP
+
+    mesh = make_host_mesh(model_parallel=2, device="cpu")
+    cfg, model = cell_model()
+    cfg = dataclasses.replace(cfg, fsdp=True, fsdp_inference=True)
+    params = dict(model.named_parameters())
+    inputs, shapes = cell_inputs(cfg), cell_shapes()
+    state = {"live": 0, "peak": 0, "made": []}
+    orig = TP._leaf_forward
+
+    def freed(n):
+        state["live"] -= n
+
+    def tracked(t, plan, ctx):
+        full = orig(t, plan, ctx)
+        if plan.gathers:
+            storage = full.untyped_storage()
+            state["live"] += storage.nbytes()
+            state["peak"] = max(state["peak"], state["live"])
+            state["made"].append(tuple(full.shape))
+            weakref.finalize(storage, freed, storage.nbytes())
+        return full
+
+    out = {}
+    TP._leaf_forward = tracked
+    try:
+        for kind in ("train", "prefill 2"):
+            state.update(live=0, peak=0, made=[])
+            step, args, sh = ST.build_cell(cfg, shapes[kind], mesh)
+            p_d = SH.distribute(params, sh[0])
+            if kind == "train":
+                step(p_d, SH.distribute(adamw_init(params), sh[1]),
+                     SH.distribute(inputs["train"], sh[2]))
+            else:
+                step(p_d, SH.distribute(inputs[kind], sh[1]))
+            out[kind] = {"peak": state["peak"], "made": list(state["made"]),
+                         "live after": state["live"],
+                         "specs": {k: s.spec for k, s in sh[0].items()},
+                         "largest layer": ST.gathered_bytes(cfg, shapes[kind].kind, args,
+                                                            sh)["params"]}
+    finally:
+        TP._leaf_forward = orig
+    return out
+
+
+def tp_cases() -> dict:
+    mesh = tp_mesh()
+    return {"coordinate": tuple(mesh.get_coordinate()), "layers": tp_layer_cases(mesh),
+            "cells": tp_cell_cases(mesh), "memory": tp_memory_case()}
+
+
+# --------------------------------------------------------------------------
+# the spawn, once per test process
+# --------------------------------------------------------------------------
+
+JOIN_DEADLINE_S = 240
+_RESULTS: list = []
+
+
+def spawn_ranks(out) -> list:
+    """The 4 ranks' results, in rank order, run once per process (the two
+    test files that read them share one spawn where they share a
+    process). ``out``: a temporary directory (``pathlib.Path``). A rank
+    that raises or dies, or a join past the deadline, fails the calling
+    test with the ranks' stderr."""
+    import pytest
+    import torch.multiprocessing as mp
+
+    if _RESULTS:
+        return _RESULTS[0]
+    url = f"file://{out / 'rendezvous'}"
+    ctx = mp.spawn(run_rank, args=(WORLD, url, str(out)), nprocs=WORLD, join=False)
+    deadline = time.monotonic() + JOIN_DEADLINE_S
+    failure = None
+    try:
+        while not ctx.join(timeout=1):
+            if time.monotonic() > deadline:
+                failure = f"the ranks did not finish within {JOIN_DEADLINE_S} s"
+                break
+    except Exception as e:  # a rank raised or died: fail with what it said
+        failure = f"{type(e).__name__}: {e}"
+    if failure is not None:
+        for p in ctx.processes:
+            if p.is_alive():
+                p.kill()
+        errs = "\n".join(f"--- rank {r} stderr:\n" + (out / f"rank{r}.err").read_text()[-3000:]
+                         for r in range(WORLD) if (out / f"rank{r}.err").exists())
+        pytest.fail(f"{failure}\n{errs}")
+    results = []
+    for r in range(WORLD):
+        with open(out / f"rank{r}.pkl", "rb") as f:
+            results.append(pickle.load(f))
+    _RESULTS.append(results)
+    return results
