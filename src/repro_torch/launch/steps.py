@@ -263,21 +263,12 @@ def _local(t: torch.Tensor) -> torch.Tensor:
     return t.to_local() if isinstance(t, DTensor) else t
 
 
-def _dp_placements(placements, mesh) -> tuple:
-    """``placements`` on ``mesh`` with every mesh dim but the DP axes
-    replicated."""
-    from torch.distributed.tensor import Replicate
+def _dp_split(t) -> tuple:
+    """The DP axes of its mesh that split DTensor ``t`` (an input's batch)."""
+    from repro_torch.parallel import tensor_parallel as TP
 
-    dp = SH.dp_axes(mesh)
-    return tuple(p if name in dp else Replicate()
-                 for name, p in zip(mesh.mesh_dim_names, placements))
-
-
-def _batch_dp(main) -> bool:
-    """The input DTensor ``main`` is split over the DP axes on a dim."""
-    from torch.distributed.tensor import Shard
-
-    return any(isinstance(p, Shard) for p in _dp_placements(main.placements, main.device_mesh))
+    dp = SH.dp_axes(t.device_mesh)
+    return tuple(a for e in TP.spec_of(t) for a in TP.axes_of(e) if a in dp)
 
 
 def _bytes(t: torch.Tensor) -> int:
@@ -356,7 +347,7 @@ def gathered_bytes(cfg: ModelConfig, kind: str, args, shardings) -> dict[str, in
         elif kind == "decode":
             inputs, b_shard, cache, c_shard = args[1], shardings[1], args[2], shardings[2]
             main = next(b_shard[k] for k in inputs if k in ("tokens", "codes", "embeds"))
-            keep_dp = any(set(TP._axes(e)) & set(SH.dp_axes(mesh)) for e in main.spec)
+            keep_dp = any(set(TP.axes_of(e)) & set(SH.dp_axes(mesh)) for e in main.spec)
             heads_local = (not cfg.use_mla and TP.splits(cfg.n_heads)
                            and TP.splits(cfg.n_kv_heads))
             stacked = T.is_homogeneous(cfg)
@@ -412,9 +403,7 @@ def _gather_rows(x: torch.Tensor, like) -> torch.Tensor:
     DTensor ``like``, gathered whole over its DP axes."""
     from repro_torch.parallel import tensor_parallel as TP
 
-    dp = set(SH.dp_axes(like.device_mesh))
-    entry = tuple(a for e in TP.spec_of(like) for a in TP._axes(e) if a in dp)
-    return TP.gather_to(x, like.device_mesh, (entry or None,), (None,))
+    return TP.gather_to(x, like.device_mesh, (_dp_split(like) or None,), (None,))
 
 
 class _Bound:
@@ -468,7 +457,7 @@ def _sharded_prefill_step(cfg: ModelConfig):
 
     def prefill_step(params, batch):
         main = _main_input(batch)
-        with bound(params, _batch_dp(main)) as model:
+        with bound(params, bool(_dp_split(main))) as model:
             logits = _whole_logits(cfg, step(model, {k: _local(v) for k, v in batch.items()}))
         return _gather_rows(logits, main)
 
@@ -481,7 +470,7 @@ def _sharded_decode_step(cfg: ModelConfig):
     def decode_step(params, inputs, cache):
         main = _main_input(inputs)
         local = SH.tree_map(_local, cache)
-        with bound(params, _batch_dp(main), cache) as model:
+        with bound(params, bool(_dp_split(main)), cache) as model:
             logits, new = step(model, {k: _local(v) for k, v in inputs.items()}, local)
             logits = _whole_logits(cfg, logits)
         SH.tree_map(_store, cache, new)
@@ -554,7 +543,7 @@ def _zero_train_step(cfg: ModelConfig, opt_cfg: AdamWConfig, N: int, shardings: 
         del accum
         # the global norm: each leaf's float32 sum of squares over its shards
         sums = [TP.reduce_axes_(torch.sum(torch.square(g.to_local().float())), mesh,
-                                [a for e in TP.spec_of(g) for a in TP._axes(e)])
+                                [a for e in TP.spec_of(g) for a in TP.axes_of(e)])
                 for g in grads.values()]
         gnorm = torch.sqrt(torch.sum(torch.stack(sums)))
         mu, nu = opt_state["mu"], opt_state["nu"]

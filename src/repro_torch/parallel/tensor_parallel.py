@@ -76,13 +76,11 @@ from typing import NamedTuple
 
 import torch
 
-__all__ = ["Partial", "TPContext", "attention_plan", "bind", "context", "copy_to_model",
+__all__ = ["Partial", "TPContext", "attention_plan", "axes_of", "bind", "context", "copy_to_model",
            "cross_entropy", "current", "embed_plan", "gather_from_model", "gather_vocab",
            "gathered", "head_plan", "hooks_off", "kv_heads", "layer_cache", "leaf_plan",
            "local_state", "mlp_plan", "model_size", "reduce", "reduce_from_model", "residual",
            "row_parallel", "spec_of", "splits", "vocab_sharded"]
-# (also, for the cells' own bookkeeping: dp_sum_to, gather_to, ordered_sum,
-# reduce_axes_, take_shard)
 
 DP_AXES = ("pod", "data")
 
@@ -125,7 +123,8 @@ def splits(n: int) -> bool:
     return m > 1 and n % m == 0
 
 
-def _axes(entry) -> tuple:
+def axes_of(entry) -> tuple:
+    """The mesh axes a spec entry names (an axis, a tuple of axes, or None)."""
     return () if entry is None else (entry,) if isinstance(entry, str) else tuple(entry)
 
 
@@ -158,7 +157,7 @@ def context(mesh, batch_dp: bool = True, cache=None, stacked: bool = False):
         def register(t):
             spec = spec_of(t)
             if stacked:
-                if any(sizes[a] > 1 for a in _axes(spec[0])):
+                if any(sizes[a] > 1 for a in axes_of(spec[0])):
                     raise ValueError(f"a rule shards a cache entry's layer dim: {spec}")
                 spec = spec[1:]
             ctx.cache[t.to_local().untyped_storage()._cdata] = spec
@@ -209,13 +208,21 @@ def _staged(t: torch.Tensor, group) -> bool:
     return t.device.type == "cuda" and dist.get_backend(group) == "gloo"
 
 
+def _on_host(t: torch.Tensor) -> torch.Tensor:
+    """A copy of CUDA tensor ``t`` in pinned host memory (the caching host
+    allocator's: a copy at the link's rate, and no allocation once warm)."""
+    h = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+    h.copy_(t)
+    return h
+
+
 def _all_reduce_(t: torch.Tensor, group, op=None) -> torch.Tensor:
     """Reduce ``t`` (contiguous) over ``group`` in place."""
     import torch.distributed as dist
 
     op = dist.ReduceOp.SUM if op is None else op
     if _staged(t, group):
-        h = t.cpu()
+        h = _on_host(t)
         dist.all_reduce(h, op=op, group=group)
         t.copy_(h)
     else:
@@ -230,7 +237,7 @@ def _pieces(t: torch.Tensor, group, n: int) -> list:
     src = t.contiguous()
     staged = _staged(src, group)
     if staged:
-        src = src.cpu()
+        src = _on_host(src)
     parts = [torch.empty_like(src) for _ in range(n)]
     dist.all_gather(parts, src, group=group)
     return [p.to(t.device) for p in parts] if staged else parts
@@ -251,7 +258,7 @@ def _all_to_all(t: torch.Tensor, group, n: int, dim: int) -> list:
 
     x = t.movedim(dim, 0).contiguous()
     staged = _staged(x, group)
-    src = x.cpu() if staged else x
+    src = _on_host(x) if staged else x
     out = torch.empty_like(src)
     dist.all_to_all_single(out, src, group=group)
     out = out.to(t.device) if staged else out
@@ -276,12 +283,12 @@ def dp_sum_to(g: torch.Tensor, mesh, have: tuple, want: tuple) -> torch.Tensor:
     from repro_torch.parallel.sharding import mesh_shape
 
     sizes = mesh_shape(mesh)
-    have_axes = {a for e in have for a in _axes(e)}
+    have_axes = {a for e in have for a in axes_of(e)}
     for a in DP_AXES:
         n = sizes.get(a, 1)
         if n == 1 or a in have_axes:
             continue
-        dims = [d for d, e in enumerate(want) if a in _axes(e)]
+        dims = [d for d, e in enumerate(want) if a in axes_of(e)]
         group = mesh.get_group(a)
         parts = _all_to_all(g, group, n, dims[0]) if dims else _pieces(g, group, n)
         g = ordered_sum(parts)
@@ -308,8 +315,8 @@ def take_shard(local: torch.Tensor, mesh, have: tuple, want: tuple) -> torch.Ten
 
     sizes, coords = mesh_shape(mesh), dict(zip(mesh.mesh_dim_names, mesh.get_coordinate()))
     for d, entry in enumerate(want):
-        for a in _axes(entry):
-            if a not in _axes(have[d]) and sizes[a] > 1:
+        for a in axes_of(entry):
+            if a not in axes_of(have[d]) and sizes[a] > 1:
                 size = local.shape[d] // sizes[a]
                 local = local.narrow(d, coords[a] * size, size)
     return local
@@ -323,8 +330,8 @@ def gather_to(local: torch.Tensor, mesh, have: tuple, want: tuple) -> torch.Tens
 
     sizes = mesh_shape(mesh)
     for d, entry in enumerate(have):
-        for a in reversed(_axes(entry)):
-            if a not in _axes(want[d]) and sizes[a] > 1:
+        for a in reversed(axes_of(entry)):
+            if a not in axes_of(want[d]) and sizes[a] > 1:
                 local = _all_gather(local, mesh.get_group(a), sizes[a], d)
     return local
 
@@ -394,21 +401,16 @@ class _F32Matmul(torch.autograd.Function):
 
 class _Plan(NamedTuple):
     """How a leaf is laid out for its layer: the (axis, dim) gathers in
-    order (minor axis first within a dim), the dim narrowed to the rank's
-    "model" chunk (a leaf stored replicated that the layer computes on in
-    shards), and the axes its gradient is summed over."""
+    order (minor axis first within a dim) and the axes its gradient is
+    summed over."""
 
     gathers: tuple
-    narrow: int | None
     reduce: frozenset
 
 
 def _leaf_forward(t: torch.Tensor, plan: _Plan, ctx: TPContext) -> torch.Tensor:
     for axis, dim in plan.gathers:
         t = _all_gather(t, ctx.group(axis), ctx.sizes[axis], dim)
-    if plan.narrow is not None:
-        size = t.shape[plan.narrow] // ctx.m
-        t = t.narrow(plan.narrow, ctx.coords["model"] * size, size)
     return t
 
 
@@ -422,13 +424,6 @@ class _GatherLeaf(torch.autograd.Function):
     def backward(ctx, g):
         plan, tp = ctx.plan, ctx.tp
         g = g.contiguous()
-        if plan.narrow is not None:
-            # each rank's chunk of a leaf stored whole: the sum is the concatenation
-            full = g.new_zeros(g.shape[:plan.narrow] + (g.shape[plan.narrow] * tp.m,)
-                               + g.shape[plan.narrow + 1:])
-            size = g.shape[plan.narrow]
-            full.narrow(plan.narrow, tp.coords["model"] * size, size).copy_(g)
-            g = _all_reduce_(full, tp.group("model"))
         gathered = set()
         for axis, dim in reversed(plan.gathers):
             if axis in plan.reduce:
@@ -437,8 +432,7 @@ class _GatherLeaf(torch.autograd.Function):
             g = g.narrow(dim, tp.coords[axis] * size, size).contiguous()
             gathered.add(axis)
         for axis in sorted(plan.reduce - gathered):
-            if not (axis == "model" and plan.narrow is not None):
-                g = _all_reduce_(g, tp.group(axis))
+            g = _all_reduce_(g, tp.group(axis))
         return g, None, None
 
 
@@ -559,23 +553,22 @@ def _plan_for(ctx: TPContext, spec: tuple, keep: int | None, partial: bool,
     keep = None if keep is None or ctx.m == 1 else keep % ndim
     gathers, kept = [], False
     for d, entry in enumerate(spec):
-        for a in reversed(_axes(entry)):
+        for a in reversed(axes_of(entry)):
             if a == "model" and d == keep:
                 kept = True
             elif ctx.sizes[a] > 1:
                 gathers.append((a, d))
-    narrow = None
     if keep is not None and not kept:
-        if any(a == "model" for a, _ in gathers):
-            raise NotImplementedError(f"a leaf stored on another dim over 'model' ({spec}) "
-                                      f"that its layer computes on in shards of dim {keep}")
-        narrow = keep
+        # the sharding rules split a dim over "model" exactly where the plan
+        # computes on it in shards (tests/test_torch_tensor_parallel.py)
+        raise ValueError(f"a leaf laid out as {spec}, not split over 'model' on dim {keep}, "
+                         f"which its layer computes on in shards")
     reduce = {a for a, _ in gathers if a != "model"}
     if partial and ctx.m > 1:
         reduce.add("model")
-    if not gathers and narrow is None and not reduce:
+    if not gathers and not reduce:
         return None
-    return _Plan(tuple(gathers), narrow, frozenset(reduce))
+    return _Plan(tuple(gathers), frozenset(reduce))
 
 
 class _Token(NamedTuple):
@@ -672,11 +665,11 @@ def _entry_plan(ctx: TPContext, t: torch.Tensor, heads: bool):
     keep_dp = ctx.batch_dp
     gathers = []
     for d, entry in enumerate(spec):
-        for a in reversed(_axes(entry)):
+        for a in reversed(axes_of(entry)):
             kept = (a in DP_AXES and d == 0 and keep_dp) or (a == "model" and d == 2 and heads)
             if not kept and ctx.sizes[a] > 1:
                 gathers.append((a, d))
-    model_on_heads = len(spec) > 2 and "model" in _axes(spec[2])
+    model_on_heads = len(spec) > 2 and "model" in axes_of(spec[2])
     narrow = 2 if heads and ctx.m > 1 and not model_on_heads and t.dim() > 2 else None
     return spec, tuple(gathers), narrow
 
