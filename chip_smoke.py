@@ -5063,6 +5063,12 @@ def fake_cell_counts() -> dict:
                                                make_host_mesh(device="cpu")))
 
 
+# the dry run's collective totals over the 64 records on the plan that
+# gathered every expert for its MoE call and every sequence-split decode
+# cache for its layer (PERF.md §6), GB
+DRYRUN_GATHERED_PLAN_GB = {"all": 48991.4, "all-gather": 30615.8, "all-reduce": 18375.6}
+
+
 def print_dryrun(records: list, capacity: int, card) -> None:
     from repro_torch.launch.dryrun import all_cells
 
@@ -5102,7 +5108,10 @@ def print_dryrun(records: list, capacity: int, card) -> None:
           f"({sum(r['flops_products_per_device'] for r in records):.4e} in products), bytes "
           f"{sum(r['bytes_per_device'] for r in records):.4e}, collectives "
           f"{sum(r['collectives']['total_bytes'] for r in records) / 1e9:.1f} GB "
-          f"({', '.join(f'{k} {v / 1e9:.1f}' for k, v in sorted(totals.items()))}), wire "
+          f"({', '.join(f'{k} {v / 1e9:.1f}' for k, v in sorted(totals.items()))}; the plan "
+          f"that gathered experts and split caches: {DRYRUN_GATHERED_PLAN_GB['all']} GB, "
+          f"all-gather {DRYRUN_GATHERED_PLAN_GB['all-gather']}, all-reduce "
+          f"{DRYRUN_GATHERED_PLAN_GB['all-reduce']}), wire "
           f"{sum(r['collectives_weighted']['total_wire_bytes'] for r in records) / 1e9:.1f} GB, "
           f"temp {sum(r['memory']['temp_bytes'] for r in records) / 1e9:.1f} GB; "
           f"{sum(r['fits'] for r in records)} of {len(records)} fit on step + temp "
@@ -5187,19 +5196,34 @@ def phase_launch_tooling(dev, card, beside=None) -> dict:
 
 
 TP_ARCH = "deepseek-7b"
-# phase 23's cells over gloo ranks that share the card: (("data", "model")
-# mesh, shape, batch, layers). The reference's batches are 32, 128 and 256
-# and its depth 30. Every cell is cut to 4 layers to fit the script's time
-# limit: every row-parallel product's float32 partial crosses the host
-# through gloo (0.54 GB a product at 32,768 tokens, about a second each,
-# PERF.md §6 PR 33); train_4k also to 2 microbatches of 1 x 4,096, so that
-# two ranks' weights, float32 moments and activations fit one card beside
-# each other
+# phase 23's cells over gloo ranks that share the card: (config, ("data",
+# "model") mesh, shape, batch, layers). The reference's batches are 32, 128
+# and 256. deepseek-7b's cells are cut to 4 of 30 layers to fit the
+# script's time limit: every row-parallel product's float32 partial crosses
+# the host through gloo (0.54 GB a product at 32,768 tokens, about a second
+# each, PERF.md §6 PR 33); train_4k also to 2 microbatches of 1 x 4,096, so
+# that two ranks' weights, float32 moments and activations fit one card
+# beside each other. The others exercise the plan's expert parallelism and
+# split-KV decode at full width, cut deeper still (qwen3-moe 2 of 94 layers:
+# 4.83 GB of experts a layer; granite-moe 4 of 24; granite-34b 2 of 88; a
+# decode cell at batch 2 takes 3 layers, since the cache rule reads a
+# stacked cache whose depth equals the batch as unstacked): qwen3-moe's
+# prefill and decode hold 64 of its 128
+# experts a rank (flash on 32 of its 64 heads); granite-moe's train step
+# runs the experts' backward on 16 of 32 experts a rank; granite-34b's one
+# kv head splits its cache's sequence over "model" at batch 2 and over
+# "data" at batch 1 on (2, 2); minicpm3's latent cache splits over "model"
 TP_CELLS = {
-    "prefill_32k": ((1, 2), "prefill_32k", 1, 4),
-    "decode_32k": ((1, 2), "decode_32k", 2, 4),
-    "train_4k": ((1, 2), "train_4k", 2, 4),
-    "prefill_32k on 2 x 2": ((2, 2), "prefill_32k", 2, 4),
+    "prefill_32k": (TP_ARCH, (1, 2), "prefill_32k", 1, 4),
+    "decode_32k": (TP_ARCH, (1, 2), "decode_32k", 2, 4),
+    "train_4k": (TP_ARCH, (1, 2), "train_4k", 2, 4),
+    "prefill_32k on 2 x 2": (TP_ARCH, (2, 2), "prefill_32k", 2, 4),
+    "qwen3-moe prefill_32k": ("qwen3-moe-235b-a22b", (1, 2), "prefill_32k", 1, 2),
+    "qwen3-moe decode_32k": ("qwen3-moe-235b-a22b", (1, 2), "decode_32k", 2, 3),
+    "granite-moe train_4k": ("granite-moe-1b-a400m", (1, 2), "train_4k", 2, 4),
+    "granite-34b decode_32k": ("granite-34b", (1, 2), "decode_32k", 2, 3),
+    "granite-34b decode_32k on 2 x 2": ("granite-34b", (2, 2), "decode_32k", 1, 2),
+    "minicpm3 decode_32k": ("minicpm3-4b", (1, 2), "decode_32k", 2, 3),
 }
 TP_WORLD = 4  # one spawn: a (1, 2) mesh takes ranks 0 and 1, the others wait
 TP_SEEDS = {"weights": 2300, "inputs": 2301, "cache": 2302}
@@ -5216,17 +5240,24 @@ TP_DEADLINE_S = 900
 # was refuted on the card: PERF.md §6 PR 33). The train step's loss lies
 # within 2 (2 L + 1) x 2^-8 x its logits' std (cross entropy moves at most
 # twice the largest logit change) and its gradient norm within
-# 2 (2 L + 1) x 2^-8 relative (the backward runs each product twice more)
+# 2 (2 L + 1) x 2^-8 relative (the backward runs each product twice more).
+# The MoE's float32 combine summed over "model" is such a product too, and
+# split-KV decode reorders two float32 sums. The MoE cells replay the
+# meshless run's expert picks (bf16 noise flips top-k at near-ties and the
+# flips compound: ROADMAP §3's trap), each rank counting the picks its own
+# router would change
 TP_ULP = 2.0 ** -8
+# a decode cache's entries, each layer's from its own seed
+TP_ENTRY = {"k": 0, "v": 1, "c_kv": 0, "k_rope": 1}
 
 
 def tp_cell(name):
     """(config, shape) of phase 23's cell ``name``."""
     from repro_torch.configs import SHAPES, ShapeSpec, get_config
 
-    _, shape_name, batch, layers = TP_CELLS[name]
+    arch, _, shape_name, batch, layers = TP_CELLS[name]
     full = SHAPES[shape_name]
-    cfg = replace(get_config(TP_ARCH), n_layers=layers, use_flash_kernel=full.kind != "train")
+    cfg = replace(get_config(arch), n_layers=layers, use_flash_kernel=full.kind != "train")
     return cfg, ShapeSpec(shape_name, full.kind, full.seq_len, batch)
 
 
@@ -5252,15 +5283,20 @@ def tp_inputs(cfg, shape, dev) -> dict:
 
 
 def tp_cache_layer(cfg, shape, layer: int, entry: str, dev):
-    """Layer ``layer``'s random ``entry`` ("k" or "v") of the decode cache,
-    (B, S, Hkv, Dh) bf16 from its own seed: the meshless run and every rank
-    make the same rows, each rank keeping its shard."""
+    """Layer ``layer``'s random ``entry`` of the decode cache, (B, S, Hkv,
+    Dh) for "k" and "v", (B, S, rank) for MLA's "c_kv" and "k_rope", bf16
+    from its own seed: the meshless run and every rank make the same rows,
+    each rank keeping its shard."""
     import torch
 
+    if cfg.use_mla:
+        tail = (cfg.kv_lora_rank if entry == "c_kv" else cfg.qk_rope_head_dim,)
+    else:
+        tail = (cfg.n_kv_heads, cfg.head_dim)
     g = torch.Generator(device=dev).manual_seed(TP_SEEDS["cache"] * 1000 + 2 * layer
-                                                + (entry == "v"))
-    return torch.randn((shape.global_batch, shape.seq_len, cfg.n_kv_heads, cfg.head_dim),
-                       generator=g, device=dev, dtype=torch.bfloat16)
+                                                + TP_ENTRY[entry])
+    return torch.randn((shape.global_batch, shape.seq_len, *tail), generator=g, device=dev,
+                       dtype=torch.bfloat16)
 
 
 def tp_model(cfg, dev):
@@ -5275,7 +5311,8 @@ def tp_model(cfg, dev):
 def tp_reference(dev, name) -> dict:
     """The meshless step of phase 23's cell ``name`` on the card, on the
     weights and inputs the ranks make: what the ranks are held to, on the
-    host, and its wall."""
+    host, and its wall; a MoE cell's expert picks (``"tape"``, in call
+    order) for the ranks to replay."""
     import torch
 
     from repro_torch.launch.steps import make_decode_step, make_prefill_step, make_train_step
@@ -5285,46 +5322,55 @@ def tp_reference(dev, name) -> dict:
     cfg, shape = tp_cell(name)
     model = tp_model(cfg, dev)
     inputs = tp_inputs(cfg, shape, dev)
+    tape = RoutingTape(model) if cfg.is_moe else None
+    # the logits' scale over the real vocab: padded slots hold -1e30 in both runs
     if shape.kind == "prefill":
         logits, wall = timed(lambda: make_prefill_step(cfg)(model, inputs))
         out = {"logits": logits.float().cpu()}
-        out["std"] = float(out["logits"].std())
+        out["std"] = float(out["logits"][..., :cfg.vocab].std())
     elif shape.kind == "decode":
         cache = T.init_cache(cfg, shape.global_batch, shape.seq_len, device=dev)
         for layer in range(cfg.n_layers):
-            for k in ("k", "v"):
+            for k in cache:
                 cache[k][layer].copy_(tp_cache_layer(cfg, shape, layer, k, dev))
         (logits, cache), wall = timed(lambda: make_decode_step(cfg)(model, inputs, cache))
         rows = {k: v[:, :, shape.seq_len - 1].float().cpu() for k, v in cache.items()}
         out = {"logits": logits.float().cpu(), "rows": rows,
                "row_std": {k: float(v.std()) for k, v in rows.items()}}
-        out["std"] = float(out["logits"].std())
+        out["std"] = float(out["logits"][..., :cfg.vocab].std())
         del cache
     else:
         with torch.no_grad():  # the logits' scale, before the step moves the weights
             logits, _ = T.forward(cfg, model, {"tokens": inputs["tokens"][0]})
-            std = float(logits.float().std())
+            std = float(logits[..., :cfg.vocab].float().std())
             del logits
         opt = adamw_init(dict(model.named_parameters()))
         n = inputs["tokens"].shape[0]
+        if tape is not None:
+            tape.record()  # the step's picks only
         (_, _, metrics), wall = timed(lambda: make_train_step(cfg, n_microbatches=n)(
             model, opt, inputs))
         out = {"loss": float(metrics["loss"]), "grad_norm": float(metrics["grad_norm"]),
                "std": std}
         del opt
+    if tape is not None:
+        out["tape"] = [t.cpu() for t in tape.tape]
+        tape.close()
     del model, inputs
     torch.cuda.empty_cache()
     out["wall_s"] = wall
     return out
 
 
-def tp_collective_stats() -> dict:
+def tp_collective_stats() -> tuple[dict, list]:
     """Counts, bytes and walls of the tensor-parallel layer's collectives in
     this process, by kind (the host-staged gloo calls of
-    ``parallel.tensor_parallel``, timed around each call with its copies)."""
+    ``parallel.tensor_parallel``, timed around each call with its copies),
+    and the shape of this rank's piece of every all-gather."""
     from repro_torch.parallel import tensor_parallel as TP
 
     stats: dict = {}
+    gathered: list = []
 
     def timed_call(kind, fn, nbytes):
         def call(*args, **kwargs):
@@ -5339,11 +5385,17 @@ def tp_collective_stats() -> dict:
 
     TP._all_reduce_ = timed_call("all-reduce", TP._all_reduce_,
                                  lambda a, out: out.numel() * out.element_size())
-    TP._pieces = timed_call("all-gather", TP._pieces,
-                            lambda a, out: sum(p.numel() * p.element_size() for p in out))
+    pieces = timed_call("all-gather", TP._pieces,
+                        lambda a, out: sum(p.numel() * p.element_size() for p in out))
+
+    def gather(t, group, n):
+        gathered.append(tuple(t.shape))
+        return pieces(t, group, n)
+
+    TP._pieces = gather
     TP._all_to_all = timed_call("all-to-all", TP._all_to_all,
                                 lambda a, out: sum(p.numel() * p.element_size() for p in out))
-    return stats
+    return stats, gathered
 
 
 def tp_mesh(layout):
@@ -5358,14 +5410,67 @@ def tp_mesh(layout):
                       mesh_dim_names=("data", "model"))
 
 
+class PickReplay:
+    """A rank's MoE layers (every instance: the cells' template models are
+    the steps' own) take the meshless run's picks in call order
+    (``MoE.select``), counting the picks their own router would change,
+    and record the experts each call holds (``w_in``'s first dim)."""
+
+    def __init__(self):
+        from repro_torch.models import layers as L
+
+        self.L, self.own, self.tape = L, L.top_k_lower_index, None
+        self.select, self.forward = L.MoE.select, L.MoE._forward
+        self.pos, self.changed, self.experts = 0, 0, []
+        replay = self
+
+        def select(moe, probs, k):
+            if replay.tape is None:
+                return replay.own(probs, k)
+            forced = replay.tape[replay.pos].to(probs.device)
+            replay.pos += 1
+            mine = replay.own(probs, k)
+            replay.changed += int((forced[..., :, None] != mine[..., None, :]).all(-1).sum())
+            return forced
+
+        def forward(moe, cfg, x, partial=False):
+            replay.experts.append(moe.w_in.shape[0])
+            return replay.forward(moe, cfg, x, partial)
+
+        L.MoE.select, L.MoE._forward = select, forward
+
+    def start(self, tape):
+        self.tape, self.pos, self.changed, self.experts = tape, 0, 0, []
+
+
+def written_row(t, pos: int):
+    """This rank's block of row ``pos`` of the stacked cache entry DTensor
+    ``t`` (L, B, S, ...): ``({dim of the (L, B, ...) row: offset}, block)``,
+    or None where the rank holds no part of that row."""
+    from torch.distributed.tensor import Shard
+
+    mesh, local = t.device_mesh, t.to_local()
+    coord, index = mesh.get_coordinate(), {}
+    for i, p in enumerate(t.placements):  # major mesh dim first
+        if isinstance(p, Shard):
+            index[p.dim] = index.get(p.dim, 0) * mesh.size(i) + coord[i]
+    first = {d: k * local.shape[d] for d, k in index.items()}
+    s0 = first.pop(2, 0)
+    if not s0 <= pos < s0 + local.shape[2]:
+        return None
+    return ({d - (d > 2): o for d, o in first.items()},
+            local[:, :, pos - s0].float().cpu())
+
+
 def tp_rank(rank, world, port, names, out_dir):
     """One gloo rank of phase 23 on the shared card: each cell of ``names``
     built on its mesh (a rank outside it waits at the barriers), the
     weights made in turns (one rank at a time holds the whole model while
-    it takes its shards; the serving cells of one mesh and depth share
-    them), the step run once, its results, wall, peak memory, flash
-    launches with the heads they ran on, and collectives saved for the
-    parent."""
+    it takes its shards; the serving cells of one config, mesh and depth
+    share them), the step run once, its results, wall, peak memory, flash
+    launches with the heads they ran on, collectives, the pieces its
+    all-gathers moved, a MoE cell's replayed picks and the experts each MoE
+    call held, saved for the parent."""
     import torch
     import torch.distributed as dist
     from torch.distributed.tensor import DTensor
@@ -5381,7 +5486,9 @@ def tp_rank(rank, world, port, names, out_dir):
     dev = torch.device("cuda")
     dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}", rank=rank,
                             world_size=world)
-    stats = tp_collective_stats()
+    stats, gathered = tp_collective_stats()
+    replay = PickReplay()
+    tapes = torch.load(Path(out_dir) / "tapes.pt")
     heads = []
     flash = L.flash_attention
 
@@ -5393,13 +5500,14 @@ def tp_rank(rank, world, port, names, out_dir):
     out, meshes, weights = {}, {}, {}
     for name in names:
         cfg, shape = tp_cell(name)
-        layout = TP_CELLS[name][0]
+        layout = TP_CELLS[name][1]
         if layout not in meshes:
             meshes[layout] = tp_mesh(layout)
         mesh = meshes[layout]
         inside = mesh.get_coordinate() is not None
         step, _, sh = build_cell(cfg, shape, mesh)
-        key = (layout, cfg.n_layers, shape.kind == "train")  # a train step updates its weights
+        # a train step updates its weights
+        key = (cfg.name, layout, cfg.n_layers, shape.kind == "train")
         if key not in weights:  # every rank keeps the same keys: the barriers match
             weights.clear()
             torch.cuda.empty_cache()
@@ -5423,15 +5531,16 @@ def tp_rank(rank, world, port, names, out_dir):
         if shape.kind == "decode":
             cache = {}
             for k, s in sh[2].items():  # layer by layer, each rank keeping its shard
-                spec = tuple(s.spec) + (None,) * (5 - len(s.spec))
                 local = None
                 for i in range(cfg.n_layers):
-                    part = TP.take_shard(tp_cache_layer(cfg, shape, i, k, dev), mesh,
-                                         (None,) * 4, spec[1:])
+                    layer = tp_cache_layer(cfg, shape, i, k, dev)
+                    spec = tuple(s.spec) + (None,) * (layer.dim() + 1 - len(s.spec))
+                    part = TP.take_shard(layer, mesh, (None,) * layer.dim(), spec[1:])
                     if local is None:  # the cache's type: the model's, as init_cache's
                         local = torch.empty((cfg.n_layers, *part.shape),
                                             dtype=L.torch_dtype(cfg.dtype), device=dev)
                     local[i].copy_(part)
+                    del layer
                 cache[k] = DTensor.from_local(local, mesh, s.placements, run_check=False)
             args = (params, inputs, cache)
         elif shape.kind == "train":
@@ -5445,11 +5554,13 @@ def tp_rank(rank, world, port, names, out_dir):
             args = (params, opt, inputs)
         else:
             args = (params, inputs)
+        replay.start(tapes.get(name))
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         FA.reset_launch_count()
         heads.clear()
         stats.clear()
+        gathered.clear()
         dist.barrier()
         t0 = time.perf_counter()
         res = step(*args)
@@ -5458,14 +5569,15 @@ def tp_rank(rank, world, port, names, out_dir):
         rec = {"wall_s": wall, "peak_bytes": torch.cuda.max_memory_allocated(),
                "launches": FA.FLASH_LAUNCHES, "wgmma": FA.FLASH_WGMMA_LAUNCHES,
                "heads": sorted(set(heads)), "collectives": {k: list(v) for k, v in stats.items()},
-               "coordinate": tuple(mesh.get_coordinate())}
+               "coordinate": tuple(mesh.get_coordinate()), "gathered": list(gathered),
+               "experts": list(replay.experts), "picks": (replay.pos, replay.changed)}
         if shape.kind == "prefill":
             rec["logits"] = res.float().cpu()
         elif shape.kind == "decode":
             logits, cache = res
             rec["logits"] = logits.float().cpu()
-            rec["rows"] = {k: v.to_local()[:, :, shape.seq_len - 1].float().cpu()
-                           for k, v in cache.items()}
+            rec["rows"] = {k: written_row(v, shape.seq_len - 1) for k, v in cache.items()}
+            rec["entries"] = sorted({tuple(v.to_local().shape[1:]) for v in cache.values()})
         else:
             rec.update(loss=float(res[2]["loss"]), grad_norm=float(res[2]["grad_norm"]))
         out[name] = rec
@@ -5477,10 +5589,11 @@ def tp_rank(rank, world, port, names, out_dir):
     dist.destroy_process_group()
 
 
-def tp_ranks(world: int, names: list) -> list:
+def tp_ranks(world: int, names: list, tapes: dict) -> list:
     """Phase 23's ``names`` over ``world`` spawned gloo ranks on the card
-    (tcp on a free port): each rank's records of the cells whose mesh it is
-    in, in rank order."""
+    (tcp on a free port), the MoE cells replaying ``tapes`` (``{cell:
+    picks}``): each rank's records of the cells whose mesh it is in, in
+    rank order."""
     import socket
     import tempfile
 
@@ -5491,6 +5604,7 @@ def tp_ranks(world: int, names: list) -> list:
         sock.bind(("127.0.0.1", 0))
         port = sock.getsockname()[1]
     with tempfile.TemporaryDirectory() as out:
+        torch.save(tapes, Path(out) / "tapes.pt")
         ctx = mp.spawn(tp_rank, args=(world, port, names, out), nprocs=world, join=False)
         deadline = time.monotonic() + TP_DEADLINE_S
         while not ctx.join(timeout=1):  # a failed rank raises here
@@ -5501,16 +5615,33 @@ def tp_ranks(world: int, names: list) -> list:
         return [torch.load(Path(out) / f"rank{r}.pt") for r in range(world)]
 
 
+def assembled_row(want, blocks: list):
+    """Row blocks (:func:`written_row`) of the ranks put together into a
+    tensor of ``want``'s shape; every element must be covered."""
+    import torch
+
+    full = torch.full(want.shape, float("nan"))
+    for offsets, block in blocks:
+        index = tuple(slice(offsets.get(d, 0), offsets.get(d, 0) + block.shape[d])
+                      for d in range(block.dim()))
+        full[index] = block
+    if torch.isnan(full).any():
+        raise AssertionError("the ranks' written rows do not cover the cache row")
+    return full
+
+
 def tp_check(name, ref, ranks, card) -> int:
     """Every rank's result of cell ``name`` within phase 23's bounds of the
-    meshless step (:data:`TP_ULP`'s note); the flash launches (layers per rank on
-    the prefill cells, on H / m heads, all wgmma; none in decode and
-    training). Prints the per-rank walls, peaks and collectives. Returns
-    the cell's flash launches over its ranks."""
+    meshless step (:data:`TP_ULP`'s note); the flash launches (layers per
+    rank on the prefill cells, on H / m heads, all wgmma; none in decode
+    and training); a decode cell's all-gathers moving no cache entry; a
+    MoE cell's every call on the rank's E / m experts, all of its
+    replayed picks taken. Prints the per-rank walls, peaks and
+    collectives. Returns the cell's flash launches over its ranks."""
     import torch
 
     cfg, shape = tp_cell(name)
-    mesh, L = TP_CELLS[name][0], cfg.n_layers
+    mesh, L = TP_CELLS[name][1], cfg.n_layers
     m = mesh[1]
     ranks = [r for r in ranks if name in r]
     shares = []
@@ -5527,21 +5658,34 @@ def tp_check(name, ref, ranks, card) -> int:
         for r in ranks:
             shares.append(float((r[name]["logits"] - ref["logits"]).abs().max()) / tol)
         detail = f"logits {tuple(ranks[0][name]['logits'].shape)} (std {ref['std']:.4f})"
-        if shape.kind == "decode":
-            for k, want in ref["rows"].items():
-                got = torch.cat([r[name]["rows"][k] for r in sorted(
-                    ranks, key=lambda r: r[name]["coordinate"])[:m]], dim=2)
-                shares.append(float((got - want).abs().max())
-                              / (LOGITS_TOL * ref["row_std"][k]))
-            detail += ", the written cache rows (k, v) gathered by head"
+    ok = True
+    if shape.kind == "decode":
+        for k, want in ref["rows"].items():
+            got = assembled_row(want, [r[name]["rows"][k] for r in ranks
+                                       if r[name]["rows"][k] is not None])
+            shares.append(float((got - want).abs().max()) / (LOGITS_TOL * ref["row_std"][k]))
+        entries = {tuple(e) for e in ranks[0][name]["entries"]}
+        cache_gathers = sum(tuple(p) in entries for r in ranks for p in r[name]["gathered"])
+        ok = ok and cache_gathers == 0
+        detail += (f", the written cache rows ({', '.join(ref['rows'])}) put together from the "
+                   f"ranks' blocks; local cache entries {sorted(entries)} per layer, "
+                   f"{cache_gathers} all-gathers of one")
+    if cfg.is_moe:
+        experts = {e for r in ranks for e in r[name]["experts"]}
+        taken = {r[name]["picks"][0] for r in ranks}
+        ok = ok and experts == {cfg.n_experts // m} and taken == {len(ref["tape"])}
+        detail += (f"; every MoE call on {sorted(experts)} of {cfg.n_experts} experts "
+                   f"({len(ranks[0][name]['experts'])} calls a rank), {len(ref['tape'])} "
+                   f"replayed picks calls, picks each rank's router would change "
+                   f"{[r[name]['picks'][1] for r in ranks]}")
     want_launches = L if shape.kind == "prefill" else 0
     launches = sum(r[name]["launches"] for r in ranks)
     ok_flash = all(r[name]["launches"] == want_launches and r[name]["wgmma"] == want_launches
                    and r[name]["heads"] == ([cfg.n_heads // m] if want_launches else [])
                    for r in ranks)
-    print(f"  {name} ({'x'.join(map(str, mesh))} (data, model), {len(ranks)} ranks, batch "
-          f"{shape.global_batch}, {L} layers, {shape.seq_len} tokens): {detail}; largest share "
-          f"of its bound {max(shares):.4f}; flash launches per rank "
+    print(f"  {name} ({cfg.name}, {'x'.join(map(str, mesh))} (data, model), {len(ranks)} ranks, "
+          f"batch {shape.global_batch}, {L} layers, {shape.seq_len} tokens): {detail}; largest "
+          f"share of its bound {max(shares):.4f}; flash launches per rank "
           f"{[r[name]['launches'] for r in ranks]} on {ranks[0][name]['heads']} local heads; "
           f"meshless {ref['wall_s']:.3f} s [{card}]")
     for i, r in enumerate(ranks):
@@ -5550,24 +5694,27 @@ def tp_check(name, ref, ranks, card) -> int:
                          for k, (n, b, w) in sorted(rec["collectives"].items()))
         print(f"    rank {i} {rec['coordinate']}: wall {rec['wall_s']:.3f} s, peak "
               f"{rec['peak_bytes'] / 1e9:.2f} GB; {coll}")
-    if max(shares) > 1 or not ok_flash:
-        raise AssertionError(f"{name}: share of the bound {max(shares):.4f}, flash {ok_flash}")
+    if max(shares) > 1 or not ok_flash or not ok:
+        raise AssertionError(f"{name}: share of the bound {max(shares):.4f}, flash {ok_flash}, "
+                             f"cache and experts {ok}")
     return launches
 
 
 def phase_tensor_parallel(dev, card) -> dict:
-    """Phase 23: deepseek-7b's cells at full width (d 4,096, 32 heads, ff
-    11,008, vocab 102,400) on the reference's tensor-parallel plan over
-    gloo ranks that share the card, each against the meshless step on the
-    same weights, run first in this process and freed before the spawn:
+    """Phase 23: the reference's tensor-parallel plan at full width over
+    gloo ranks that share the card, each cell against the meshless step on
+    the same weights, run first in this process and freed before the
+    spawn. deepseek-7b (d 4,096, 32 heads, ff 11,008, vocab 102,400):
     prefill_32k (batch 1 of 32), decode_32k (batch 2 of 128, a 32,768-row
     cache of random rows) and train_4k (batch 2 of 256 as 2 microbatches
-    of 1 x 4,096) on a (1, 2) ("data", "model") mesh of 2 ranks;
-    prefill_32k at batch 2 on a (2, 2) mesh of 4 ranks; every cell cut to
-    4 of 30 layers, all in one spawn of 4 ranks (:data:`TP_CELLS`). Per
-    rank: the wall,
-    peak memory and the tensor-parallel collectives (count, bytes, wall by
-    kind, host-staged through gloo)."""
+    of 1 x 4,096) on a (1, 2) ("data", "model") mesh of 2 ranks,
+    prefill_32k at batch 2 on a (2, 2) mesh of 4 ranks, 4 of 30 layers;
+    expert parallelism (qwen3-moe's prefill_32k and decode_32k, granite-
+    moe's train_4k, on the meshless run's picks) and split-KV decode
+    (granite-34b on (1, 2) and (2, 2), minicpm3's latent cache), all in one
+    spawn of 4 ranks (:data:`TP_CELLS`). Per rank: the wall, peak memory
+    and the tensor-parallel collectives (count, bytes, wall by kind,
+    host-staged through gloo)."""
     import torch
 
     t0 = time.perf_counter()
@@ -5575,7 +5722,8 @@ def phase_tensor_parallel(dev, card) -> dict:
     refs = {name: tp_reference(dev, name) for name in TP_CELLS}
     t_ref = time.perf_counter() - t0
     torch.cuda.empty_cache()
-    ranks = tp_ranks(TP_WORLD, list(TP_CELLS))
+    ranks = tp_ranks(TP_WORLD, list(TP_CELLS),
+                     {n: r["tape"] for n, r in refs.items() if "tape" in r})
     t_ranks = time.perf_counter() - t0 - t_ref
     launches = {n: tp_check(n, refs[n], ranks, card) for n in TP_CELLS}
     print(f"  phase 23: {time.perf_counter() - t0:.1f} s (meshless references {t_ref:.1f} s, "
@@ -5711,8 +5859,9 @@ def main() -> int:
           f"card while the dry run's processes finish [{card}]")
 
     def phase_23():
-        print(f"== 23 the reference's tensor-parallel compute plan: {TP_ARCH}'s cells at full "
-              f"width over gloo ranks that share the card [{card_line()}]")
+        print(f"== 23 the reference's tensor-parallel compute plan: {TP_ARCH}'s cells, expert "
+              f"parallelism (qwen3-moe, granite-moe) and split-KV decode (granite-34b, "
+              f"minicpm3) at full width over gloo ranks that share the card [{card_line()}]")
         return phase_tensor_parallel(dev, card)
 
     launch = phase_launch_tooling(dev, card, beside=phase_23)

@@ -36,8 +36,9 @@ the step holds beyond its arguments and outputs (the gathered tensors
 among it, with the activations and every other temporary), so the
 ``fits`` verdict counts the gathered tensors twice: a margin, not a
 peak. The port's step runs the reference's tensor-parallel plan
-(``parallel.tensor_parallel``): heads, FFN hidden and vocab split over
-"model", each layer's other leaves gathered for its own call, so its
+(``parallel.tensor_parallel``): heads, FFN hidden, experts and vocab split
+over "model", decode over a sequence-split cache on the rank's rows, each
+layer's other leaves gathered for its own call, so its
 flops, collectives and memory are a rank's share of the plan XLA
 partitions from the same specs, not of the whole model.
 

@@ -19,10 +19,10 @@ those DTensors:
   (:mod:`repro_torch.parallel.tensor_parallel`, the counterpart of XLA's
   partitioning of the reference under ``with mesh:``): a model holds the
   rank's local shards (:class:`_Bound`), the step enters the mesh's
-  context, and each layer computes on its shards (heads, FFN hidden and
-  vocab over "model" where the axis divides them) or gathers its leaves
-  for its own call only (every DP-sharded dim, and every leaf of a layer
-  that runs replicated), on the rank's share of the batch (its DP
+  context, and each layer computes on its shards (heads, FFN hidden,
+  experts and vocab over "model" where the axis divides them) or gathers
+  its leaves for its own call only (every DP-sharded dim, and every leaf
+  of a layer that runs replicated), on the rank's share of the batch (its DP
   shard). No rank holds a whole weight that its spec shards, and only
   one layer's gathered leaves are live at a time (:func:`gathered_bytes`
   counts what the step holds beyond its arguments for the dry run);
@@ -39,10 +39,12 @@ those DTensors:
   the matching slice of the weight, and the new weight is gathered back
   to its own layout;
 * decode keeps each cache entry's DP batch shard and, where the attention
-  computes on local kv heads, its heads; every other sharded dim (a
-  sequence split over "model" where the kv heads do not divide it, or
-  over "data" at batch 1) is gathered for its own layer only and its
-  shard written back.
+  computes on local kv heads, its heads; a sequence split (over "model"
+  where the kv heads do not divide it, or over "data" at batch 1) stays
+  split on a "model" axis of more than one rank: the layer writes the new
+  row on the rank that holds its position and combines the ranks' partial
+  softmaxes (split-KV decode). Every other sharded dim is gathered for its
+  own layer only and its shard written back.
 
 On a mesh whose "model" axis has one rank every layer runs its meshless
 code, and on one rank every gather, reduction and slice is an identity in
@@ -319,8 +321,11 @@ def gathered_bytes(cfg: ModelConfig, kind: str, args, shardings) -> dict[str, in
     * decode, ``cache``: the largest layer's cache entries as the layer
       computes on them (:func:`~repro_torch.parallel.tensor_parallel.layer_cache`:
       the DP batch shard kept where the inputs' batch is DP-sharded, the
-      heads kept where the attention computes on local kv heads, every
-      other sharded dim gathered).
+      heads kept where the attention computes on local kv heads, a
+      sequence split kept where the layer's decode attends on the rank's
+      rows (``tensor_parallel.kv_split``: a "model" axis of more than one
+      rank, every entry of the layer split alike; MLA's absorbed decode),
+      every other sharded dim gathered).
 
     Activations and other temporaries are not counted: with the arguments
     this is a lower bound of the step's peak."""
@@ -350,23 +355,36 @@ def gathered_bytes(cfg: ModelConfig, kind: str, args, shardings) -> dict[str, in
             keep_dp = any(set(TP.axes_of(e)) & set(SH.dp_axes(mesh)) for e in main.spec)
             heads_local = (not cfg.use_mla and TP.splits(cfg.n_heads)
                            and TP.splits(cfg.n_kv_heads))
+            # decode over a sequence-split cache keeps the split (TP.kv_split)
+            split_kv = TP.model_size() > 1 and (not cfg.use_mla or cfg.mla_absorbed_decode)
             stacked = T.is_homogeneous(cfg)
-            layers: dict = {}
+            lead = 1 if stacked else 0
+            by_layer: dict = {}
 
-            def held(path, t, s):
+            def entry(path, t, s):
                 spec = tuple(s.spec) + (None,) * (t.dim() - len(s.spec))
-                lead = 1 if stacked else 0
-                b_dim, h_dim = lead, lead + 2
-                kept = {(a, b_dim) for a in SH.dp_axes(mesh)} if keep_dp else set()
-                if heads_local and path.rsplit("/", 1)[-1] in ("k", "v"):
-                    kept.add(("model", h_dim))
                 layer = path.split("/")[0] if not stacked else ""
-                per = _held_bytes(t, spec, sizes, kept)
-                layers[layer] = layers.get(layer, 0) + (per // t.shape[0] if stacked else per)
+                by_layer.setdefault(layer, []).append((path.rsplit("/", 1)[-1], t, spec))
 
-            SH.tree_map_with_path(lambda path, t: held(path, t, _at(c_shard, path)), cache)
+            SH.tree_map_with_path(lambda path, t: entry(path, t, _at(c_shard, path)), cache)
+            layers: dict = {}
+            for layer, items in by_layer.items():
+                attn = all(name in _ATTN_ENTRIES for name, _, _ in items)
+                seq = (TP.seq_axes([spec[lead:] for _, _, spec in items], sizes)
+                       if split_kv and attn else ())
+                for name, t, spec in items:
+                    kept = {(a, lead) for a in SH.dp_axes(mesh)} if keep_dp else set()
+                    if heads_local and name in ("k", "v"):
+                        kept.add(("model", lead + 2))
+                    kept |= {(a, lead + 1) for a in seq}
+                    per = _held_bytes(t, spec, sizes, kept)
+                    layers[layer] = layers.get(layer, 0) + (per // t.shape[0] if stacked else per)
             out["cache"] = max(layers.values(), default=0)
     return out
+
+
+# a decode cache's attention entries: their dim 1 is the sequence
+_ATTN_ENTRIES = ("k", "v", "k_scale", "v_scale", "c_kv", "k_rope")
 
 
 def _at(tree, path: str):

@@ -26,8 +26,12 @@ mesh:``) each layer takes its local sizes from its weights' shapes and
 lays its leaves out for its own call: the embedding looks its d columns
 up, attention computes its local heads, the MLP its f columns, each
 followed by a row-parallel product summed over "model" in float32; the
-LM head gives vocab-sharded logits. MLA and the MoE gather their leaves
-and run replicated. Outside a context every layer runs as above.
+LM head gives vocab-sharded logits; the MoE runs the experts the rank
+holds (or each expert's f columns) and sums the float32 partial combines
+over "model". MLA gathers its leaves and runs replicated. Decode over a
+cache whose sequence is split attends on the rank's rows and combines
+the partial softmaxes over the axes that split it (:func:`split_attention`).
+Outside a context every layer runs as above.
 """
 
 from __future__ import annotations
@@ -150,6 +154,41 @@ def plain_attention(q, k, v, *, q_positions, kv_positions, scale) -> torch.Tenso
     p = torch.softmax(s, dim=-1)
     o = torch.einsum("bqhgk,bkhd->bqhgd", p.to(v.dtype).float(), v.float())
     return o.reshape(B, Sq, H, Dv).to(q.dtype)
+
+
+def split_attention(q, k, v, *, q_positions, kv_positions, scale, axes) -> torch.Tensor:
+    """:func:`plain_attention` on this rank's kv rows of a sequence split
+    over the mesh ``axes`` (``kv_positions`` their global positions), as
+    XLA partitions the reference's decode: float32 scores masked as there,
+    the row max all-reduced (MAX), the sums of exp(s - max) all-reduced,
+    the probabilities exp(s - max) / sum cast to v's type, and the float32
+    P·V partials all-reduced before the one cast. It differs from the
+    meshless form only in the order of the two float32 sums. An idle slot
+    (every row masked) averages v over every rank's rows, as there."""
+    B, Sq, H, Dk = q.shape
+    Hkv, Dv = k.shape[2], v.shape[3]
+    qr = q.reshape(B, Sq, Hkv, H // Hkv, Dk)
+    s = torch.einsum("bqhgd,bkhd->bqhgk", qr.float(), k.float()) * scale
+    mask = kv_positions[None, None, :] <= q_positions[:, :, None]  # (B, Sq, Skv)
+    s = torch.where(mask[:, :, None, None, :], s, NEG_INF)
+    p = _split_softmax(s, axes)
+    o = torch.einsum("bqhgk,bkhd->bqhgd", p.to(v.dtype).float(), v.float())
+    return _split_sum(o, axes).reshape(B, Sq, H, Dv).to(q.dtype)
+
+
+def _split_sum(t: torch.Tensor, axes, op=None) -> torch.Tensor:
+    """``t`` summed (or reduced by ``op``) over the mesh ``axes``."""
+    return TP.reduce_axes_(t.contiguous(), TP.current().mesh, axes, op)
+
+
+def _split_softmax(s: torch.Tensor, axes) -> torch.Tensor:
+    """The softmax over the last dim of scores whose columns are split
+    over the mesh ``axes``: exp(s - M) / L, M and L reduced over them."""
+    import torch.distributed as dist
+
+    top = _split_sum(s.amax(dim=-1), axes, dist.ReduceOp.MAX)
+    e = torch.exp(s - top[..., None])
+    return e / _split_sum(e.sum(dim=-1), axes)[..., None]
 
 
 def chunked_attention(q, k, v, *, q_positions, kv_positions, scale,
@@ -319,37 +358,52 @@ class Attention(nn.Module):
         group``), the attention core on them, ``wo`` row-parallel; with
         ``partial`` the float32 partial comes back unreduced
         (``TP.Partial``, the parallel residual sums it with the FFN's).
-        Elsewhere the layer runs whole on weights gathered for the call."""
+        Elsewhere the layer runs whole on weights gathered for the call.
+        A one-token step over a cache whose sequence is split
+        (``TP.kv_split``) writes and attends on the rank's rows
+        (:func:`split_attention`), q gathered over the heads first where
+        the sequence is split over "model" and the q heads are too."""
         keep, part = TP.attention_plan(cfg.n_heads, cfg.n_kv_heads)
+        split = TP.kv_split(cache) if x.shape[1] == 1 else None
         if not keep:
-            with TP.gathered(self), TP.layer_cache(cache) as cache:
-                out = self._attend(cfg, x, positions, cache, offset)
+            with TP.gathered(self), TP.layer_cache(cache, split=split) as cache:
+                out = self._attend(cfg, x, positions, cache, offset, split=split)
                 return torch.matmul(out.reshape(*x.shape[:2], -1), self.wo)
+        # the sequence is split over "model" only where the kv heads are not
+        whole_q = split is not None and "model" in split.axes
         with TP.gathered(self, (keep, part)), \
-                TP.layer_cache(cache, heads=not part) as cache:
-            kv = TP.kv_heads(cfg.n_heads, cfg.n_kv_heads) if part else None
-            out = self._attend(cfg, TP.copy_to_model(x), positions, cache, offset, kv)
+                TP.layer_cache(cache, heads=not part, split=split) as cache:
+            kv = TP.kv_heads(cfg.n_heads, cfg.n_kv_heads) if part and not whole_q else None
+            out = self._attend(cfg, TP.copy_to_model(x), positions, cache, offset, kv, split,
+                               whole_q)
             y = TP.row_parallel(out.reshape(*x.shape[:2], -1), self.wo)
         return y if partial else TP.reduce(y, x.dtype)
 
-    def _attend(self, cfg: ModelConfig, x, positions, cache, offset: int, kv=None):
+    def _attend(self, cfg: ModelConfig, x, positions, cache, offset: int, kv=None,
+                split=None, whole_q: bool = False):
         """The attention core's output (B, S, H, Dv) on this layer's heads;
-        ``kv`` (a slice or index list) picks the kv heads they read."""
+        ``kv`` (a slice or index list) picks the kv heads they read.
+        ``split`` (``TP.SeqSplit``): the cache holds the rank's rows of a
+        split sequence; ``whole_q``: q is gathered over "model" for every
+        head and the rank keeps its own heads of the output."""
         rope = (cfg.rope_theta, cfg.mrope_sections)
         q = apply_rope(_head_proj(x, self.wq), positions, *rope)
         k = apply_rope(_head_proj(x, self.wk), positions, *rope)
         v = _head_proj(x, self.wv)
         pos_ids = positions[0] if positions.dim() == 3 else positions
+        # a split cache is written at the rank's own rows: nothing lands
+        # outside [0, its rows)
+        at = pos_ids if split is None else pos_ids - split.first
         if cache is not None and "k_scale" in cache:
             for name, t in (("k", k), ("v", v)):
                 vals, scale = quantize_kv(t)
-                cache_write(cache[name], vals, pos_ids, offset)
-                cache_write(cache[name + "_scale"], scale, pos_ids, offset)
+                cache_write(cache[name], vals, at, offset)
+                cache_write(cache[name + "_scale"], scale, at, offset)
             k = dequantize_kv(cache["k"], cache["k_scale"], x.dtype)
             v = dequantize_kv(cache["v"], cache["v_scale"], x.dtype)
         elif cache is not None:
-            cache_write(cache["k"], k, pos_ids, offset)
-            cache_write(cache["v"], v, pos_ids, offset)
+            cache_write(cache["k"], k, at, offset)
+            cache_write(cache["v"], v, at, offset)
             k, v = cache["k"], cache["v"]
         if isinstance(kv, slice):
             k, v = k[:, :, kv], v[:, :, kv]
@@ -357,7 +411,17 @@ class Attention(nn.Module):
             idx = torch.tensor(kv, device=x.device)
             k, v = k.index_select(2, idx), v.index_select(2, idx)
         kv_positions = torch.arange(k.shape[1], dtype=torch.int32, device=x.device)
-        return attention_core(cfg, q, k, v, pos_ids, kv_positions)
+        if split is None:
+            return attention_core(cfg, q, k, v, pos_ids, kv_positions)
+        if whole_q:
+            q = TP.gather_from_model(q, 2)
+        out = split_attention(q, k, v, q_positions=pos_ids, kv_positions=kv_positions
+                              + split.first, scale=1.0 / math.sqrt(q.shape[-1]),
+                              axes=split.axes)
+        if not whole_q:
+            return out
+        local = out.shape[2] // TP.model_size()  # this rank's heads of the output
+        return out.narrow(2, TP.current().coords["model"] * local, local)
 
 
 # ---------------------------------------------------------------------------
@@ -394,11 +458,17 @@ class MLA(nn.Module):
     def forward(self, cfg: ModelConfig, x, positions, cache=None, offset: int = 0,
                 absorbed: bool = False):
         """Under a tensor-parallel context the layer runs whole on weights
-        gathered for the call, its cache entries gathered for this layer."""
-        with TP.gathered(self), TP.layer_cache(cache) as cache:
-            return self._forward(cfg, x, positions, cache, offset, absorbed)
+        gathered for the call, its cache entries gathered for this layer;
+        the absorbed one-token step over a latent cache whose sequence is
+        split (``TP.kv_split``) writes and attends on the rank's rows
+        instead, combining the partial softmaxes over the axes that split
+        it."""
+        split = TP.kv_split(cache) if absorbed and x.shape[1] == 1 else None
+        with TP.gathered(self), TP.layer_cache(cache, split=split) as cache:
+            return self._forward(cfg, x, positions, cache, offset, absorbed, split)
 
-    def _forward(self, cfg: ModelConfig, x, positions, cache, offset: int, absorbed: bool):
+    def _forward(self, cfg: ModelConfig, x, positions, cache, offset: int, absorbed: bool,
+                 split=None):
         B, S, _ = x.shape
         dn, dr = cfg.qk_nope_head_dim, cfg.qk_rope_head_dim
         pos_ids = positions[0] if positions.dim() == 3 else positions
@@ -408,10 +478,13 @@ class MLA(nn.Module):
         c_kv, k_rope = kv[..., :cfg.kv_lora_rank], kv[..., cfg.kv_lora_rank:]
         k_rope = apply_rope(k_rope[:, :, None, :], positions, cfg.rope_theta)[:, :, 0, :]
         if cache is not None:
-            cache_write(cache["c_kv"], c_kv, pos_ids, offset)
-            cache_write(cache["k_rope"], k_rope, pos_ids, offset)
+            at = pos_ids if split is None else pos_ids - split.first
+            cache_write(cache["c_kv"], c_kv, at, offset)
+            cache_write(cache["k_rope"], k_rope, at, offset)
             c_kv, k_rope = cache["c_kv"], cache["k_rope"]
         kv_positions = torch.arange(c_kv.shape[1], dtype=torch.int32, device=x.device)
+        if split is not None:
+            kv_positions = kv_positions + split.first
         scale = 1.0 / math.sqrt(dn + dr)
 
         if absorbed:
@@ -424,9 +497,14 @@ class MLA(nn.Module):
             s = s * scale
             mask = kv_positions[None, None, :] <= pos_ids[:, :, None]
             s = torch.where(mask[:, :, None, :], s, NEG_INF)
-            prob = torch.softmax(s, dim=-1)
-            o_lat = torch.einsum("bshk,bkr->bshr", prob.to(x.dtype).float(),
-                                 c_kv.float()).to(x.dtype)
+            if split is None:
+                prob = torch.softmax(s, dim=-1)
+                o_lat = torch.einsum("bshk,bkr->bshr", prob.to(x.dtype).float(),
+                                     c_kv.float()).to(x.dtype)
+            else:
+                prob = _split_softmax(s, split.axes)
+                o_lat = _split_sum(torch.einsum("bshk,bkr->bshr", prob.to(x.dtype).float(),
+                                                c_kv.float()), split.axes).to(x.dtype)
             dt = _promoted(o_lat, self.kv_up_v)
             out = torch.einsum("bshr,rhe->bshe", o_lat.to(dt),
                                self.kv_up_v.to(dt)).to(x.dtype)
@@ -550,14 +628,29 @@ class MoE(nn.Module):
         return top_k_lower_index(probs, k)
 
     def forward(self, cfg: ModelConfig, x):
-        """Under a tensor-parallel context the experts run whole on weights
-        gathered for the call."""
-        with TP.gathered(self):
-            return self._forward(cfg, x)
+        """Tensor-parallel where "model" divides E or f (``TP.moe_plan``):
+        every rank routes the same tokens (x replicated over "model", the
+        router whole), runs the experts it holds on the pairs routed to
+        them (or every expert on its f columns), and sums its kept pairs'
+        gates x outputs in float32; the partials are summed over "model"
+        in float32 and rounded once, as XLA's combine all-reduce is.
+        Elsewhere the experts run whole on weights gathered for the call."""
+        keep, part = TP.moe_plan(cfg.n_experts, cfg.d_ff)
+        if not keep:
+            with TP.gathered(self):
+                return self._forward(cfg, x)
+        with TP.gathered(self, (keep, part)):
+            y = self._forward(cfg, TP.copy_to_model(x), partial=True)
+        return TP.reduce(y, x.dtype)
 
-    def _forward(self, cfg: ModelConfig, x):
+    def _forward(self, cfg: ModelConfig, x, partial: bool = False):
+        """The layer on the experts it holds (``w_in``'s first dim: all of
+        them, or the rank's E / m in "model" order); ``partial``: the
+        float32 combine of those experts' kept pairs, unreduced
+        (``TP.Partial``)."""
         B, S, D = x.shape
         E, K = cfg.n_experts, cfg.top_k
+        E_local = self.w_in.shape[0]
         T = B * S
         g = min(cfg.moe_group_size, T)
         n = -(-T // g)
@@ -570,19 +663,31 @@ class MoE(nn.Module):
         C = max(1, int(math.ceil(g * K / E * cfg.moe_capacity_factor)))
         pos = queue_positions(top_i, E)
         keep = pos < C
+        expert = top_i
+        if E_local < E:  # the pairs routed to this rank's experts
+            first = TP.current().coords["model"] * E_local
+            local = (top_i >= first) & (top_i < first + E_local)
+            keep = keep & local
+            expert = torch.where(local, top_i - first, 0)
         row = torch.where(keep, pos, C)
         groups = torch.arange(n, device=x.device)[:, None, None]
-        at = ((top_i * n + groups) * (C + 1) + row).reshape(-1)  # (n*g*K,)
+        at = ((expert * n + groups) * (C + 1) + row).reshape(-1)  # (n*g*K,)
 
         # expert-major rows, so each expert's products are one batched
         # matmul over its (groups x (C + 1)) rows against its own weights
-        expert_in = xg.new_zeros((E * n * (C + 1), D))
+        expert_in = xg.new_zeros((E_local * n * (C + 1), D))
         expert_in[at] = xg[:, :, None, :].expand(n, g, K, D).reshape(-1, D)
-        expert_in = expert_in.reshape(E, n * (C + 1), D)
-        out = _ffn(expert_in, self.w_in, self.w_out, self.w_gate if self.gated else None)
+        expert_in = expert_in.reshape(E_local, n * (C + 1), D)
+        w_gate = self.w_gate if self.gated else None
+        if partial and E_local == E:  # f kept: each expert's float32 partial product
+            out = TP.row_parallel(_hidden(expert_in, self.w_in, w_gate), self.w_out).value
+        else:
+            out = _ffn(expert_in, self.w_in, self.w_out, w_gate)
         picked = out.reshape(-1, D)[at].reshape(n, g, K, D)
         gates = top_p.to(x.dtype).float()
         y = torch.where(keep[..., None], gates[..., None] * picked.float(), 0.0).sum(dim=2)
+        if partial:
+            return TP.Partial(y.reshape(n * g, D)[:T].reshape(B, S, D))
         return y.to(x.dtype).reshape(n * g, D)[:T].reshape(B, S, D)
 
 

@@ -60,9 +60,11 @@ Under a tensor-parallel context (:mod:`repro_torch.parallel.tensor_parallel`,
 entered by ``launch.steps``' cells) the layers compute on their local
 shards and gather what else they need for their own call; the block
 boundaries stay (B, S, D), replicated over "model" (the reference's
-``maybe_constrain_act``), a cache entry is gathered for its own layer, and
-the logits come back vocab-sharded where "model" divides the padded vocab
-(``TP.vocab_sharded``: the rank's columns, (..., n_codebooks x Vp / m)),
+``maybe_constrain_act``), a cache entry is read where it is stored (its
+DP batch shard, its kv heads or, in decode, its sequence split) or else
+gathered for its own layer, and the logits come back vocab-sharded where
+"model" divides the padded vocab (``TP.vocab_sharded``: the rank's
+columns, (..., n_codebooks x Vp / m)),
 as the reference's ``maybe_constrain_logits`` pins them; :func:`loss_fn`
 then takes the vocab-parallel cross entropy.
 """

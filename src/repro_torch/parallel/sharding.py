@@ -43,8 +43,9 @@ XLA partitions the reference's compute from these specs (SPMD). The
 port's steps (``launch.steps.build_cell``) store every weight, moment,
 input and cache entry by them and run the reference's tensor-parallel
 plan on the local shards (:mod:`repro_torch.parallel.tensor_parallel`):
-heads, FFN hidden and vocab over 'model' where the axis divides them,
-every other leaf gathered for its own layer's call only.
+heads, FFN hidden, experts and vocab over 'model' where the axis divides
+them, a sequence-split decode cache read where it is stored, every other
+leaf gathered for its own layer's call only.
 """
 
 from __future__ import annotations

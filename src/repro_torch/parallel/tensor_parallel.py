@@ -20,12 +20,27 @@ it, else it stays replicated. So:
   H the whole attention runs replicated from gathered weights;
 * the MLP runs column-parallel on f (``w_in``, ``w_gate``) and row-parallel
   (``w_out``) where m divides f;
+* the MoE keeps its experts on "model" where m divides E (expert
+  parallelism: every rank routes the same tokens, runs the experts it
+  holds and the float32 partial combines are summed over "model"), else
+  each expert's f where m divides it; the router stays whole;
 * the LM head gives vocab-sharded logits where m divides the padded vocab
   (:func:`vocab_sharded`): serving gathers only the rows it returns
   (:func:`gather_vocab`), training takes a vocab-parallel cross entropy
   (:func:`cross_entropy`);
-* every other layer (MLA, MoE, the recurrent mixers, a tied head) gathers
+* every other layer (MLA, the recurrent mixers, a tied head) gathers
   its leaves and runs replicated.
+
+Decode attention over a cache entry whose sequence dim is split (over
+"model" where the kv heads do not divide it, over "data" where the batch
+does not divide the DP width) never gathers it (:func:`kv_split`): the
+rank writes the new row where it holds its position, scores its own rows
+and the partial softmaxes are combined by all-reduces of the row max, the
+sum of exponentials and the float32 P·V partial over the axes that split
+the sequence, as XLA partitions the reference's decode (flash-decoding's
+split-KV pattern). Where the sequence is split over "model" and the q
+heads are too, q is gathered over the heads first and the rank keeps its
+own heads of the result.
 
 The collectives are ``torch.autograd.Function``\\s:
 
@@ -76,11 +91,12 @@ from typing import NamedTuple
 
 import torch
 
-__all__ = ["Partial", "TPContext", "attention_plan", "axes_of", "bind", "context", "copy_to_model",
-           "cross_entropy", "current", "embed_plan", "gather_from_model", "gather_vocab",
-           "gathered", "head_plan", "hooks_off", "kv_heads", "layer_cache", "leaf_plan",
-           "local_state", "mlp_plan", "model_size", "reduce", "reduce_from_model", "residual",
-           "row_parallel", "spec_of", "splits", "vocab_sharded"]
+__all__ = ["Partial", "SeqSplit", "TPContext", "attention_plan", "axes_of", "bind", "context",
+           "copy_to_model", "cross_entropy", "current", "embed_plan", "gather_from_model",
+           "gather_vocab", "gathered", "head_plan", "hooks_off", "kv_heads", "kv_split",
+           "layer_cache", "leaf_plan", "local_state", "mlp_plan", "model_size", "moe_plan",
+           "reduce", "reduce_axes_", "reduce_from_model", "residual", "row_parallel", "seq_axes",
+           "spec_of", "splits", "vocab_sharded"]
 
 DP_AXES = ("pod", "data")
 
@@ -295,15 +311,16 @@ def dp_sum_to(g: torch.Tensor, mesh, have: tuple, want: tuple) -> torch.Tensor:
     return g
 
 
-def reduce_axes_(t: torch.Tensor, mesh, axes) -> torch.Tensor:
-    """Sum ``t`` in place over each of ``axes`` of ``mesh`` (one
-    ``all_reduce`` per axis of more than one rank)."""
+def reduce_axes_(t: torch.Tensor, mesh, axes, op=None) -> torch.Tensor:
+    """Sum (or reduce by ``op``, a ``ReduceOp``) contiguous ``t`` in place
+    over each of ``axes`` of ``mesh`` (one ``all_reduce`` per axis of more
+    than one rank)."""
     from repro_torch.parallel.sharding import mesh_shape
 
     sizes = mesh_shape(mesh)
     for a in axes:
         if sizes[a] > 1:
-            _all_reduce_(t, mesh.get_group(a))
+            _all_reduce_(t, mesh.get_group(a), op)
     return t
 
 
@@ -391,6 +408,12 @@ class _F32Matmul(torch.autograd.Function):
     def backward(ctx, g):
         x, w = ctx.saved_tensors
         dx = dw = None
+        if w.dim() > 2:  # a stack of products (the experts' (E, f, d) against (E, n, f))
+            if ctx.needs_input_grad[0]:
+                dx = torch.matmul(g, w.float().mT).to(x.dtype)
+            if ctx.needs_input_grad[1]:
+                dw = torch.matmul(x.float().mT, g).to(w.dtype)
+            return dx, dw
         if ctx.needs_input_grad[0]:
             dx = torch.matmul(g, w.float().T).to(x.dtype)
         if ctx.needs_input_grad[1]:
@@ -466,8 +489,9 @@ class Partial(NamedTuple):
 
 
 def row_parallel(x: torch.Tensor, w: torch.Tensor) -> Partial:
-    """``x`` (…, k_local) times ``w`` (k_local, n) in float32: this rank's
-    share of a product whose reduction dim is split over "model"."""
+    """``x`` (…, k_local) times ``w`` (k_local, n), or a stack (E, …,
+    k_local) times (E, k_local, n), in float32: this rank's share of a
+    product whose reduction dim is split over "model"."""
     return Partial(_F32Matmul.apply(x, w))
 
 
@@ -519,6 +543,21 @@ def mlp_plan(d_ff: int) -> tuple[dict, tuple]:
     return {"w_in": -1, "w_gate": -1, "w_out": -2}, ()
 
 
+def moe_plan(n_experts: int, d_ff: int) -> tuple[dict, tuple]:
+    """``(keep, partial)`` of a MoE layer: the experts (dim -3 of the
+    stacks) on "model" where m divides E; else each expert's f (``w_in``
+    and ``w_gate`` column-parallel, ``w_out`` row-parallel) where m
+    divides f, as the sharding rule falls through; nothing where neither
+    divides (the layer runs replicated). The router stays whole and its
+    gradient is summed over "model": each rank's combine reads only its
+    own experts' (or f columns') share of the gates."""
+    if splits(n_experts):
+        return {"w_in": -3, "w_gate": -3, "w_out": -3}, ("router",)
+    if splits(d_ff):
+        return {"w_in": -1, "w_gate": -1, "w_out": -2}, ("router",)
+    return {}, ()
+
+
 def embed_plan(d_model: int) -> tuple[dict, tuple]:
     return ({"table": -1}, ()) if splits(d_model) else ({}, ())
 
@@ -540,8 +579,8 @@ def leaf_plan(cfg, name: str) -> tuple[int | None, bool]:
         keep, partial = head_plan(cfg.vocab_padded, cfg.tie_embeddings)
     elif kind == "attn" and not cfg.use_mla:
         keep, partial = attention_plan(cfg.n_heads, cfg.n_kv_heads)
-    elif kind == "ff" and not cfg.is_moe:
-        keep, partial = mlp_plan(cfg.d_ff)
+    elif kind == "ff":
+        keep, partial = (moe_plan(cfg.n_experts, cfg.d_ff) if cfg.is_moe else mlp_plan(cfg.d_ff))
     else:
         keep, partial = {}, ()
     return keep.get(leaf), leaf in partial
@@ -656,9 +695,10 @@ def kv_heads(n_heads: int, n_kv_heads: int):
 # --------------------------------------------------------------------------
 
 
-def _entry_plan(ctx: TPContext, t: torch.Tensor, heads: bool):
+def _entry_plan(ctx: TPContext, t: torch.Tensor, heads: bool, seq: tuple = ()):
     """(the per-layer spec of a cache entry, its (axis, dim) gathers, the
-    dim narrowed to the local heads or None)."""
+    dim narrowed to the local heads or None). ``seq``: the axes whose split
+    of the sequence dim (1) the layer keeps (:func:`kv_split`)."""
     spec = ctx.cache.get(t.untyped_storage()._cdata)
     if spec is None:
         return None, (), None
@@ -666,7 +706,8 @@ def _entry_plan(ctx: TPContext, t: torch.Tensor, heads: bool):
     gathers = []
     for d, entry in enumerate(spec):
         for a in reversed(axes_of(entry)):
-            kept = (a in DP_AXES and d == 0 and keep_dp) or (a == "model" and d == 2 and heads)
+            kept = ((a in DP_AXES and d == 0 and keep_dp) or (a == "model" and d == 2 and heads)
+                    or (d == 1 and a in seq))
             if not kept and ctx.sizes[a] > 1:
                 gathers.append((a, d))
     model_on_heads = len(spec) > 2 and "model" in axes_of(spec[2])
@@ -674,21 +715,66 @@ def _entry_plan(ctx: TPContext, t: torch.Tensor, heads: bool):
     return spec, tuple(gathers), narrow
 
 
+def seq_axes(specs, sizes: dict) -> tuple:
+    """The mesh axes (of more than one rank) that split the sequence dim (1)
+    of every one of a layer's attention cache entries (per-layer ``specs``),
+    where all of them are split alike; else ``()``: the entries are then
+    gathered for the layer."""
+    found = {tuple(a for a in axes_of(s[1] if len(s) > 1 else None) if sizes[a] > 1)
+             for s in specs}
+    return found.pop() if len(found) == 1 else ()
+
+
+class SeqSplit(NamedTuple):
+    """A decode cache's sequence split over mesh ``axes`` (major first):
+    this rank holds rows [first, first + its rows)."""
+
+    axes: tuple
+    first: int
+
+
+def kv_split(cache) -> SeqSplit | None:
+    """Where one layer's attention cache entries (a dict of local tensors)
+    all have their sequence split alike over axes of more than one rank:
+    those axes and this rank's first row. The layer's decode then attends
+    on its own rows and never gathers them. None outside a context, on a
+    "model" axis of one rank (where every layer runs its meshless code:
+    the entries are gathered, which is exact), without a registered
+    cache, or where the entries are not split so."""
+    ctx = current()
+    if ctx is None or ctx.m == 1 or cache is None or not ctx.cache:
+        return None
+    specs = [ctx.cache.get(t.untyped_storage()._cdata) for t in cache.values()]
+    if any(s is None for s in specs):
+        return None
+    axes = seq_axes(specs, ctx.sizes)
+    if not axes:
+        return None
+    index = 0
+    for a in axes:
+        index = index * ctx.sizes[a] + ctx.coords[a]
+    return SeqSplit(axes, index * next(iter(cache.values())).shape[1])
+
+
 @contextmanager
-def layer_cache(cache, heads: bool = False, write_back: bool = True):
+def layer_cache(cache, heads: bool = False, write_back: bool = True,
+                split: SeqSplit | None = None):
     """One layer's cache entries (a dict of local tensors, or None) laid out
     as the layer computes on them: each entry's DP batch shard kept where
     the inputs' batch is DP-sharded, its heads (dim 2) kept on "model"
     where ``heads`` (narrowed to the rank's heads where the entry is not
-    split by heads), every other sharded dim gathered for this layer only.
-    On exit each gathered entry's shard is written back (``write_back``)."""
+    split by heads), its sequence split kept where ``split`` (the layer's
+    :func:`kv_split`: written and read in place), every other sharded dim
+    gathered for this layer only. On exit each gathered entry's shard is
+    written back (``write_back``)."""
     ctx = current()
     if ctx is None or cache is None or not ctx.cache:
         yield cache
         return
+    seq = split.axes if split is not None else ()
     out, back = {}, []
     for k, t in cache.items():
-        _, gathers, narrow = _entry_plan(ctx, t, heads)
+        _, gathers, narrow = _entry_plan(ctx, t, heads, seq)
         full = t
         for axis, dim in gathers:
             full = _all_gather(full, ctx.group(axis), ctx.sizes[axis], dim)

@@ -262,6 +262,29 @@ def test_decode_cell_on_a_mesh_equals_the_unsharded_model(ranks, cell_reference,
             assert_cell_close(got_rows[k], torch.cat([r[k] for r in rows], dim=1), mesh, cfg, k)
 
 
+@pytest.mark.parametrize("mesh", MESHES)
+def test_decode_cell_at_batch_1_on_a_mesh_equals_the_unsharded_model(ranks, cell_reference,
+                                                                     mesh):
+    """Batch 1 divides no DP width: the cache's sequence is split over
+    "data" (its heads over "model" on 2 x 2). On 4 x 1 each layer gathers
+    its rows (a "model" axis of one: the meshless code), bit-equal to the
+    unsharded step; on 2 x 2 each rank writes and attends on its own rows
+    and the partial softmaxes are combined over "data" (split-KV), within
+    :func:`reordered_bound` (the split reorders two float32 sums of at
+    most CELL_CACHE terms, inside its gamma_n)."""
+    from repro_torch.launch.steps import make_decode_step
+
+    cfg, model, inputs = cell_reference
+    inp, cache = inputs["decode 1"]
+    cache = {k: v.clone() for k, v in cache.items()}
+    logits, cache = make_decode_step(cfg)(model, inp, cache)
+    for res in ranks:
+        got, got_rows = res["cells"][mesh]["decode 1"]
+        assert_cell_close(got, logits, mesh, cfg, "logits")
+        for k, v in cache.items():
+            assert_cell_close(got_rows[k], v[:, :, W.CELL_INDEX], mesh, cfg, k)
+
+
 def composition(cfg, model, batch, dp: int) -> tuple[dict, list, list]:
     """The cell's accumulator summed in one process: microbatch by
     microbatch, in order, the ``dp`` DP shards' gradients in rank order

@@ -227,7 +227,9 @@ def test_the_dry_run_covers_every_cell(fake_run):
     runs the tensor-parallel plan: its all-gathers (the embedding's
     columns at least, and the leaves each layer gathers for its call)
     cover the largest layer's gathered leaves, which the step holds at
-    its peak (``temp_bytes``)."""
+    its peak (``temp_bytes``). An attention-only config's decode gathers
+    no cache entry (split-KV where its sequence is split), and a MoE
+    config's cells sum the experts' partial combines (all-reduces)."""
     from repro_torch.parallel.op_analysis import COLLECTIVES
 
     recs = fake_run["records"]
@@ -260,6 +262,13 @@ def test_the_dry_run_covers_every_cell(fake_run):
         assert mem["temp_bytes"] >= mem["gathered_params_bytes"], (r["arch"], r["shape"])
         if r["shape"] == "train_4k":
             assert coll["counts"]["all-reduce"] > 0
+        cfg = get_config(r["arch"])
+        if cfg.block_pattern is None and r["shape"] in ("decode_32k", "long_500k"):
+            # every attention cache entry is read where it is stored: split
+            # by its DP batch shard, its kv heads or its sequence (split-KV)
+            assert mem["gathered_cache_bytes"] == 0, (r["arch"], r["shape"], r["mesh"])
+        if cfg.is_moe:  # the combine's float32 partials summed over "model"
+            assert coll["counts"]["all-reduce"] > 0, (r["arch"], r["shape"])
 
 
 def ref_bytes(tree, shardings) -> int:
@@ -282,8 +291,9 @@ def kept_model_dim(rcfg, path: str, m: int):
     "model" for the reference leaf at ``path``, or None: the embedding's d
     where m divides it, the head's vocab where m divides Vp, attention's
     q heads and ``wo`` rows where m divides H (its k/v heads where it
-    divides Hkv too), the MLP's f where m divides it; MLA, the MoE and
-    the mixers keep none."""
+    divides Hkv too), the MLP's f where m divides it, the MoE's experts
+    where m divides E (else each expert's f where m divides it); MLA, the
+    router and the mixers keep none."""
     leaf = path.rsplit("/", 1)[-1]
     if path == "embed/table":
         return -1 if rcfg.d_model % m == 0 else None
@@ -292,7 +302,9 @@ def kept_model_dim(rcfg, path: str, m: int):
     if "/attn/" in path and not rcfg.use_mla and rcfg.n_heads % m == 0:
         if leaf in ("wq", "wo") or (leaf in ("wk", "wv") and rcfg.n_kv_heads % m == 0):
             return -2
-    if "/ff/" in path and not rcfg.is_moe and rcfg.d_ff % m == 0:
+    if "/ff/" in path and rcfg.is_moe and rcfg.n_experts % m == 0:
+        return {"w_in": -3, "w_gate": -3, "w_out": -3}.get(leaf)
+    if "/ff/" in path and rcfg.d_ff % m == 0:
         return {"w_in": -1, "w_gate": -1, "w_out": -2}.get(leaf)
     return None
 
@@ -321,8 +333,11 @@ def ref_gathered(rcfg, kind, rparams, p_shard, ropt=None, o_shard=None, rin=None
     (the parameters' shard bytes) and its accumulator shards (the
     moments' shard shapes in ``grad_accum_dtype``); a decode step's
     largest layer of cache entries, each keeping its DP batch shard where
-    the inputs' batch dim names a DP axis and its heads where the
-    attention computes on local kv heads, every other split dim gathered."""
+    the inputs' batch dim names a DP axis, its heads where the attention
+    computes on local kv heads and its sequence split where every
+    attention entry of the layer has its sequence split alike (split-KV
+    decode, MLA's absorbed decode among it, on m > 1), every other split
+    dim gathered."""
     dp = {"pod", "data"}
     m = mesh_sizes["model"]
     leaves, specs = ref_flat(rparams), ref_flat(p_shard)
@@ -347,17 +362,27 @@ def ref_gathered(rcfg, kind, rparams, p_shard, ropt=None, o_shard=None, rin=None
         by_batch = any(set(axes_of(e)) & dp for e in in_shard[main].spec)
         heads_local = not rcfg.use_mla and rcfg.n_heads % m == 0 and rcfg.n_kv_heads % m == 0
         homogeneous = all(k == "attn" for k in rcfg.pattern) and not rcfg.shared_attn
-        per_layer, c_specs = {}, ref_flat(c_shard)
+        lead = 1 if homogeneous else 0
+        split_kv = m > 1 and (not rcfg.use_mla or rcfg.mla_absorbed_decode)
+        layers, c_specs = {}, ref_flat(c_shard)
         for k, v in ref_flat(rcache).items():
             spec = tuple(c_specs[k].spec) + (None,) * (len(v.shape) - len(c_specs[k].spec))
-            lead = 1 if homogeneous else 0
-            kept = {(a, lead) for a in dp} if by_batch else set()
-            if heads_local and k.rsplit("/", 1)[-1] in ("k", "v"):
-                kept.add(("model", lead + 2))
-            layer = "" if homogeneous else k.split("/")[0]
-            size = held(whole_bytes(v), spec, mesh_sizes, kept)
-            per_layer[layer] = per_layer.get(layer, 0) + (size // v.shape[0] if homogeneous
-                                                          else size)
+            layers.setdefault("" if homogeneous else k.split("/")[0], []).append((k, v, spec))
+        per_layer = {}
+        for layer, items in layers.items():
+            names = {k.rsplit("/", 1)[-1] for k, _, _ in items}
+            seqs = {tuple(a for a in axes_of(spec[lead + 1]) if mesh_sizes[a] > 1)
+                    for _, _, spec in items}
+            attention = names <= {"k", "v", "k_scale", "v_scale", "c_kv", "k_rope"}
+            seq = seqs.pop() if split_kv and attention and len(seqs) == 1 else ()
+            for k, v, spec in items:
+                kept = {(a, lead) for a in dp} if by_batch else set()
+                if heads_local and k.rsplit("/", 1)[-1] in ("k", "v"):
+                    kept.add(("model", lead + 2))
+                kept |= {(a, lead + 1) for a in seq}
+                size = held(whole_bytes(v), spec, mesh_sizes, kept)
+                per_layer[layer] = per_layer.get(layer, 0) + (size // v.shape[0] if homogeneous
+                                                              else size)
         out["cache"] = max(per_layer.values(), default=0)
     return out
 

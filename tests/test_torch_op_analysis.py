@@ -8,7 +8,8 @@ run.
   what a trace on ``meta`` tensors counts.
 * (b) Collectives: on a 2 x 2 ``fake`` mesh, a cell's collectives equal
   those its code issues, counted by hand from the tensor-parallel plan
-  (``launch/steps.py``, ``parallel/tensor_parallel.py``).
+  (``launch/steps.py``, ``parallel/tensor_parallel.py``), the split-KV
+  decode at batch 1 among them.
 * (c) Wire factors: ``weighted_collective_bytes`` applies the reference's
   ``_wire_factor`` to each kind and group size.
 * (d) Reference: on one CPU device, the port's ``flops_per_device`` of a
@@ -17,7 +18,10 @@ run.
   host devices (a subprocess with ``--xla_force_host_platform_device_count=2``)
   the per-device flops of the same cell lie within the same band of the
   port's count on a 2-rank ``fake`` world, and XLA's partitioned program
-  issues the same kinds of collectives over "model" as the port's plan.
+  issues the same kinds of collectives over "model" as the port's plan;
+  so do reduced granite-moe's train cell (the experts over "model", the
+  combine an all-reduce, no all-to-all) and reduced granite-34b's decode
+  cell (split-KV: no all-gather of the cache).
 * (e) Fake tensors: each kernel op's wrapper gives a ``meta`` or
   ``FakeTensorMode`` tensor the kernel's output shape and type, launches
   nothing and never runs the plain version; the counter counts the op
@@ -119,6 +123,14 @@ with dryrun.fake_world(4):
                               "micro": 2 if name == "train" else 1,
                               "seq": shape.seq_len, "d_model": c.d_model,
                               "n_layers": c.n_layers, "dtype_bytes": 4}
+    # batch 1 divides no DP width: the cache's sequence is split over "data"
+    shape = ShapeSpec("decode_32k", "decode", 64, 1)
+    trace = dryrun.count_cell(cfg, shape, mesh)
+    _, args, sh = build_cell(cfg, shape, mesh)
+    out["decode"] = {"collectives": trace.collectives, "vocab_padded": cfg.vocab_padded,
+                     "d_model": cfg.d_model, "n_layers": cfg.n_layers, "heads": cfg.n_heads,
+                     "kv_heads": cfg.n_kv_heads, "head_dim": cfg.head_dim,
+                     "cache": {k: [str(e) for e in s.spec] for k, s in sh[2].items()}}
     for arch in ARCH_IDS:
         full = get_config(arch)
         if full.block_pattern is None:
@@ -145,8 +157,18 @@ with dryrun.fake_world(2):
     mesh = M.make_host_mesh(model_parallel=2, device="cpu")
     cfg = get_config("deepseek-7b").reduced(n_layers=1, q_chunk=64, kv_chunk=64)
     out["two_device_train"] = dryrun.cell_counts(cfg, ShapeSpec("train_4k", "train", 64, 2), mesh)
+    cfg = get_config("granite-moe-1b-a400m").reduced(n_layers=1, q_chunk=64, kv_chunk=64)
+    out["two_device_moe_train"] = dryrun.cell_counts(cfg, ShapeSpec("train_4k", "train", 64, 2),
+                                                     mesh)
+    cfg = get_config("granite-34b").reduced(n_layers=1)
+    shape = ShapeSpec("decode_32k", "decode", DECODE_SEQ, 2)
+    trace = dryrun.count_cell(replace(cfg, use_flash_kernel=True), shape, mesh)
+    out["two_device_mqa_decode"] = {**{k: int(v) for k, v in dryrun._flat(trace).items()},
+                                    "collectives": trace.collectives,
+                                    "entry_bytes": 2 * DECODE_SEQ * cfg.n_kv_heads
+                                    * cfg.head_dim * 4}
 json.dump(out, open(sys.argv[1], "w"))
-"""
+""".replace("DECODE_SEQ", "256")
 
 # (d) on two host devices: the reference's one-layer train cell lowered on a
 # (1, 2) ("data", "model") mesh, its per-device flops and the collectives of
@@ -160,16 +182,36 @@ from repro.configs.shapes import ShapeSpec
 from repro.launch.steps import build_cell
 from repro.parallel import hlo_analysis as RH
 
-cfg = get_config("deepseek-7b").reduced(n_layers=1, q_chunk=64, kv_chunk=64)
+arch, kind, seq, batch = sys.argv[2], sys.argv[3], int(sys.argv[4]), int(sys.argv[5])
+over = dict(n_layers=1) if kind == "decode" else dict(n_layers=1, q_chunk=64, kv_chunk=64)
+cfg = get_config(arch).reduced(**over)
 mesh = Mesh(np.array(jax.devices()[:2]).reshape(1, 2), ("data", "model"))
 with mesh:
-    fn, args = build_cell(cfg, ShapeSpec("train_4k", "train", 64, 2), mesh)
+    fn, args = build_cell(cfg, ShapeSpec(kind + "_cell", kind, seq, batch), mesh)
     compiled = fn.lower(*args).compile()
 cost = compiled.cost_analysis()
 cost = cost[0] if isinstance(cost, list) else cost
 w = RH.weighted_collective_bytes(compiled.as_text())
 json.dump({"flops": float(cost["flops"]), "counts": w["counts"]}, open(sys.argv[1], "w"))
 """
+
+
+def xla_two_devices(tmp_path, arch: str, kind: str, seq: int, batch: int) -> dict:
+    """XLA's per-device flops and collective counts of the reference's
+    one-layer ``kind`` cell of ``arch`` on a (1, 2) mesh of two host devices."""
+    path = tmp_path / "xla.json"
+    proc = subprocess.run([sys.executable, "-c", XLA_RUN, str(path), arch, kind, str(seq),
+                           str(batch)], cwd=ROOT,
+                          env={**os.environ, "PYTHONPATH": str(ROOT / "src"),
+                               "XLA_FLAGS": "--xla_force_host_platform_device_count=2",
+                               "JAX_PLATFORMS": "cpu"},
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    return json.loads(path.read_text())
+
+
+def kinds(port: dict) -> set:
+    return {k.split("/", 1)[1] for k, v in port.items() if k.startswith("counts/") and v}
 
 
 @pytest.fixture(scope="module")
@@ -310,6 +352,32 @@ def test_b_collectives_equal_what_the_steps_issue(fake_run):
         assert {k for k, _, _ in got} <= set(OA.COLLECTIVES)
 
 
+def test_b_split_kv_decode_collectives_equal_what_the_step_issues(fake_run):
+    """The decode cell at batch 1 on the 2 x 2 mesh, counted by hand: the
+    batch divides no DP width, so the cache's sequence is split over
+    "data" and its kv heads over "model"; each rank writes and attends on
+    its own rows and heads. x is the (1, 1, d) float32 activation:
+
+    * the embedding's columns gathered over "model" (x's bytes);
+    * per block, over "data": the row max and the sum of exponentials of
+      the rank's H / 2 heads (float32 (1, 1, H / 2)) and their float32 P·V
+      partials ((1, 1, H / 2, Dh)); over "model": attention's ``wo`` and the
+      FFN's out (x each);
+    * the logits gathered over "model" ((1, Vp) float32); the batch is not
+      DP-split, so nothing is gathered over "data".
+
+    No cache entry is gathered."""
+    cell = fake_run["decode"]
+    assert cell["cache"]["k"] == ["None", "None", "data", "model", "None"]
+    x = cell["d_model"] * 4
+    local = cell["heads"] // 2 * 4
+    block = [("all-reduce", local, 2)] * 2 + [("all-reduce", local * cell["head_dim"], 2),
+                                              ("all-reduce", x, 2), ("all-reduce", x, 2)]
+    want = ([("all-gather", x, 2)] + block * cell["n_layers"]
+            + [("all-gather", cell["vocab_padded"] * 4, 2)])
+    assert sorted(tuple(c) for c in cell["collectives"]) == sorted(want)
+
+
 # --------------------------------------------------------------------------
 # (c) wire factors
 # --------------------------------------------------------------------------
@@ -358,19 +426,46 @@ def test_d_two_devices_the_plan_is_xlas(fake_run, tmp_path):
     products two ways), and the kinds of collectives XLA's optimized HLO
     issues over "model" (the only axis of more than one device) against
     the kinds the port's plan issues."""
-    path = tmp_path / "xla.json"
-    proc = subprocess.run([sys.executable, "-c", XLA_RUN, str(path)], cwd=ROOT,
-                          env={**os.environ, "PYTHONPATH": str(ROOT / "src"),
-                               "XLA_FLAGS": "--xla_force_host_platform_device_count=2",
-                               "JAX_PLATFORMS": "cpu"},
-                          capture_output=True, text=True, timeout=300)
-    assert proc.returncode == 0, proc.stderr[-3000:]
-    xla = json.loads(path.read_text())
+    xla = xla_two_devices(tmp_path, "deepseek-7b", "train", REF_SEQ, REF_BATCH)
     port = fake_run["two_device_train"]
     flops = port["flops_products"] + port["flops_other"]
     assert abs(flops / xla["flops"] - 1) <= REF_BAND, (flops, xla["flops"])
-    kinds = {k.split("/", 1)[1] for k, v in port.items() if k.startswith("counts/") and v}
-    assert kinds == {k for k, v in xla["counts"].items() if v}, (kinds, xla["counts"])
+    assert kinds(port) == {k for k, v in xla["counts"].items() if v}, (kinds(port), xla["counts"])
+
+
+def test_d_two_devices_the_moe_plan_is_xlas(fake_run, tmp_path):
+    """Reduced granite-moe's one-layer train cell (4 experts, top 2) on the
+    (1, 2) mesh: XLA partitions the reference's dispatch and combine with
+    the experts on "model" and the combine einsum as a float32 all-reduce
+    over "model", never an all-to-all, as the port's expert-parallel plan
+    does (every rank routes the same tokens and runs its 2 experts). The
+    per-device flops lie within ``REF_BAND`` (its derivation holds: the
+    reference's one-hot dispatch and combine einsums are products the port
+    replaces by index gathers, a few percent of this cell's flops, inside
+    the band's doubled share), and the kinds of collectives are equal."""
+    xla = xla_two_devices(tmp_path, "granite-moe-1b-a400m", "train", REF_SEQ, REF_BATCH)
+    port = fake_run["two_device_moe_train"]
+    flops = port["flops_products"] + port["flops_other"]
+    assert abs(flops / xla["flops"] - 1) <= REF_BAND, (flops, xla["flops"])
+    assert not xla["counts"].get("all-to-all") and not port.get("counts/all-to-all")
+    assert kinds(port) == {k for k, v in xla["counts"].items() if v}, (kinds(port), xla["counts"])
+
+
+def test_d_two_devices_the_split_kv_decode_is_xlas(fake_run, tmp_path):
+    """Reduced granite-34b's one-layer decode cell (4 q heads on one kv
+    head: the cache's sequence split over "model") at batch 2 on the (1, 2)
+    mesh: XLA gathers q over the heads and all-reduces the scores' row max,
+    the sums of exponentials and the float32 P·V partials, and never
+    gathers the cache; the port issues the same kinds of collectives, and
+    none of its all-gathers is as large as one layer's cache entry."""
+    port = fake_run["two_device_mqa_decode"]
+    seq = port["entry_bytes"] // (2 * 16 * 4)
+    xla = xla_two_devices(tmp_path, "granite-34b", "decode", seq, 2)
+    assert kinds(port) == {k for k, v in xla["counts"].items() if v}, (kinds(port), xla["counts"])
+    gathers = [b for kind, b, _ in port["collectives"] if kind == "all-gather"]
+    assert gathers and max(gathers) < port["entry_bytes"], (gathers, port["entry_bytes"])
+    maxima = [b for kind, b, _ in port["collectives"] if kind == "all-reduce" and b == 2 * 4 * 4]
+    assert len(maxima) == 2  # the row max and the sum of exponentials, (2, 1, 1, 4) float32
 
 
 # --------------------------------------------------------------------------

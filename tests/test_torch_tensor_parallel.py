@@ -61,7 +61,12 @@ def gamma(k: int) -> float:
 
 # products chained in each layer kind's output, and twice more for a
 # gradient (each product's two operands)
-LAYER_PRODUCTS = {"attn": 4, "mlp": 2, "block": 6, "head": 1}
+LAYER_PRODUCTS = {"attn": 4, "mlp": 2, "block": 6, "head": 1,
+                  # the router, the experts' in and out, the float32 combine
+                  "moe": 4,
+                  # q, the scores, P·V and wo; MLA: q down and up, q absorbed,
+                  # the scores, P·V, the latent's up-projection and wo
+                  "decode": 4, "mla decode": 7}
 
 
 def layer_bound(cfg, kind: str, scale: float, backward: bool = False) -> float:
@@ -82,19 +87,64 @@ def layer_bound(cfg, kind: str, scale: float, backward: bool = False) -> float:
 def test_layer_on_the_model_axis_equals_the_unsharded_layer(ranks, case, name, kind):
     cfg = W.tp_config(name)
     layer, _ = W.tp_layer(kind, cfg)
-    want = W.run_tp_layer(kind, cfg, layer, W.tp_layer_inputs(kind, cfg))
+    want = W.run_tp_layer(kind, cfg, layer, W.tp_layer_inputs(kind, cfg, case=case))
     for res in ranks:
         got = res["tensor parallel"]["layers"][case]
         assert sorted(got) == sorted(want), case
         for k, w in want.items():
             g = got[k]
             assert g.shape == w.shape and g.dtype == w.dtype, (case, k)
-            if kind == "embed":
-                assert torch.equal(g, w), case  # columns looked up and gathered: exact
+            if kind == "embed" or not w.is_floating_point():
+                # columns looked up and gathered; the experts picked (every
+                # rank routes the same tokens alike); int8 codes of a k or v
+                # computed whole: exact
+                assert torch.equal(g, w), (case, k)
                 continue
-            limit = layer_bound(cfg, kind, float(w.abs().max()), backward=k in ("dx", "dw"))
+            limit = layer_bound(cfg, kind, float(w.abs().max()), backward=k.startswith("d"))
             gap = float((g - w).abs().max())
             assert gap <= limit, (case, k, gap, limit)
+
+
+def test_moe_cases_drop_pairs_and_split_as_planned():
+    """The MoE layer cases cover the plan's three branches at m = 2 (the
+    experts, f, neither) and capacity drops."""
+    TP._STACK.append(_on_axis(2, 0))
+    try:
+        plans = {name: TP.moe_plan(W.tp_config(name).n_experts, W.tp_config(name).d_ff)[0]
+                 for _, name, kind in W.TP_LAYERS if kind == "moe"}
+    finally:
+        TP._STACK.pop()
+    assert plans == {"granite-moe": {"w_in": -3, "w_gate": -3, "w_out": -3},
+                     "granite-moe/E3": {"w_in": -1, "w_gate": -1, "w_out": -2},
+                     "granite-moe/E3-f129": {}, "granite-moe/drops": plans["granite-moe"]}
+    cfg = W.tp_config("granite-moe/drops")
+    layer, _ = W.tp_layer("moe", cfg)
+    picks = W.run_tp_layer("moe", cfg, layer, W.tp_layer_inputs("moe", cfg))["picks"]
+    E, K, g = cfg.n_experts, cfg.top_k, picks.shape[1]
+    C = -(-g * K * cfg.moe_capacity_factor // E)
+    load = torch.bincount(picks.reshape(-1), minlength=E)
+    assert int(torch.clamp_min(load - C, 0).sum()) > 0  # some expert overflows
+
+
+@pytest.mark.parametrize("case", [c for c, _, kind in W.TP_LAYERS if "decode" in kind])
+def test_split_kv_decode_gathers_no_cache_entry(ranks, case):
+    """Each decode case's cache has its sequence split over "model" (the kv
+    heads do not divide it, or an MLA latent): every rank writes and reads
+    its own 8 of the 16 rows and no all-gather moves a cache entry (its
+    local (2, 8, ...) block)."""
+    _, name, kind = next(c for c in W.TP_LAYERS if c[0] == case)
+    cfg = W.tp_config(name)
+    cache = W.tp_layer_cache(cfg)
+    from repro_torch.parallel.sharding import cache_sharding
+
+    specs = cache_sharding(cfg, cache, {"replica": 2, "data": 1, "model": 2}, 2)
+    local = set()
+    for k, t in cache.items():
+        assert specs[k].spec[1] == "model", (case, k, specs[k].spec)
+        local.add((t.shape[0], t.shape[1] // 2, *t.shape[2:]))
+    for res in ranks:
+        moved = set(res["tensor parallel"]["layer gathers"][case])
+        assert not moved & local, (case, moved)
 
 
 # --------------------------------------------------------------------------
@@ -163,6 +213,23 @@ def test_cells_on_the_model_axis_equal_the_jax_reference(ranks, jax_cells, name)
         loss, grads = got["train"]
         assert abs(float(loss) - want["loss"]) <= 1e-5 * abs(want["loss"]), name
         assert_grads_close(grads, want["grads"], name)
+
+
+@pytest.mark.parametrize("name", list(W.TP_CONFIGS))
+def test_decode_cells_gather_no_cache_entry(ranks, name):
+    """No all-gather of a decode cell moves a layer's cache entry: entries
+    split by heads are read as stored, and entries whose sequence is split
+    over "model" (granite-34b's one kv head, stablelm's 3 and musicgen's 3
+    on 2 ranks, minicpm3's latents) are written and attended in place."""
+    cfg = W.tp_config(name)
+    for res in ranks:
+        cell = res["tensor parallel"]["cells"][name]
+        entries = set(cell["decode cache"].values())
+        assert not set(cell["decode gathers"]) & entries, (name, cell["decode gathers"])
+        if name in ("granite-34b", "stablelm-12b", "musicgen-medium", "minicpm3"):
+            rows = {shape[1] for shape in entries}
+            assert rows == {W.TP_CACHE // 2}, (name, entries)  # the sequence split, kept
+    assert cfg.n_layers == 2
 
 
 # --------------------------------------------------------------------------
@@ -264,3 +331,6 @@ def test_leaves_computed_in_shards_are_stored_split_there(arch):
             assert spec[keep % params[k].dim()] == "model", (arch, k, spec)
     if not cfg.use_mla and cfg.n_heads % 16 == 0:
         assert any(k.endswith("attn.wq") for k in kept), arch
+    # the MoE's expert stacks, by the experts where 16 divides E
+    experts = [k for k in params if cfg.is_moe and ".ff.w_" in k]
+    assert all(kept.get(k) == -3 for k in experts) and bool(experts) == cfg.is_moe, arch

@@ -121,11 +121,19 @@ def cell_inputs(cfg) -> dict:
     cache = PT.init_cache(cfg, 2, CELL_CACHE, device="cpu")
     for t in cache.values():
         t.normal_(generator=g)
-    return {"prefill 1": {"tokens": tok(1, CELL_SEQ)},
-            "prefill 2": {"tokens": tok(2, CELL_SEQ)},
-            "decode": ({"tokens": tok(2, 1), "cur_index": torch.tensor(CELL_INDEX, dtype=torch.int32)},
-                       cache),
-            "train": {"tokens": tok(2, 4, CELL_SEQ), "labels": tok(2, 4, CELL_SEQ)}}
+    cells = {"prefill 1": {"tokens": tok(1, CELL_SEQ)},
+             "prefill 2": {"tokens": tok(2, CELL_SEQ)},
+             "decode": ({"tokens": tok(2, 1), "cur_index": torch.tensor(CELL_INDEX,
+                                                                        dtype=torch.int32)},
+                        cache),
+             "train": {"tokens": tok(2, 4, CELL_SEQ), "labels": tok(2, 4, CELL_SEQ)}}
+    # batch 1: on 2 x 2 the cache's sequence is split over "data", not its batch
+    one = PT.init_cache(cfg, 1, CELL_CACHE, device="cpu")
+    for t in one.values():
+        t.normal_(generator=g)
+    cells["decode 1"] = ({"tokens": tok(1, 1), "cur_index": torch.tensor(CELL_INDEX,
+                                                                         dtype=torch.int32)}, one)
+    return cells
 
 
 def cell_shapes():
@@ -134,13 +142,14 @@ def cell_shapes():
     return {"prefill 1": ShapeSpec("prefill", "prefill", CELL_SEQ, 1),
             "prefill 2": ShapeSpec("prefill", "prefill", CELL_SEQ, 2),
             "decode": ShapeSpec("decode", "decode", CELL_CACHE, 2),
+            "decode 1": ShapeSpec("decode", "decode", CELL_CACHE, 1),
             "train": ShapeSpec("train", "train", CELL_SEQ, 8)}
 
 
 def cell_cases(mesh_name: str) -> dict:
     """The cells on mesh ``mesh_name`` of the 4 ranks, every argument laid
-    out by its sharding: gathered prefill and decode logits, the cache row
-    the decode wrote, this rank's ZeRO accumulator shards (two
+    out by its sharding: gathered prefill and decode logits (decode at
+    batch 2 and 1), the cache row each decode wrote, this rank's ZeRO accumulator shards (two
     microbatches), and the parameters, moments and metrics after one train
     step, each gathered whole."""
     from repro_torch.launch import steps as ST
@@ -156,11 +165,12 @@ def cell_cases(mesh_name: str) -> dict:
     for name in ("prefill 1", "prefill 2"):
         step, _, (p_sh, b_sh) = ST.build_cell(cfg, shapes[name], mesh)
         out[name] = step(SH.distribute(params, p_sh), SH.distribute(inputs[name], b_sh))
-    step, _, (p_sh, b_sh, c_sh) = ST.build_cell(cfg, shapes["decode"], mesh)
-    inp, cache = inputs["decode"]
-    cache = SH.distribute(cache, c_sh)
-    logits, cache = step(SH.distribute(params, p_sh), SH.distribute(inp, b_sh), cache)
-    out["decode"] = (logits, {k: v.full_tensor()[:, :, CELL_INDEX] for k, v in cache.items()})
+    for name in ("decode", "decode 1"):
+        step, _, (p_sh, b_sh, c_sh) = ST.build_cell(cfg, shapes[name], mesh)
+        inp, cache = inputs[name]
+        cache = SH.distribute(cache, c_sh)
+        logits, cache = step(SH.distribute(params, p_sh), SH.distribute(inp, b_sh), cache)
+        out[name] = (logits, {k: v.full_tensor()[:, :, CELL_INDEX] for k, v in cache.items()})
     step, _, (p_sh, o_sh, b_sh) = ST.build_cell(cfg, shapes["train"], mesh)
     batch = SH.distribute(inputs["train"], b_sh)
     local = {k: v.to_local() for k, v in batch.items()}
@@ -259,13 +269,32 @@ TP_CONFIGS = {
     "musicgen-medium": ("musicgen-medium", dict(n_heads=3, n_kv_heads=3, n_codebooks=3)),
     # vocab 127, unpadded: Vp does not divide, the head runs replicated
     "deepseek-7b/vocab-127": ("deepseek-7b", dict(vocab=127, pad_vocab_to=0)),
+    # E 4 top 2: two experts a rank (expert parallelism), kv heads local
+    "granite-moe": ("granite-moe-1b-a400m", {}),
+    # E 4 top 2 with H 4 on Hkv 4; the accumulator in float32 (the config's
+    # bfloat16 would round the gradients this file holds to the reference)
+    "qwen3-moe": ("qwen3-moe-235b-a22b", dict(grad_accum_dtype="float32")),
+    # MLA, run replicated; its absorbed decode on a latent cache whose
+    # sequence is split over "model"
+    "minicpm3": ("minicpm3-4b", {}),
+}
+# configs of the layer cases only
+TP_LAYER_CONFIGS = {
+    # E 3 does not divide, f 128 does: every expert on its f columns
+    "granite-moe/E3": ("granite-moe-1b-a400m", dict(n_experts=3)),
+    # neither E 3 nor f 129 divides: the MoE runs replicated
+    "granite-moe/E3-f129": ("granite-moe-1b-a400m", dict(n_experts=3, d_ff=129)),
+    # capacity 4 a group for 32 picks: pairs drop
+    "granite-moe/drops": ("granite-moe-1b-a400m", dict(moe_capacity_factor=0.5)),
+    # MQA over the int8 cache: codes and scales split by sequence alike
+    "granite-34b/int8": ("granite-34b", dict(kv_cache_dtype="int8")),
 }
 
 
 def tp_config(name: str):
     from repro_torch.configs import get_config
 
-    arch, over = TP_CONFIGS[name]
+    arch, over = {**TP_CONFIGS, **TP_LAYER_CONFIGS}[name]
     return get_config(arch).reduced(**over)
 
 
@@ -330,7 +359,32 @@ TP_LAYERS = [
     ("head", "deepseek-7b", "head"),
     ("head codebooks", "musicgen-medium", "head"),
     ("head replicated", "deepseek-7b/vocab-127", "head"),
+    ("moe experts local", "granite-moe", "moe"),
+    ("moe f local", "granite-moe/E3", "moe"),
+    ("moe replicated", "granite-moe/E3-f129", "moe"),
+    ("moe drops", "granite-moe/drops", "moe"),
+    ("decode MQA, row on rank 0", "granite-34b", "decode"),
+    ("decode MQA, row on rank 1", "granite-34b", "decode"),
+    ("decode GQA, row on rank 0", "stablelm-12b", "decode"),
+    ("decode GQA, row on rank 1", "stablelm-12b", "decode"),
+    ("decode replicated attention", "musicgen-medium", "decode"),
+    ("decode idle slot", "granite-34b", "decode"),
+    ("decode int8 cache", "granite-34b/int8", "decode"),
+    ("decode MLA absorbed, row on rank 0", "minicpm3", "mla decode"),
+    ("decode MLA absorbed, row on rank 1", "minicpm3", "mla decode"),
 ]
+# the decode cases' positions (B 2; the TP_CACHE rows split 8 | 8 over "model")
+TP_DECODE_POSITIONS = {
+    "decode MQA, row on rank 0": [[3], [5]],
+    "decode MQA, row on rank 1": [[11], [14]],
+    "decode GQA, row on rank 0": [[2], [7]],
+    "decode GQA, row on rank 1": [[9], [15]],
+    "decode replicated attention": [[4], [12]],
+    "decode idle slot": [[-1], [12]],
+    "decode int8 cache": [[6], [13]],
+    "decode MLA absorbed, row on rank 0": [[1], [6]],
+    "decode MLA absorbed, row on rank 1": [[10], [8]],
+}
 
 
 def tp_layer(kind: str, cfg, seed: int = 3):
@@ -342,7 +396,9 @@ def tp_layer(kind: str, cfg, seed: int = 3):
     kw = dict(device="cpu", dtype=torch.float32)
     layer, prefix = {"embed": (L.Embed, "embed."), "attn": (L.Attention, "blocks.0.attn."),
                      "mlp": (L.MLP, "blocks.0.ff."), "head": (L.LMHead, "lm_head."),
-                     "block": (PT.Block, "blocks.0.")}[kind]
+                     "block": (PT.Block, "blocks.0."), "moe": (L.MoE, "blocks.0.ff."),
+                     "decode": (L.Attention, "blocks.0.attn."),
+                     "mla decode": (L.MLA, "blocks.0.attn.")}[kind]
     layer = layer(cfg, **kw)
     with torch.no_grad():
         for m in layer.modules():  # a block's norms, attention and FFN in order
@@ -351,9 +407,30 @@ def tp_layer(kind: str, cfg, seed: int = 3):
     return layer, prefix
 
 
-def tp_layer_inputs(kind: str, cfg, seed: int = 4) -> dict:
+def tp_layer_cache(cfg) -> dict:
+    """A seeded per-layer decode cache of (2, TP_CACHE) rows (random codes
+    and scales for the int8 cache)."""
+    from repro_torch.models import transformer as PT
+
+    g = torch.Generator().manual_seed(7)
+    cache = {k: v[0] for k, v in PT.init_cache(cfg, 2, TP_CACHE, device="cpu").items()}
+    for k, t in cache.items():
+        if t.dtype == torch.int8:
+            t.copy_(torch.randint(-127, 128, t.shape, generator=g, dtype=torch.int8))
+        elif k.endswith("_scale"):
+            t.copy_(torch.rand(t.shape, generator=g) * 0.02 + 0.001)
+        else:
+            t.normal_(generator=g)
+    return cache
+
+
+def tp_layer_inputs(kind: str, cfg, seed: int = 4, case: str = "") -> dict:
     g = torch.Generator().manual_seed(seed)
     B, S = 2, TP_SEQ
+    if kind in ("decode", "mla decode"):
+        return {"x": torch.randn(B, 1, cfg.d_model, generator=g),
+                "positions": torch.tensor(TP_DECODE_POSITIONS[case], dtype=torch.int32),
+                "cache": tp_layer_cache(cfg)}
     if kind == "embed":
         shape = (B, S, cfg.n_codebooks) if cfg.n_codebooks else (B, S)
         return {"tokens": torch.randint(0, cfg.vocab, shape, generator=g)}
@@ -362,19 +439,64 @@ def tp_layer_inputs(kind: str, cfg, seed: int = 4) -> dict:
     if kind == "head":
         shape = (B, S, cfg.n_codebooks) if cfg.n_codebooks else (B, S)
         out["labels"] = torch.randint(0, cfg.vocab, shape, generator=g)
+    if kind == "moe":
+        out["probe"] = torch.randn(B, S, cfg.d_model, generator=g)
     return out
+
+
+def run_moe_layer(cfg, layer, inp: dict) -> dict:
+    """The MoE's output, the gradients of sum(y * probe) with respect to x
+    and every leaf (``d<leaf>``, on the leaf as the layer holds it), and the
+    experts it picked (``picks``, from :meth:`MoE.select`)."""
+    picks = []
+    select = layer.select
+
+    def recorded(probs, k):
+        top = select(probs, k)
+        picks.append(top)
+        return top
+
+    leaves = dict(layer.named_parameters())
+    names = sorted(leaves)
+    x = inp["x"].clone().requires_grad_(True)
+    layer.select = recorded
+    try:
+        with torch.enable_grad():
+            for n in names:
+                leaves[n].requires_grad_(True)
+            y = layer(cfg, x)
+            grads = torch.autograd.grad(torch.sum(y * inp["probe"]), [x] + [leaves[n]
+                                                                           for n in names])
+    finally:
+        del layer.select
+        for n in names:
+            leaves[n].requires_grad_(False)
+    return {"y": y.detach(), "dx": grads[0], **{"d" + n: g for n, g in zip(names, grads[1:])},
+            "picks": torch.cat(picks)}
 
 
 def run_tp_layer(kind: str, cfg, layer, inp: dict) -> dict:
     """The layer's output (its logits, loss and the loss's gradients for
-    the head) where it runs: on the CPU meshless, or under the current
-    tensor-parallel context on the shards :func:`tp_layer_cases` bound."""
+    the head; the gradients of x and every leaf for the MoE; the written
+    cache for a decode step) where it runs: on the CPU meshless, or under
+    the current tensor-parallel context on the shards
+    :func:`tp_layer_cases` bound (a decode case's cache as given)."""
     from repro_torch.models import transformer as PT
     from repro_torch.parallel import tensor_parallel as TP
 
     if kind == "embed":
         return {"y": layer(inp["tokens"])}
     x = inp["x"]
+    if kind == "moe":
+        return run_moe_layer(cfg, layer, inp)
+    if kind in ("decode", "mla decode"):
+        cache = inp["cache"]
+        with torch.no_grad():
+            if kind == "decode":
+                y = layer(cfg, x, inp["positions"], cache)
+            else:
+                y = layer(cfg, x, inp["positions"], cache, absorbed=True)
+        return {"y": y, **{"cache " + k: t for k, t in cache.items()}}
     if kind == "attn":
         return {"y": layer(cfg, x, inp["positions"])}
     if kind == "mlp":
@@ -399,29 +521,64 @@ def run_tp_layer(kind: str, cfg, layer, inp: dict) -> dict:
     return {"y": whole, "loss": loss.detach(), "dx": dx, "dw": dw}
 
 
-def tp_layer_cases(mesh) -> dict:
+def tp_layer_cases(mesh) -> tuple[dict, dict]:
     """Every :data:`TP_LAYERS` case on the (1, 2) mesh: the layer's
-    parameters laid out by the reference's rules, the layer run on the
-    rank's shards, its outputs gathered whole (a head's weight gradient
-    from its shards)."""
+    parameters (and a decode case's cache) laid out by the reference's
+    rules, the layer run on the rank's shards, its outputs gathered whole
+    (each weight gradient and the written cache from their shards); and
+    the shapes of the pieces each case's all-gathers moved."""
     from torch.distributed.tensor import DTensor
 
     from repro_torch.parallel import tensor_parallel as TP
 
-    out = {}
+    from repro_torch.parallel import sharding as SH
+
+    out, gathers = {}, {}
     for case, name, kind in TP_LAYERS:
         cfg = tp_config(name)
         layer, prefix = tp_layer(kind, cfg)
         laid = _laid_out(layer, prefix, mesh)
         TP.bind(layer, laid)
-        with TP.context(mesh):
-            got = run_tp_layer(kind, cfg, layer, tp_layer_inputs(kind, cfg))
-        if "dw" in got:
-            w = laid["w"]
-            got["dw"] = DTensor.from_local(got["dw"], mesh, w.placements, run_check=False
-                                           ).full_tensor()
+        inp = tp_layer_inputs(kind, cfg, case=case)
+        cache = None
+        if "cache" in inp:  # the cache laid out by the reference's rule, its shards given
+            cache = SH.distribute(inp["cache"], SH.cache_sharding(cfg, inp["cache"], mesh, 2))
+            inp["cache"] = {k: t.to_local() for k, t in cache.items()}
+        collectives = tp_gathers()
+        with TP.context(mesh, cache=cache):
+            got = run_tp_layer(kind, cfg, layer, inp)
+        gathers[case] = collectives.stop()
+        for k in list(got):
+            leaf = k[1:] if k.startswith("d") else k.removeprefix("cache ")
+            if k != "dx" and k.startswith("d") and leaf in laid:  # a gradient on the leaf's shard
+                got[k] = DTensor.from_local(got[k], mesh, laid[leaf].placements,
+                                            run_check=False).full_tensor()
+            elif cache is not None and k.startswith("cache "):
+                got[k] = cache[leaf].full_tensor()
         out[case] = got
-    return out
+    return out, gathers
+
+
+class tp_gathers:
+    """The shapes of every rank's piece that ``tensor_parallel``'s
+    all-gathers move in this process, from construction to :meth:`stop`."""
+
+    def __init__(self):
+        from repro_torch.parallel import tensor_parallel as TP
+
+        self.shapes, self._orig = [], TP._pieces
+
+        def pieces(t, group, n):
+            self.shapes.append(tuple(t.shape))
+            return self._orig(t, group, n)
+
+        TP._pieces = pieces
+
+    def stop(self) -> list:
+        from repro_torch.parallel import tensor_parallel as TP
+
+        TP._pieces = self._orig
+        return self.shapes
 
 
 def tp_cell_cases(mesh) -> dict:
@@ -446,7 +603,11 @@ def tp_cell_cases(mesh) -> dict:
             cfg, ShapeSpec("decode", "decode", TP_CACHE, TP_BATCH), mesh)
         inp, cache = inputs["decode"]
         cache = SH.distribute({k: v.clone() for k, v in cache.items()}, c_sh)
-        logits, cache = step(SH.distribute(params, p_sh), SH.distribute(inp, b_sh), cache)
+        p_d, i_d = SH.distribute(params, p_sh), SH.distribute(inp, b_sh)
+        gathers = tp_gathers()
+        logits, cache = step(p_d, i_d, cache)
+        res["decode gathers"] = gathers.stop()
+        res["decode cache"] = {k: tuple(v.to_local().shape[1:]) for k, v in cache.items()}
         res["decode"] = (logits, {k: v.full_tensor()[:, :, TP_INDEX] for k, v in cache.items()})
         _, _, (p_sh, o_sh, b_sh) = ST.build_cell(
             cfg, ShapeSpec("train", "train", TP_SEQ, TP_BATCH), mesh)
@@ -519,8 +680,9 @@ def tp_memory_case() -> dict:
 
 def tp_cases() -> dict:
     mesh = tp_mesh()
-    return {"coordinate": tuple(mesh.get_coordinate()), "layers": tp_layer_cases(mesh),
-            "cells": tp_cell_cases(mesh), "memory": tp_memory_case()}
+    layers, gathers = tp_layer_cases(mesh)
+    return {"coordinate": tuple(mesh.get_coordinate()), "layers": layers,
+            "layer gathers": gathers, "cells": tp_cell_cases(mesh), "memory": tp_memory_case()}
 
 
 # --------------------------------------------------------------------------
