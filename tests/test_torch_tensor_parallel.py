@@ -105,6 +105,52 @@ def test_layer_on_the_model_axis_equals_the_unsharded_layer(ranks, case, name, k
             assert gap <= limit, (case, k, gap, limit)
 
 
+@pytest.mark.parametrize("case,name,kind", W.TP_LAYERS, ids=[c[0] for c in W.TP_LAYERS])
+def test_layer_on_a_model_axis_of_one_is_the_meshless_layer(ranks, case, name, kind):
+    """On a "model" axis of one rank (``TP_MESH_ONE``) every layer runs its
+    meshless code under the context: its outputs, gradients, picks and
+    written cache equal the unsharded layer's bit for bit."""
+    cfg = W.tp_config(name)
+    layer, _ = W.tp_layer(kind, cfg)
+    want = W.run_tp_layer(kind, cfg, layer, W.tp_layer_inputs(kind, cfg, case=case))
+    for res in ranks:
+        got = res["tensor parallel"]["layers m1"][case]
+        assert sorted(got) == sorted(want), case
+        for k, w in want.items():
+            assert got[k].dtype == w.dtype and torch.equal(got[k], w), (case, k)
+
+
+@pytest.mark.parametrize("name", list(W.TP_CONFIGS))
+def test_cells_on_a_model_axis_of_one_are_the_meshless_steps(ranks, name):
+    """Each config's cells on ``TP_MESH_ONE`` (a "model" axis of one, DP
+    width one): prefill logits, decode logits with the written cache row,
+    and the training microbatch's loss and gradients equal the port's
+    steps without a mesh on the same weights, bit for bit."""
+    from repro_torch.launch.steps import loss_and_grads, make_decode_step, make_prefill_step
+
+    cfg = W.tp_config(name)
+    model = W.tp_model(cfg)
+    inputs = W.tp_inputs(cfg)
+    prefill = make_prefill_step(cfg)(model, inputs["prefill"])
+    inp, cache = inputs["decode"]
+    logits, cache = make_decode_step(cfg)(model, inp, cache)
+    rows = {k: v[:, :, W.TP_INDEX] for k, v in cache.items()}
+    loss, grads = loss_and_grads(cfg, model, inputs["train"])
+    for res in ranks:
+        got = res["tensor parallel"]["cells m1"][name]
+        assert torch.equal(got["prefill"], prefill), name
+        got_logits, got_rows = got["decode"]
+        assert torch.equal(got_logits, logits), name
+        assert sorted(got_rows) == sorted(rows), name
+        for k, row in rows.items():
+            assert torch.equal(got_rows[k], row), (name, k)
+        got_loss, got_grads = got["train"]
+        assert torch.equal(got_loss, loss), name
+        assert sorted(got_grads) == sorted(grads), name
+        for k, g in grads.items():
+            assert torch.equal(got_grads[k], g.to(got_grads[k].dtype)), (name, k)
+
+
 def test_moe_cases_drop_pairs_and_split_as_planned():
     """The MoE layer cases cover the plan's three branches at m = 2 (the
     experts, f, neither) and capacity drops."""

@@ -249,8 +249,11 @@ def run_rank(rank: int, world: int, url: str, out_dir: str) -> None:
 # --------------------------------------------------------------------------
 
 # ("replica", "data", "model"): each pair of ranks is a (1, 2) ("data",
-# "model") mesh; the replica axis holds no shard of anything
+# "model") mesh; the replica axis holds no shard of anything. TP_MESH_ONE:
+# every rank alone on a "model" axis of one, where each layer runs its
+# meshless code
 TP_MESH = (2, 1, 2)
+TP_MESH_ONE = (4, 1, 1)
 # 3 rows: never the reduced configs' 2 layers, which the cache rule would
 # take for the batch dim of a stacked cache
 TP_BATCH, TP_SEQ, TP_CACHE, TP_INDEX = 3, 8, 16, 5
@@ -328,10 +331,10 @@ def tp_inputs(cfg) -> dict:
             "train": {key: tok(B, TP_SEQ), "labels": tok(B, TP_SEQ)}}
 
 
-def tp_mesh():
+def tp_mesh(shape=TP_MESH):
     from torch.distributed.device_mesh import init_device_mesh
 
-    return init_device_mesh("cpu", TP_MESH, mesh_dim_names=("replica", "data", "model"))
+    return init_device_mesh("cpu", shape, mesh_dim_names=("replica", "data", "model"))
 
 
 def _laid_out(module, prefix: str, mesh):
@@ -681,8 +684,10 @@ def tp_memory_case() -> dict:
 def tp_cases() -> dict:
     mesh = tp_mesh()
     layers, gathers = tp_layer_cases(mesh)
+    one = tp_mesh(TP_MESH_ONE)
     return {"coordinate": tuple(mesh.get_coordinate()), "layers": layers,
-            "layer gathers": gathers, "cells": tp_cell_cases(mesh), "memory": tp_memory_case()}
+            "layer gathers": gathers, "cells": tp_cell_cases(mesh), "memory": tp_memory_case(),
+            "layers m1": tp_layer_cases(one)[0], "cells m1": tp_cell_cases(one)}
 
 
 # --------------------------------------------------------------------------
